@@ -1,0 +1,388 @@
+"""MetricCollection for one process (counterpart of ``tpumetrics/collections.py``).
+
+Compute groups work as in the JAX package: the first ``update`` runs every
+metric, then metrics whose states came out value-identical are merged into
+one group, and later updates run each group's leader only. Members alias
+their leader's tensors (safe, because states are never mutated in place) and
+are refreshed right before any member access.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from tpumetrics_torch.metric import Metric, _resolve_device
+from tpumetrics_torch.utils.data import _flatten_dict
+from tpumetrics_torch.utils.prints import rank_zero_warn
+
+
+class MetricCollection:
+    """Dict-like container of metrics updated and computed together.
+
+    Args:
+        metrics: a single metric, a sequence of metrics (keyed by class name),
+            or a dict name -> metric.
+        additional_metrics: more metrics when ``metrics`` is a sequence.
+        prefix: string prepended to every output key.
+        postfix: string appended to every output key.
+        compute_groups: ``True`` (default) to share state between metrics
+            whose states are identical after the first update (e.g. accuracy
+            and F1, both over tp/fp/tn/fn: only the group leader runs
+            ``update``); ``False`` to disable; or an explicit list of lists
+            of names.
+        device: where every member's states live; ``"cuda"`` (the current
+            card) when omitted, which raises ``RuntimeError`` without a card.
+            Members are moved there at construction.
+
+    Example:
+        >>> import torch
+        >>> from tpumetrics_torch import MetricCollection
+        >>> from tpumetrics_torch.classification import MulticlassAccuracy, MulticlassF1Score
+        >>> target = torch.tensor([0, 2, 0, 2, 0, 1, 0, 2])
+        >>> preds = torch.tensor([2, 1, 2, 0, 1, 2, 2, 2])
+        >>> metrics = MetricCollection(
+        ...     [MulticlassAccuracy(num_classes=3, average='micro', device='cpu'),
+        ...      MulticlassF1Score(num_classes=3, average='macro', device='cpu')], device='cpu')
+        >>> {k: round(float(v), 4) for k, v in metrics(preds, target).items()}
+        {'MulticlassAccuracy': 0.125, 'MulticlassF1Score': 0.0833}
+    """
+
+    _modules: "OrderedDict[str, Metric]"
+    _groups: Dict[int, List[str]]
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> None:
+        self._device = _resolve_device(device)
+        self._modules = OrderedDict()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups_checked: bool = False
+        self._state_is_copy: bool = False
+
+        self.add_metrics(metrics, *additional_metrics)
+
+    # ---------------------------------------------------------------- updates
+
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Call ``forward`` on every metric; kwargs are routed per signature.
+        No compute-group fast path: forward's batch values need every metric."""
+        return self._compute_and_reduce("forward", *args, **kwargs)
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        return self.forward(*args, **kwargs)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Update every metric or, once compute groups are established, only
+        each group's leader."""
+        if self._groups_checked:
+            for cg in self._groups.values():
+                m0 = self._modules[cg[0]]
+                m0.update(*args, **m0._filter_kwargs(**kwargs))
+            # leaders advanced: members are stale until the next propagation
+            self._state_is_copy = False
+        else:
+            # first update runs per metric so there are states to compare
+            for m in self._modules.values():
+                m.update(*args, **m._filter_kwargs(**kwargs))
+            if self._enable_compute_groups:
+                self._groups = self._merged_groups(self._groups, self._modules)
+                self._state_is_copy = True  # members just updated themselves
+            else:
+                self._state_is_copy = False
+            self._groups_checked = True
+
+    @classmethod
+    def _merged_groups(
+        cls, groups: Dict[int, List[str]], modules: "OrderedDict[str, Metric]"
+    ) -> Dict[int, List[str]]:
+        """Merge groups whose leaders hold value-identical states: O(n²)
+        pairwise comparisons on the host, after ONE device-to-host copy of
+        every leader's states."""
+        groups = {k: list(v) for k, v in groups.items()}
+        host_states = cls._leader_host_states(groups, modules)
+        num_groups = len(groups)
+        while True:
+            for cg_idx1, cg_members1 in list(groups.items()):
+                merged = False
+                for cg_idx2, cg_members2 in list(groups.items()):
+                    if cg_idx1 == cg_idx2 or cg_idx1 not in groups or cg_idx2 not in groups:
+                        continue
+                    if cls._equal_host_states(host_states[cg_members1[0]], host_states[cg_members2[0]]):
+                        groups[cg_idx1].extend(groups.pop(cg_idx2))
+                        merged = True
+                        break
+                if merged:
+                    break
+            if len(groups) == num_groups:
+                break
+            num_groups = len(groups)
+        return dict(enumerate(groups.values()))
+
+    @staticmethod
+    def _leader_host_states(
+        groups: Dict[int, List[str]], modules: "OrderedDict[str, Metric]"
+    ) -> Dict[str, Dict[str, tuple]]:
+        """Every group leader's states on the host, ``{leader: {attr: (type,
+        kind, value)}}`` with kind ``"tensor"`` / ``"list"``. The tensors are
+        packed as raw bytes into one buffer on the device, copied to the host
+        once, and unpacked into numpy arrays of their own dtypes."""
+        flat: List[torch.Tensor] = []
+        layout: Dict[str, Dict[str, tuple]] = {}
+        for cg in groups.values():
+            m = modules[cg[0]]
+            entry: Dict[str, tuple] = {}
+            for attr in m._defaults:
+                val = getattr(m, attr)
+                if isinstance(val, list):
+                    entry[attr] = (type(val), "list", list(range(len(flat), len(flat) + len(val))))
+                    flat.extend(val)
+                else:
+                    entry[attr] = (type(val), "tensor", len(flat))
+                    flat.append(val)
+            layout[cg[0]] = entry
+        fetched: List[np.ndarray] = []
+        if flat:
+            raw = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in flat]
+            host = torch.cat([r.to(flat[0].device) for r in raw]).cpu().numpy()
+            offset = 0
+            for t, r in zip(flat, raw):
+                dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+                fetched.append(host[offset : offset + r.numel()].view(dtype).reshape(tuple(t.shape)))
+                offset += r.numel()
+        out: Dict[str, Dict[str, tuple]] = {}
+        for name, entry in layout.items():
+            out[name] = {
+                attr: (orig_type, kind, [fetched[i] for i in slot] if kind == "list" else fetched[slot])
+                for attr, (orig_type, kind, slot) in entry.items()
+            }
+        return out
+
+    @staticmethod
+    def _equal_host_states(state1: Dict[str, tuple], state2: Dict[str, tuple]) -> bool:
+        """Host-side value equality of two leaders' states: same keys, types
+        and shapes, values ``allclose`` after casting to the first's dtype."""
+
+        def _close(a1: np.ndarray, a2: np.ndarray) -> bool:
+            if a1.dtype != a2.dtype:
+                a2 = a2.astype(a1.dtype)
+            return bool(np.allclose(a1, a2, rtol=1e-5, atol=1e-8))
+
+        if len(state1) == 0 or len(state2) == 0 or state1.keys() != state2.keys():
+            return False
+        for key in state1:
+            type1, kind, val1 = state1[key]
+            type2, _, val2 = state2[key]
+            if type1 is not type2:
+                return False
+            if kind == "tensor":
+                if val1.shape != val2.shape or not _close(val1, val2):
+                    return False
+            elif len(val1) != len(val2) or not all(
+                s1.shape == s2.shape and _close(s1, s2) for s1, s2 in zip(val1, val2)
+            ):
+                return False
+        return True
+
+    def _compute_groups_create_state_ref(self, copy: bool = False) -> None:
+        """Point every group member's states at its leader's tensors."""
+        if not self._state_is_copy:
+            for cg in self._groups.values():
+                m0 = self._modules[cg[0]]
+                for name in cg[1:]:
+                    mi = self._modules[name]
+                    for state in m0._defaults:
+                        m0_state = getattr(m0, state)
+                        # lists are shallow-copied so member appends never touch the leader's
+                        object.__setattr__(mi, state, list(m0_state) if isinstance(m0_state, list) else m0_state)
+                    mi._update_count = m0._update_count
+                    mi._computed = None
+        self._state_is_copy = copy
+
+    # ---------------------------------------------------------------- results
+
+    def compute(self) -> Dict[str, Any]:
+        """Compute every metric into one flat dict."""
+        return self._compute_and_reduce("compute")
+
+    def _compute_and_reduce(self, method_name: str, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        if method_name == "compute":
+            self._compute_groups_create_state_ref(copy=False)
+            result = {k: m.compute() for k, m in self._modules.items()}
+        elif method_name == "forward":
+            result = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self._modules.items()}
+            self._state_is_copy = False  # every metric advanced its own state
+        else:
+            raise ValueError(f"method_name should be either 'compute' or 'forward', but got {method_name}")
+        return self._flatten_results(result)
+
+    def _flatten_results(self, result: Dict[str, Any]) -> Dict[str, Any]:
+        """Flatten dict-valued results (colliding inner keys get the metric
+        name) and apply prefix/postfix."""
+        _, duplicates = _flatten_dict(result)
+        flattened_results: Dict[str, Any] = {}
+        for k, res in result.items():
+            if isinstance(res, dict):
+                for key, v in res.items():
+                    flattened_results[f"{k}_{key}" if duplicates else key] = v
+            else:
+                flattened_results[k] = res
+        return {self._set_name(k): v for k, v in flattened_results.items()}
+
+    def reset(self) -> None:
+        """Reset every metric."""
+        for m in self._modules.values():
+            m.reset()
+        self._state_is_copy = True  # all states are (equal) defaults again
+
+    def add_metrics(
+        self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
+    ) -> None:
+        """Add metrics from a metric, a sequence or a dict (sorted by name),
+        moving each onto the collection's device."""
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence) and not isinstance(metrics, str):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                rank_zero_warn(
+                    f"You have passed extra arguments {remain} which are not `Metric` so they will be ignored."
+                )
+        elif additional_metrics:
+            raise ValueError(
+                f"You have passed extra arguments {additional_metrics} which are not compatible"
+                f" with first passed dictionary {metrics} so they will be ignored."
+            )
+
+        if isinstance(metrics, dict):
+            named = [(name, metrics[name]) for name in sorted(metrics.keys())]
+        elif isinstance(metrics, Sequence):
+            named = [(m.__class__.__name__, m) for m in metrics]
+        else:
+            raise ValueError(
+                "Unknown input to MetricCollection. Expected, `Metric` or `dict`/`sequence` of the"
+                f" previous, but got {metrics}"
+            )
+        for name, metric in named:
+            if not isinstance(metric, Metric):
+                raise ValueError(f"Value {metric} belonging to key {name} is not an instance of `Metric`")
+            if name in self._modules:
+                raise ValueError(f"Encountered two metrics both named {name}")
+            self._modules[name] = metric.to(self._device) if metric.device != self._device else metric
+
+        self._groups_checked = False
+        if isinstance(self._enable_compute_groups, list):
+            self._groups = dict(enumerate(self._enable_compute_groups))
+            for group in self._groups.values():
+                for name in group:
+                    if name not in self._modules:
+                        raise ValueError(
+                            f"Input {name} in `compute_groups` argument does not match a metric in the"
+                            f" collection. Please make sure that {self._enable_compute_groups} matches"
+                            f" {list(self._modules)}"
+                        )
+            self._groups_checked = True
+        else:
+            self._groups = {i: [str(k)] for i, k in enumerate(self._modules)}
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        """Current compute groups."""
+        return self._groups
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def _to_renamed_dict(self) -> "OrderedDict[str, Metric]":
+        return OrderedDict((self._set_name(k), v) for k, v in self._modules.items())
+
+    def __iter__(self) -> Iterator[Hashable]:
+        return iter(self.keys())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules
+
+    def keys(self, keep_base: bool = False) -> Iterable[Hashable]:
+        if keep_base:
+            return self._modules.keys()
+        return self._to_renamed_dict().keys()
+
+    def items(self, keep_base: bool = False, copy_state: bool = True) -> Iterable[Tuple[str, Metric]]:
+        """Key/metric pairs; group state is propagated to members first."""
+        self._compute_groups_create_state_ref(copy_state)
+        if keep_base:
+            return self._modules.items()
+        return self._to_renamed_dict().items()
+
+    def values(self, copy_state: bool = True) -> Iterable[Metric]:
+        self._compute_groups_create_state_ref(copy_state)
+        return self._modules.values()
+
+    def __getitem__(self, key: str) -> Metric:
+        self._compute_groups_create_state_ref(copy=True)
+        return self._modules[key]
+
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    def __repr__(self) -> str:
+        repr_str = self.__class__.__name__ + "(\n  "
+        repr_str += ",\n  ".join(f"{k}: {v!r}" for k, v in self._modules.items())
+        if self.prefix:
+            repr_str += f",\n  prefix={self.prefix}"
+        if self.postfix:
+            repr_str += f",\n  postfix={self.postfix}"
+        return repr_str + "\n)"
+
+    # ------------------------------------------------------ functional bridge
+
+    def init_state(self) -> Dict[str, Dict[str, Any]]:
+        """Fresh per-leader state dicts (name -> state dict): one per compute
+        group. Groups are established by the first eager ``update`` or by an
+        explicit ``compute_groups`` list; otherwise every metric is its own
+        group."""
+        self._compute_groups_create_state_ref(copy=False)
+        return {cg[0]: self._modules[cg[0]].init_state() for cg in self._groups.values()}
+
+    def functional_update(
+        self, state: Dict[str, Dict[str, Any]], *args: Any, **kwargs: Any
+    ) -> Dict[str, Dict[str, Any]]:
+        """Pure collection update: one update per compute-group leader."""
+        out = {}
+        for cg in self._groups.values():
+            m0 = self._modules[cg[0]]
+            out[cg[0]] = m0.functional_update(state[cg[0]], *args, **m0._filter_kwargs(**kwargs))
+        return out
+
+    def functional_compute(self, state: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Pure collection compute: each member computes from its leader's state."""
+        results: Dict[str, Any] = {}
+        for cg in self._groups.values():
+            for name in cg:
+                results[name] = self._modules[name].functional_compute(state[cg[0]])
+        return self._flatten_results(results)

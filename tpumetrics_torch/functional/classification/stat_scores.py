@@ -1,0 +1,218 @@
+"""Stat scores (tp/fp/tn/fn), multiclass part (port of
+``tpumetrics/functional/classification/stat_scores.py``).
+
+``ignore_index`` is handled with a validity mask carried beside the data, as
+in the JAX package, so shapes never depend on the data.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from tpumetrics_torch.utils.checks import _check_same_shape
+from tpumetrics_torch.utils.data import _bincount, _one_hot, select_topk
+
+Tensor = torch.Tensor
+
+
+def _masked_confmat(preds: Tensor, target: Tensor, mask: Tensor, n: int) -> Tensor:
+    """(n, n) int32 confusion matrix over valid positions only.
+
+    One ``bincount`` over the flat index ``target * n + preds``, with masked
+    positions and labels outside ``[0, n)`` sent to a sentinel bucket that is
+    dropped: the same counts as the JAX package's one-hot matmul (where an
+    out-of-range label one-hots to a zero row), exact at any size and
+    unaffected by autocast.
+    """
+    preds = preds.reshape(-1)
+    target = target.reshape(-1)
+    valid = (mask.reshape(-1) == 1) & (target >= 0) & (target < n) & (preds >= 0) & (preds < n)
+    idx = torch.where(valid, target.to(torch.int64) * n + preds, n * n)
+    return _bincount(idx, minlength=n * n + 1)[:-1].reshape(n, n)
+
+
+def _multiclass_stat_scores_arg_validation(
+    num_classes: int,
+    top_k: int = 1,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    if not isinstance(num_classes, int) or num_classes < 2:
+        raise ValueError(f"Expected argument `num_classes` to be an integer larger than 1, but got {num_classes}")
+    if not (isinstance(top_k, int) and top_k >= 1):
+        raise ValueError(f"Expected argument `top_k` to be an integer larger than or equal to 1, but got {top_k}")
+    if top_k > num_classes:
+        raise ValueError(
+            f"Expected argument `top_k` to be smaller or equal to `num_classes` but got {top_k} and {num_classes}"
+        )
+    allowed_average = ("micro", "macro", "weighted", "none", None)
+    if average not in allowed_average:
+        raise ValueError(f"Expected argument `average` to be one of {allowed_average}, but got {average}")
+    if multidim_average not in ("global", "samplewise"):
+        raise ValueError(
+            f"Expected argument `multidim_average` to be one of ('global', 'samplewise'), but got {multidim_average}"
+        )
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an int, but got {ignore_index}")
+
+
+def _multiclass_stat_scores_tensor_validation(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    """Shape and value checks. The value checks copy to the host by design
+    (``validate_args=False`` skips them)."""
+    if preds.ndim == target.ndim + 1:
+        if not preds.is_floating_point():
+            raise ValueError("If `preds` have one dimension more than `target`, `preds` should be a float tensor.")
+        if preds.shape[1] != num_classes:
+            raise ValueError("If `preds` have one dimension more than `target`, `preds.shape[1]` should be"
+                             " equal to number of classes.")
+        if preds.shape[2:] != target.shape[1:]:
+            raise ValueError(
+                "If `preds` have one dimension more than `target`, the shape of `preds` should be"
+                " (N, C, ...), and the shape of `target` should be (N, ...)."
+            )
+        if multidim_average != "global" and preds.ndim < 3:
+            raise ValueError("Expected input to be at least 3D when multidim_average is set to `samplewise`")
+    elif preds.ndim == target.ndim:
+        _check_same_shape(preds, target)
+        if multidim_average != "global" and preds.ndim < 2:
+            raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
+    else:
+        raise ValueError(
+            "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
+            " and `preds` should be (N, C, ...)."
+        )
+    if target.numel():
+        unique_values = torch.unique(target).tolist()
+        bad = [v for v in unique_values if (v < 0 or v >= num_classes) and v != ignore_index]
+        if bad:
+            raise RuntimeError(
+                f"Detected the following values in `target`: {bad} but expected only values in"
+                f" [0, {num_classes}) (ignore_index={ignore_index})."
+            )
+    if preds.ndim == target.ndim and not preds.is_floating_point() and preds.numel():
+        if int(preds.max()) >= num_classes or int(preds.min()) < 0:
+            raise RuntimeError(f"Detected more unique values in `preds` than expected. Expected only {num_classes}.")
+
+
+def _multiclass_stat_scores_format(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    ignore_index: Optional[int] = None,
+    top_k: int = 1,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Probabilities/logits to labels (top_k=1) or kept scores (top_k>1);
+    flatten extra dims; build the int32 validity mask."""
+    if preds.ndim == target.ndim + 1 and top_k == 1:
+        preds = torch.argmax(preds, dim=1)
+    if ignore_index is not None:
+        mask = (target != ignore_index).to(torch.int32)
+        target = torch.where(target == ignore_index, 0, target)
+    else:
+        mask = torch.ones_like(target, dtype=torch.int32)
+    target = target.to(torch.int32)
+
+    if preds.ndim == target.ndim + 1:  # top_k > 1: scores retained
+        preds = preds.reshape(preds.shape[0], num_classes, -1)
+    else:
+        preds = preds.to(torch.int32).reshape(preds.shape[0], -1)
+    target = target.reshape(target.shape[0], -1)
+    mask = mask.reshape(mask.shape[0], -1)
+    return preds, target, mask
+
+
+def _sum32(x: Tensor, dim) -> Tensor:
+    return torch.sum(x, dim=dim, dtype=torch.int32)
+
+
+def _multiclass_stat_scores_update(
+    preds: Tensor,
+    target: Tensor,
+    mask: Tensor,
+    num_classes: int,
+    top_k: int = 1,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Per-class int32 tp/fp/tn/fn.
+
+    Label path (top_k == 1, global): one masked confusion matrix. Score path
+    (top_k > 1) and samplewise: one-hot products summed over the samples.
+    """
+    if preds.ndim == target.ndim + 1:  # top_k > 1 score path
+        preds_oh = select_topk(preds, top_k, dim=1)  # (N, C, X)
+        target_oh = _one_hot(target, num_classes).movedim(-1, 1)  # (N, C, X)
+        m = mask[:, None, :]
+        dims = (0, 2) if multidim_average == "global" else 2
+        tp = _sum32(preds_oh * target_oh * m, dims)
+        fp = _sum32(preds_oh * (1 - target_oh) * m, dims)
+        fn = _sum32((1 - preds_oh) * target_oh * m, dims)
+        tn = _sum32((1 - preds_oh) * (1 - target_oh) * m, dims)
+        return tp, fp, tn, fn
+
+    if multidim_average == "global":
+        confmat = _masked_confmat(preds, target, mask, num_classes)
+        tp = torch.diagonal(confmat)
+        fp = _sum32(confmat, 0) - tp
+        fn = _sum32(confmat, 1) - tp
+        tn = _sum32(confmat, (0, 1)) - tp - fp - fn
+        return tp, fp, tn, fn
+
+    # samplewise label path: one-hot products per sample
+    preds_oh = _one_hot(preds, num_classes)  # (N, X, C)
+    target_oh = _one_hot(target, num_classes)
+    m = mask[..., None]
+    tp = _sum32(preds_oh * target_oh * m, 1)
+    fp = _sum32(preds_oh * (1 - target_oh) * m, 1)
+    fn = _sum32((1 - preds_oh) * target_oh * m, 1)
+    tn = _sum32((1 - preds_oh) * (1 - target_oh) * m, 1)
+    return tp, fp, tn, fn
+
+
+def _multiclass_stat_scores_compute(
+    tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor, average: Optional[str] = "macro", multidim_average: str = "global"
+) -> Tensor:
+    """Apply micro-sum if requested and stack [tp, fp, tn, fn, support]."""
+    res = torch.stack([tp, fp, tn, fn, tp + fn], dim=-1)
+    if average == "micro":
+        return _sum32(res, -2)
+    return res
+
+
+def multiclass_stat_scores(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    average: Optional[str] = "macro",
+    top_k: int = 1,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Per-class tp/fp/tn/fn for multiclass tasks.
+
+    Example:
+        >>> import torch
+        >>> from tpumetrics_torch.functional.classification import multiclass_stat_scores
+        >>> target = torch.tensor([2, 1, 0, 0])
+        >>> preds = torch.tensor([2, 1, 0, 1])
+        >>> multiclass_stat_scores(preds, target, num_classes=3, average='micro').tolist()
+        [3, 1, 7, 1, 4]
+    """
+    if validate_args:
+        _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index)
+        _multiclass_stat_scores_tensor_validation(preds, target, num_classes, multidim_average, ignore_index)
+    preds, target, mask = _multiclass_stat_scores_format(preds, target, num_classes, ignore_index, top_k)
+    tp, fp, tn, fn = _multiclass_stat_scores_update(
+        preds, target, mask, num_classes, top_k, average, multidim_average
+    )
+    return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)

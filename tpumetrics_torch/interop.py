@@ -1,0 +1,72 @@
+"""Carry metric state between the JAX package and the port.
+
+A state is what ``init_state()`` / ``functional_update()`` return, with
+numpy arrays as leaves: ``{state_name: array}`` for a metric (a list of
+arrays for a list state), ``{leader_name: {state_name: array}}`` for a
+collection, keyed by compute-group leader. ``load_state`` puts such a state
+into a port metric or collection on its device; ``export_state`` takes it
+out. Dtypes are kept (int32 counts, float32 values). This module imports
+nothing of JAX: the JAX side converts with ``np.asarray`` / ``jnp.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+from tpumetrics_torch.collections import MetricCollection
+from tpumetrics_torch.metric import Metric
+
+
+def _load_metric(metric: Metric, state: Dict[str, Any]) -> None:
+    if set(state) != set(metric._defaults):
+        raise ValueError(f"{type(metric).__name__} has states {sorted(metric._defaults)}, got {sorted(state)}")
+    for name, value in state.items():
+        default = metric._defaults[name]
+        if isinstance(default, list):
+            value = [torch.tensor(np.asarray(v), device=metric.device) for v in value]
+        else:
+            value = torch.tensor(np.asarray(value), device=metric.device)
+            if value.shape != default.shape or value.dtype != default.dtype:
+                raise ValueError(
+                    f"{type(metric).__name__}.{name}: expected {default.dtype}{tuple(default.shape)},"
+                    f" got {value.dtype}{tuple(value.shape)}"
+                )
+        object.__setattr__(metric, name, value)
+    metric._computed = None
+
+
+def load_state(target: Union[Metric, MetricCollection], state: Dict[str, Any]) -> None:
+    """Put ``state`` (numpy leaves, keyed like ``init_state()``) into ``target``.
+
+    A collection's state is keyed by compute-group leader, so ``target`` must
+    have the same groups: set them with ``compute_groups=[[...], ...]`` or
+    establish them with one ``update`` first.
+    """
+    if isinstance(target, Metric):
+        _load_metric(target, state)
+        return
+    leaders = [cg[0] for cg in target.compute_groups.values()]
+    if sorted(state) != sorted(leaders) or not target._groups_checked:
+        raise ValueError(
+            f"State is keyed by {sorted(state)} but the collection's compute-group leaders are {sorted(leaders)}"
+            f"{'' if target._groups_checked else ' (groups not established yet)'}: pass compute_groups=... to match"
+        )
+    for name in leaders:
+        _load_metric(target._modules[name], state[name])
+    target._state_is_copy = False  # members pick the leaders' states up on next access
+
+
+def export_state(source: Union[Metric, MetricCollection]) -> Dict[str, Any]:
+    """``source``'s state as numpy arrays, keyed like ``init_state()``."""
+
+    def _host(val: Any) -> Any:
+        if isinstance(val, list):
+            return [v.detach().cpu().numpy() for v in val]
+        return val.detach().cpu().numpy()
+
+    if isinstance(source, Metric):
+        return {name: _host(getattr(source, name)) for name in source._defaults}
+    return {cg[0]: export_state(source._modules[cg[0]]) for cg in source.compute_groups.values()}

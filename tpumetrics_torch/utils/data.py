@@ -1,0 +1,101 @@
+"""Tensor helpers for metric state handling (counterpart of ``tpumetrics/utils/data.py``).
+
+Counts are int32, as in the JAX package without x64: ``torch.bincount`` and
+integer ``sum`` return int64, so the helpers here cast back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
+    """Concatenate a (possibly listed) state along dim 0."""
+    if isinstance(x, Tensor):
+        return x
+    if not x:
+        raise ValueError("No samples to concatenate")
+    return torch.cat([y.reshape(1) if y.ndim == 0 else y for y in x], dim=0)
+
+
+def dim_zero_sum(x: Tensor) -> Tensor:
+    return torch.sum(x, dim=0)
+
+
+def dim_zero_mean(x: Tensor) -> Tensor:
+    return torch.mean(x, dim=0)
+
+
+def dim_zero_max(x: Tensor) -> Tensor:
+    return torch.amax(x, dim=0)
+
+
+def dim_zero_min(x: Tensor) -> Tensor:
+    return torch.amin(x, dim=0)
+
+
+def _flatten(x: Sequence) -> list:
+    """Flatten list of lists into one list."""
+    return [item for sublist in x for item in sublist]
+
+
+def _flatten_dict(x: Dict) -> Tuple[Dict, bool]:
+    """Flatten dict of dicts into one level; returns (flat_dict, any_key_collided)."""
+    new_dict = {}
+    duplicates = False
+    for key, value in x.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                if k in new_dict:
+                    duplicates = True
+                new_dict[k] = v
+        else:
+            if key in new_dict:
+                duplicates = True
+            new_dict[key] = value
+    return new_dict, duplicates
+
+
+def _one_hot(labels: Tensor, num_classes: int) -> Tensor:
+    """int32 one-hot with the class axis last, like ``jax.nn.one_hot``:
+    labels outside ``[0, num_classes)`` (negative ones included) give an
+    all-zero row, where ``torch.nn.functional.one_hot`` would raise."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels.unsqueeze(-1) == classes).to(torch.int32)
+
+
+def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor:
+    """Dense labels ``(N, d1, ...)`` to one-hot ``(N, C, d1, ...)`` (class axis at 1)."""
+    if num_classes is None:
+        num_classes = int(label_tensor.max()) + 1
+    return _one_hot(label_tensor, num_classes).movedim(-1, 1)
+
+
+def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
+    """int32 mask of the top-k entries along ``dim``."""
+    if topk == 1:
+        idx = torch.argmax(prob_tensor, dim=dim)
+        return _one_hot(idx, prob_tensor.shape[dim]).movedim(-1, dim)
+    idx = torch.topk(prob_tensor, topk, dim=dim).indices
+    return torch.zeros_like(prob_tensor, dtype=torch.int32).scatter_(dim, idx, 1)
+
+
+def _count_dtype() -> torch.dtype:
+    """Integer dtype of count accumulators: int32, the JAX package's default
+    (it wraps past ~2.1B accumulated samples, as there)."""
+    return torch.int32
+
+
+def _bincount(x: Tensor, minlength: Optional[int] = None) -> Tensor:
+    """int32 counts of the ints in ``x``; negative values and values
+    ``>= minlength`` are DROPPED (``torch.bincount`` raises on negatives, so
+    they go to a sentinel bucket that is sliced off)."""
+    x = x.reshape(-1)
+    if minlength is None:
+        minlength = int(x.max()) + 1 if x.numel() else 0
+    x = torch.where((x < 0) | (x >= minlength), minlength, x)
+    return torch.bincount(x, minlength=minlength + 1)[:minlength].to(torch.int32)
