@@ -10,9 +10,12 @@ Phases, each of which passes or exits non-zero:
 1. the card's name and power limit;
 2. build every CUDA kernel of the port from ``tpumetrics_torch/csrc``;
 3. kernel phase: ``binned_confusion`` against its plain torch version on
-   the same inputs, exact, at the main path's shapes and at edge cases,
+   the same inputs, exact, at the main path's shapes and at edge cases
+   (contended narrow C, T=1, unsorted and duplicate thresholds with +-inf,
+   NaN, -0.0 and 0.0, more thresholds than shared memory holds, C=8193),
    with the kernel's time (CUDA events, L2 flushed between launches), the
-   plain version's time and the bound;
+   plain version's time, the time of the torch-ops histogram path as a
+   yardstick, and the bound;
 4. slice phase: an ImageNet-1k validation-sized evaluation (50,000 samples,
    1000 classes, batches of 8192 and a ragged 848) through
    ``MetricCollection({acc, f1, auroc(T=200)})`` on the card, held against
@@ -40,6 +43,9 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 SEED = 0
+# the kernel before its redesign, at N=8192, C=1000, T=200: chip_smoke.py of the
+# parent tree on an H100 80GB HBM3 at a 700 W power limit
+EARLIER_MS = 1.2815
 
 
 def fail(msg: str) -> None:
@@ -55,13 +61,16 @@ def check(cond: bool, msg: str) -> None:
 def cuda_ms(torch, fn, reps: int, flush=None) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` timed calls after 3 warm
     ones, each between its own pair of CUDA events; ``flush()`` runs before
-    each call, outside the events."""
+    each call, outside the events. A spin of about 0.1 ms on the device
+    follows it, so the host has queued the call before the device reaches the
+    first event: the time is the device's, not the host's launch overhead."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -93,10 +102,12 @@ def binned_bound(n: int, c: int, t: int) -> dict:
 
 def kernel_phase(torch, bc) -> dict:
     """Kernel against plain version, exact, at every listed shape; times at the two large ones."""
+    from tpumetrics_torch.functional.classification.precision_recall_curve import _binned_confusion_hist
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
-    def inputs(n, c, t, ties=False, special=False, unsorted=False):
+    def inputs(n, c, t, ties=False, special=False, unsorted=False, edge_thr=False, one_bucket=False):
         preds = rng.random((n, c), dtype=np.float32)
         bits = rng.integers(0, 2, (n, c)).astype(np.float32)
         valid = (rng.random((n, c)) < 0.9).astype(np.float32)
@@ -114,6 +125,15 @@ def kernel_phase(torch, bc) -> dict:
             flat[idx[0::3]] = np.nan
             flat[idx[1::3]] = np.inf
             flat[idx[2::3]] = -np.inf
+        if edge_thr:
+            odd = [np.nan, np.inf, -np.inf, -0.0, 0.0, 0.5, 0.5, np.nan, -0.0, 1.0]
+            thr = rng.permutation(np.concatenate([thr, np.asarray(odd, np.float32)])).astype(np.float32)
+            flat = preds.reshape(-1)
+            idx = rng.choice(flat.size, size=min(flat.size, 600), replace=False)
+            for j, val in enumerate([0.0, -0.0, 0.5, 1.0, np.nan, np.inf]):
+                flat[idx[j::6]] = val
+        if one_bucket:
+            preds[:] = np.float32(0.999)
         return [torch.from_numpy(x).to(dev) for x in (preds, bits * valid, valid, thr)]
 
     cases = [
@@ -129,6 +149,11 @@ def kernel_phase(torch, bc) -> dict:
         ("ties 4096x33x200", (4096, 33, 200), {"ties": True}),
         ("NaN and +-inf preds 2048x130x64", (2048, 130, 64), {"special": True}),
         ("unsorted duplicate thresholds 3000x70x100", (3000, 70, 100), {"unsorted": True}),
+        ("contended micro path 1048576x1x200", (1 << 20, 1, 200), {}),
+        ("every pred in one bucket 200000x3x200", (200000, 3, 200), {"one_bucket": True}),
+        ("+-inf, NaN, -0.0 and 0.0 thresholds 2048x130x64", (2048, 130, 64), {"edge_thr": True}),
+        ("bucket ranges 8192x128x4096", (8192, 128, 4096), {}),
+        ("histogram beyond shared memory 512x3x30000, unsorted with duplicates", (512, 3, 30000), {"unsorted": True}),
     ]
     max_err = 0.0
     timed = {}
@@ -146,15 +171,21 @@ def kernel_phase(torch, bc) -> dict:
             flush = lambda: flush_buf.zero_()  # noqa: E731
             ms = cuda_ms(torch, lambda: bc.binned_confusion_counts(preds, y, v, thr), reps=30, flush=flush)
             plain_ms = cuda_ms(torch, lambda: bc.binned_confusion_plain(preds, y, v, thr), reps=5, flush=flush)
+            # yardstick, not a port: the torch-ops histogram (argsort, searchsorted, bincount, cumsum)
+            bits, invalid = y != 0, v == 0
+            hist_ms = cuda_ms(torch, lambda: _binned_confusion_hist(preds, bits, thr, invalid), reps=10, flush=flush)
             bound = binned_bound(n, c, thr.shape[0])
-            timed[label] = {"n": n, "c": c, "t": thr.shape[0], "ms": ms, "plain_ms": plain_ms, **bound}
+            timed[label] = {
+                "n": n, "c": c, "t": thr.shape[0], "ms": ms, "plain_ms": plain_ms, "torch_ops_hist_ms": hist_ms, **bound
+            }
             print(
-                f"kernel phase: {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms"
+                f"kernel phase: {label}: kernel {ms:.4f} ms ({ms / bound['bound_ms']:.2f}x its bound),"
+                f" plain {plain_ms:.4f} ms, torch-ops histogram {hist_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms"
                 f" by {bound['bound_by']} (bytes {bound['bytes']} -> {bound['bytes_ms']:.4f} ms at 3.35 TB/s;"
                 f" ops {bound['ops']} -> {bound['ops_ms']:.4f} ms at 67 TFLOP/s fp32)",
                 flush=True,
             )
-            del flush_buf
+            del flush_buf, bits, invalid
         del preds, y, v, thr, tp, pp, ref_tp, ref_pp
         torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "timed": timed}
@@ -348,9 +379,9 @@ def main() -> None:
     for lib in libs.values():
         log = lib.with_name(lib.name + ".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"build: {lib.name}: {line.strip()}", flush=True)
+            lines = [line.strip() for line in log.read_text().splitlines() if "registers" in line or "spill" in line]
+            for line in dict.fromkeys(lines):  # once each, in order
+                print(f"build: {lib.name}: {line}", flush=True)
 
     kern = kernel_phase(torch, bc)
     imagenet = slice_phase(torch, bc, "ImageNet-1k val 50000x1000 T=200", 50000, 1000, 200, 8192)
@@ -372,7 +403,9 @@ def main() -> None:
                 "launches": imagenet["launches"],
                 "max_abs_err": kern["max_abs_err"],
                 "ms": main_shape["ms"],
+                "earlier_ms": EARLIER_MS,  # the kernel before its redesign
                 "plain_ms": main_shape["plain_ms"],
+                "torch_ops_hist_ms": main_shape["torch_ops_hist_ms"],  # a composite of library calls, not a port
                 "bound_ms": main_shape["bound_ms"],
                 "bound_by": main_shape["bound_by"],
                 "library_ms": None,  # no single PyTorch call computes these counts

@@ -28,19 +28,34 @@ def cuda():
     return torch.device("cuda")
 
 
+# thresholds every case starts from: a duplicate, a NaN, +-inf, and -0.0 beside 0.0
+_ODD_THRESHOLDS = np.asarray([0.5, -0.0, np.nan, np.inf, -np.inf, 0.5, 0.0], np.float32)
+
+
 def _inputs(n, c, t, seed=0):
+    """t unsorted thresholds (the first of them from ``_ODD_THRESHOLDS``), ties, NaN and signed-zero preds."""
     rng = np.random.default_rng(seed)
     preds = rng.random((n, c)).astype(np.float32)
     valid = (rng.random((n, c)) < 0.8).astype(np.float32)
     y = rng.integers(0, 2, (n, c)).astype(np.float32) * valid
-    thr = rng.permutation(np.concatenate([rng.random(t), [-np.inf, np.inf, 0.5, 0.5]])).astype(np.float32)
-    preds[: min(n, thr.shape[0]), 0] = thr[: min(n, thr.shape[0])]  # ties
+    odd = _ODD_THRESHOLDS[:t]
+    thr = rng.permutation(np.concatenate([rng.random(t - odd.size), odd])).astype(np.float32)
+    preds[: min(n, t), 0] = thr[: min(n, t)]  # ties
     preds[1::11, -1] = np.nan
+    preds[2::13, -1] = -0.0
+    preds[3::13, -1] = 0.0
     return [torch.from_numpy(x) for x in (preds, y, valid, thr)]
 
 
 @pytest.mark.parametrize(
-    "n,c,t", [(257, 5, 13), (64, 1, 3), (130, 4, 129), (8192, 128, 64), (848, 1000, 200), (256, 8193, 64)]
+    "n,c,t",
+    [
+        (257, 5, 13), (64, 1, 3), (130, 4, 129), (8192, 128, 64), (848, 1000, 200), (256, 8193, 64),
+        (1 << 20, 1, 200),  # narrow C: every row of a warp in the same 201 buckets
+        (1000, 37, 1),
+        (200000, 3, 200),  # splits of thousands of rows into one histogram
+        (512, 3, 30000),  # one class's histogram exceeds shared memory: the buckets split into ranges
+    ],
 )
 def test_kernel_matches_plain_version(cuda, n, c, t):
     args = [x.to(cuda) for x in _inputs(n, c, t)]

@@ -7,10 +7,13 @@ class ``c``::
     predpos[t, c] = Σ_n (preds[n, c] >= thr[t]) · v[n, c]
 
 with ``y`` (target bit · valid) and ``v`` (valid) 0/1 masks. On a CUDA
-tensor the hand-written kernel in ``csrc/binned_confusion.cu`` computes them
-without ever building the ``(N, C, T)`` comparison, with int32 atomics that
+tensor the hand-written kernels in ``csrc/binned_confusion.cu`` compute them
+in one pass over the inputs: the thresholds are ranked on the device, each
+element is bucketed into a shared-memory histogram by a search over them,
+and suffix sums of the histogram become the counts, with int32 atomics that
 are exact up to 2^31 per call (the source's note gives its bound and
-design). On a CPU tensor the plain version below runs: the
+design). One call makes two device launches and no host sync. On a CPU
+tensor the plain version below runs: the
 ``_binned_confusion_contract`` formula in plain torch, which the tests and
 ``chip_smoke.py`` also hold the kernel against. There is no fallback: a CUDA
 tensor launches the kernel or raises.
@@ -35,6 +38,7 @@ launches = 0
 @functools.cache
 def _kernel() -> ctypes._CFuncPtr:
     fn = _build.load("binned_confusion").binned_confusion_counts
+    # (preds, y, v, thresholds, out, scratch, n, c, t, stream)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -77,20 +81,21 @@ def binned_confusion_counts(preds: Tensor, y: Tensor, v: Tensor, thresholds: Ten
         raise ValueError(f"binned_confusion runs on cpu or cuda tensors, got {preds.device}")
     n, c = preds.shape
     t = thresholds.shape[0]
-    tp = torch.zeros((t, c), dtype=torch.int32, device=preds.device)
-    pp = torch.zeros((t, c), dtype=torch.int32, device=preds.device)
     if n == 0 or c == 0 or t == 0:
-        return tp, pp
+        out = torch.zeros((2, t, c), dtype=torch.int32, device=preds.device)
+        return out[0], out[1]
+    out = torch.empty((2, t, c), dtype=torch.int32, device=preds.device)  # tp, predpos; the kernel zeroes it
+    scratch = torch.empty((2 * t,), dtype=torch.int32, device=preds.device)  # sorted thresholds, their indices
     with torch.cuda.device(preds.device):
         err = _kernel()(
-            preds.data_ptr(), y.data_ptr(), v.data_ptr(), thresholds.data_ptr(), tp.data_ptr(), pp.data_ptr(),
+            preds.data_ptr(), y.data_ptr(), v.data_ptr(), thresholds.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             n, c, t, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"binned_confusion kernel launch failed with CUDA error {err}")
     global launches
     launches += 1
-    return tp, pp
+    return out[0], out[1]
 
 
 def binned_confusion_fused(preds: Tensor, y: Tensor, v: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor]:
