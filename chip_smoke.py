@@ -10,20 +10,32 @@ Phases, each of which passes or exits non-zero:
 1. the card's name and power limit;
 2. build every CUDA kernel of the port from ``tpumetrics_torch/csrc``;
 3. kernel phase: ``binned_confusion`` against its plain torch version on
-   the same inputs, exact, at the main path's shapes and at edge cases
-   (contended narrow C, T=1, unsorted and duplicate thresholds with +-inf,
-   NaN, -0.0 and 0.0, more thresholds than shared memory holds, C=8193),
-   with the kernel's time (on the device, between CUDA events, the L2
-   flushed before each call) and the host's time to make the call, the
+   the same inputs, exact, at the shapes of every path below and at edge
+   cases (contended narrow C, T=1, unsorted and duplicate thresholds with
+   +-inf, NaN, -0.0 and 0.0, more thresholds than shared memory holds,
+   C=8193), with the kernel's time (on the device, between CUDA events, the
+   L2 flushed before each call) and the host's time to make the call, the
    plain version's time, the time of the torch-ops histogram path as a
-   yardstick, and the bound;
+   yardstick, and the bound, at the main-path, headline, binary and
+   multilabel shapes;
 4. slice phase: an ImageNet-1k validation-sized evaluation (50,000 samples,
    1000 classes, batches of 8192 and a ragged 848) through
    ``MetricCollection({acc, f1, auroc(T=200)})`` on the card, held against
    the same stream on the CPU (identical int32 states, values within 1e-6)
    and against numpy counts; the kernel's launches in that run are counted.
    The bench headline shape (N=8192, C=128, T=64, 5 batches) runs the same
-   way.
+   way;
+5. task phase: a binary stream (1,000,000 samples, batches of 65,536 and a
+   ragged 16,960: a CTR or fraud classifier's eval shard) through
+   ``Accuracy``, ``F1Score``, binned and exact ``AUROC`` with
+   ``task="binary"``, and a multilabel stream at MS-COCO 2014 val size
+   (40,504 images x 80 labels, batches of 4096 and a ragged 3640, about 1%
+   of the targets ignored) through ``Accuracy``, macro ``F1Score`` and
+   binned ``AUROC`` with ``task="multilabel"``. Each runs on the card and on
+   the CPU: identical states (the exact AUROC's list states included),
+   binned counts equal to numpy's, exact AUROC against a float64 rank
+   statistic, one steady update run with host syncs made errors, and the
+   kernel's launches counted.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -38,6 +50,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -163,6 +176,8 @@ def kernel_phase(torch, bc) -> dict:
         ("+-inf, NaN, -0.0 and 0.0 thresholds 2048x130x64", (2048, 130, 64), {"edge_thr": True}),
         ("bucket ranges 8192x128x4096", (8192, 128, 4096), {}),
         ("histogram beyond shared memory 512x3x30000, unsorted with duplicates", (512, 3, 30000), {"unsorted": True}),
+        ("binary stream 65536x1x200", (65536, 1, 200), {}),
+        ("multilabel stream 4096x80x200", (4096, 80, 200), {}),
     ]
     max_err = 0.0
     timed = {}
@@ -175,7 +190,7 @@ def kernel_phase(torch, bc) -> dict:
         max_err = max(max_err, err)
         check(torch.equal(tp, ref_tp) and torch.equal(pp, ref_pp), f"kernel != plain version at {label} (err {err})")
         print(f"kernel phase: {label}: exact (T={thr.shape[0]})", flush=True)
-        if label.startswith(("headline", "main path")):
+        if label.startswith(("headline", "main path", "binary stream", "multilabel stream")):
             flush = l2_flush(torch)
             ms, host_ms = cuda_ms(torch, lambda: bc.binned_confusion_counts(preds, y, v, thr), reps=30, ahead=flush)
             plain_ms, _ = cuda_ms(torch, lambda: bc.binned_confusion_plain(preds, y, v, thr), reps=5, ahead=flush)
@@ -213,23 +228,29 @@ def make_stream(n: int, c: int, batch: int, seed: int):
     return [(probs[i : i + batch], target[i : i + batch]) for i in range(0, n, batch)]
 
 
+def numpy_binned_counts(probs: np.ndarray, hit: np.ndarray, valid: np.ndarray, thresholds: np.ndarray) -> tuple:
+    """``(tp, predpos)``, each ``(T, C)``: how many valid entries of column c
+    have ``probs >= thresholds[t]``, among the hits and among all, in numpy."""
+    n, c = probs.shape
+    t = thresholds.shape[0]
+    check(bool(np.all(np.diff(thresholds) > 0)), "numpy reference expects increasing thresholds")
+    # probs[n, c] >= thr[k]  <=>  k < (number of thresholds <= probs[n, c])
+    key = np.arange(c) * (t + 1) + np.searchsorted(thresholds, probs, side="right")
+
+    def above(mask):  # entries with key > k per column: reverse cumulative sum over k
+        hist = np.bincount(key[mask], minlength=c * (t + 1)).reshape(c, t + 1)
+        return np.cumsum(hist[:, ::-1], axis=1)[:, ::-1][:, 1:].T
+
+    return above(valid & hit), above(valid)
+
+
 def numpy_reference(batches, c: int, thresholds: np.ndarray) -> dict:
     """Micro accuracy and the binned per-class tp / predicted-positive counts, in numpy."""
     probs = np.concatenate([b[0] for b in batches])
     target = np.concatenate([b[1] for b in batches])
-    n = probs.shape[0]
-    t = thresholds.shape[0]
-    check(bool(np.all(np.diff(thresholds) > 0)), "numpy reference expects increasing thresholds")
     acc = float(np.mean(np.argmax(probs, axis=1) == target))
-    # probs[n, c] >= thr[k]  <=>  k < (number of thresholds <= probs[n, c])
-    above = np.searchsorted(thresholds, probs, side="right")
-    cols = np.broadcast_to(np.arange(c), (n, c))
-    hist_all = np.bincount((cols * (t + 1) + above).ravel(), minlength=c * (t + 1)).reshape(c, t + 1)
     hit = target[:, None] == np.arange(c)[None, :]
-    hist_pos = np.bincount((cols * (t + 1) + above)[hit], minlength=c * (t + 1)).reshape(c, t + 1)
-    # count with above > k: reverse cumulative sum over k
-    predpos = np.cumsum(hist_all[:, ::-1], axis=1)[:, ::-1][:, 1:].T
-    tp = np.cumsum(hist_pos[:, ::-1], axis=1)[:, ::-1][:, 1:].T
+    tp, predpos = numpy_binned_counts(probs, hit, np.ones_like(hit), thresholds)
     return {"acc": acc, "tp": tp, "predpos": predpos}
 
 
@@ -255,9 +276,22 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int) -> di
 
     bc.launches = 0  # count only the main path's launches
     update_ms = []
-    for preds, target in dev_batches:
+    syncs = []
+    for i, (preds, target) in enumerate(dev_batches):
         t0 = time.perf_counter()
-        col.update(preds, target)
+        if i == 1:  # a steady update: count the host syncs in it (a probe, not a check)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    col.update(preds, target)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = [
+                f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)
+            ]
+        else:
+            col.update(preds, target)
         torch.cuda.synchronize()
         update_ms.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
@@ -276,15 +310,8 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int) -> di
     cpu_values = cpu.compute()
 
     gpu_state, cpu_state = export_state(col), export_state(cpu)
-    for leader, states in cpu_state.items():
-        for name, arr in states.items():
-            check(arr.dtype == np.int32, f"{label}: {leader}.{name} is {arr.dtype}, not int32")
-            check(np.array_equal(gpu_state[leader][name], arr), f"{label}: {leader}.{name} differs card vs CPU")
-    for key, val in values.items():
-        val = val.cpu()
-        check(bool(torch.isfinite(val).all()) and val.shape == cpu_values[key].shape, f"{label}: {key} = {val}")
-        diff = float((val - cpu_values[key]).abs().max())
-        check(diff <= 1e-6, f"{label}: {key} card {val} vs CPU {cpu_values[key]} (diff {diff})")
+    check_same_states(label, gpu_state, cpu_state)
+    check_same_values(torch, label, values, cpu_values)
 
     ref = numpy_reference(batches, c, col["auroc"].thresholds.cpu().numpy())
     check(abs(float(values["acc"]) - ref["acc"]) <= 1e-6, f"{label}: acc {float(values['acc'])} vs numpy {ref['acc']}")
@@ -301,10 +328,163 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int) -> di
         f" acc {float(values['acc']):.6f} f1 {float(values['f1']):.6f} auroc {float(values['auroc']):.6f};"
         f" first update {update_ms[0]:.3f} ms, later updates median {np.median(steady):.3f} ms"
         f" (min {min(steady):.3f}, max {max(steady):.3f}); compute {compute_ms:.3f} ms;"
-        f" kernel launches {launches}",
+        f" kernel launches {launches}; host syncs in update 1: {len(syncs)}, from {sorted(set(syncs))}",
         flush=True,
     )
     profile_step(torch, col, dev_batches[0], label)
+    return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms}
+
+
+def check_same_states(label: str, gpu_state: dict, cpu_state: dict) -> None:
+    """The card's states equal the CPU's: int32 tensor states, and list states
+    (the exact curve's float32 preds and int32 targets) entry by entry."""
+    for leader, states in cpu_state.items():
+        for name, arr in states.items():
+            got = gpu_state[leader][name]
+            if isinstance(arr, list):
+                same = len(got) == len(arr) and all(
+                    g.dtype == a.dtype and np.array_equal(g, a, equal_nan=True) for g, a in zip(got, arr)
+                )
+                check(same, f"{label}: list state {leader}.{name} differs card vs CPU")
+                continue
+            check(arr.dtype == np.int32, f"{label}: {leader}.{name} is {arr.dtype}, not int32")
+            check(np.array_equal(got, arr), f"{label}: {leader}.{name} differs card vs CPU")
+
+
+def check_same_values(torch, label: str, values: dict, cpu_values: dict) -> None:
+    """Finite values of the CPU run's shapes, within 1e-6 of them."""
+    for key, val in values.items():
+        val = val.cpu()
+        check(bool(torch.isfinite(val).all()) and val.shape == cpu_values[key].shape, f"{label}: {key} = {val}")
+        diff = float((val - cpu_values[key]).abs().max())
+        check(diff <= 1e-6, f"{label}: {key} card {val} vs CPU {cpu_values[key]} (diff {diff})")
+
+
+def make_binary_stream(n: int, batch: int, seed: int):
+    """A binary classifier's eval shard: 30% positives, probabilities a sigmoid
+    of seeded logits that lean towards the true class, rounded to multiples of
+    2^-12 so that many tie."""
+    rng = np.random.default_rng(seed)
+    target = (rng.random(n) < 0.3).astype(np.int64)
+    logits = rng.standard_normal(n) * 1.5 + np.where(target == 1, 1.0, -1.0)
+    probs = (np.round(4096.0 / (1.0 + np.exp(-logits))) / 4096.0).astype(np.float32)
+    return [(probs[i : i + batch], target[i : i + batch]) for i in range(0, n, batch)]
+
+
+def make_multilabel_stream(n: int, labels: int, batch: int, seed: int):
+    """Multilabel tagging: about 5% of labels present, probabilities a sigmoid
+    of seeded logits that lean towards the truth, about 1% of target entries
+    at ``ignore_index=-1``."""
+    rng = np.random.default_rng(seed)
+    target = (rng.random((n, labels)) < 0.05).astype(np.int64)
+    logits = rng.standard_normal((n, labels)) * 1.5 + np.where(target == 1, 2.0, -2.0)
+    probs = (1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    target[rng.random((n, labels)) < 0.01] = -1
+    return [(probs[i : i + batch], target[i : i + batch]) for i in range(0, n, batch)]
+
+
+def rank_auroc(probs: np.ndarray, target: np.ndarray) -> float:
+    """AUROC as the float64 rank statistic (Mann-Whitney U, ties averaged)."""
+    from scipy.stats import rankdata
+
+    pos = target == 1
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    ranks = rankdata(probs.astype(np.float64), method="average")
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def task_phase(torch, bc, task: str) -> dict:
+    """One binary or multilabel stream through its collection on the card and
+    on the CPU (see the module note); returns the launches and times."""
+    from tpumetrics_torch import AUROC, Accuracy, F1Score, MetricCollection
+    from tpumetrics_torch.interop import export_state
+
+    t = 200
+    if task == "binary":
+        label = "binary stream 1000000 T=200 + exact"
+        batches = make_binary_stream(1_000_000, 65536, SEED)
+        kw = {"task": "binary", "validate_args": False}
+        members = {
+            "acc": lambda **d: Accuracy(**kw, **d),
+            "f1": lambda **d: F1Score(**kw, **d),
+            "auroc": lambda **d: AUROC(thresholds=t, **kw, **d),
+            "auroc_exact": lambda **d: AUROC(**kw, **d),
+        }
+        groups = [["acc", "f1"], ["auroc"], ["auroc_exact"]]
+    else:
+        label = "multilabel stream COCO-80 40504x80 T=200"
+        batches = make_multilabel_stream(40504, 80, 4096, SEED)
+        kw = {"task": "multilabel", "num_labels": 80, "ignore_index": -1, "validate_args": False}
+        members = {
+            "acc": lambda **d: Accuracy(**kw, **d),
+            "f1": lambda **d: F1Score(average="macro", **kw, **d),
+            "auroc": lambda **d: AUROC(thresholds=t, **kw, **d),
+        }
+        groups = [["acc", "f1"], ["auroc"]]
+
+    def collection(device):
+        return MetricCollection({k: m(device=device) for k, m in members.items()}, device=device)
+
+    dev_batches = [(torch.from_numpy(p).cuda(), torch.from_numpy(y).cuda()) for p, y in batches]
+    col = collection("cuda")
+    torch.cuda.synchronize()
+    bc.launches = 0  # count only this path's launches
+    update_ms = []
+    for i, (preds, target) in enumerate(dev_batches):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update (leaders only): a host sync in it raises
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                col.update(preds, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            col.update(preds, target)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = bc.launches
+    t0 = time.perf_counter()
+    values = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+
+    found = [list(g) for g in col.compute_groups.values()]
+    check(found == groups, f"{label}: compute groups {found}")
+    check(launches == len(batches), f"{label}: {launches} kernel launches for {len(batches)} binned AUROC updates")
+
+    cpu = collection("cpu")
+    for preds, target in batches:
+        cpu.update(torch.from_numpy(preds), torch.from_numpy(target))
+    cpu_values = cpu.compute()
+    gpu_state = export_state(col)
+    check_same_states(label, gpu_state, export_state(cpu))
+    check_same_values(torch, label, values, cpu_values)
+
+    probs = np.concatenate([b[0] for b in batches]).reshape(-1, 1 if task == "binary" else 80)
+    target = np.concatenate([b[1] for b in batches]).reshape(probs.shape)
+    valid = target != -1
+    confmat = gpu_state["auroc"]["confmat"].reshape(t, probs.shape[1], 2, 2)
+    tp, predpos = numpy_binned_counts(probs, target == 1, valid, col["auroc"].thresholds.cpu().numpy())
+    check(np.array_equal(confmat[:, :, 1, 1], tp), f"{label}: AUROC tp counts differ from numpy")
+    check(np.array_equal(confmat[:, :, 0, 1] + confmat[:, :, 1, 1], predpos), f"{label}: predicted positives differ")
+    acc = float(np.mean(((probs > 0.5) == (target == 1))[valid]))
+    check(abs(float(values["acc"]) - acc) <= 1e-6, f"{label}: acc {float(values['acc'])} vs numpy {acc}")
+    extra = ""
+    if task == "binary":
+        ranked = rank_auroc(probs[:, 0], target[:, 0])
+        exact = float(values["auroc_exact"])
+        check(abs(exact - ranked) <= 1e-5, f"{label}: exact AUROC {exact} vs float64 rank statistic {ranked}")
+        extra = f" exact auroc {exact:.7f} vs float64 rank statistic {ranked:.7f} (diff {abs(exact - ranked):.2e});"
+    steady = update_ms[1:]
+    print(
+        f"task phase: {label}: {len(batches)} batches, states identical to the CPU run, binned counts equal to"
+        f" numpy's, update 1 free of host syncs;{extra} acc {float(values['acc']):.6f} f1 {float(values['f1']):.6f}"
+        f" auroc {float(values['auroc']):.6f}; first update {update_ms[0]:.3f} ms, later updates median"
+        f" {np.median(steady):.3f} ms (min {min(steady):.3f}, max {max(steady):.3f}); compute {compute_ms:.3f} ms;"
+        f" kernel launches {launches}",
+        flush=True,
+    )
+    profile_step(torch, col, dev_batches[1], label)
     return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms}
 
 
@@ -351,11 +531,13 @@ def profile_step(torch, col, batch, label: str) -> None:
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
         top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:5]
         parts = "; ".join(f"{e.key[:48]} x{e.count} {e.device_time_total:.1f} us" for e in top)
+        ours = sum(e.device_time_total for e in kernels if "count_kernel" in e.key or "rank_kernel" in e.key)
         print(
             f"profile: {label}: steady {step} {wall_ms:.3f} ms wall unprofiled; profiled run {profiled_ms:.3f} ms wall,"
             f" device busy (union of {len(device)} device intervals) {busy_ms:.3f} ms"
             f" = {100 * busy_ms / profiled_ms:.1f}% of it, first-to-last device span {span_ms:.3f} ms;"
             f" peak device memory above resident {scratch_mb:.1f} MiB;"
+            f" binned_confusion kernels (rank + count) {ours:.1f} us;"
             f" top: {parts or 'the profiler saw no device time'}",
             flush=True,
         )
@@ -394,8 +576,12 @@ def main() -> None:
                 print(f"build: {lib.name}: {line}", flush=True)
 
     kern = kernel_phase(torch, bc)
-    imagenet = slice_phase(torch, bc, "ImageNet-1k val 50000x1000 T=200", 50000, 1000, 200, 8192)
-    slice_phase(torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192)
+    paths = {
+        "imagenet": slice_phase(torch, bc, "ImageNet-1k val 50000x1000 T=200", 50000, 1000, 200, 8192),
+        "headline": slice_phase(torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192),
+        "binary": task_phase(torch, bc, "binary"),
+        "multilabel": task_phase(torch, bc, "multilabel"),
+    }
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -410,7 +596,8 @@ def main() -> None:
                 "route": "cuda",
                 "source": "tpumetrics_torch/csrc/binned_confusion.cu",
                 "replaces": "tpumetrics/ops/binned_confusion.py:62",
-                "launches": imagenet["launches"],
+                "launches": sum(p["launches"] for p in paths.values()),
+                "launches_by_path": {name: p["launches"] for name, p in paths.items()},
                 "max_abs_err": kern["max_abs_err"],
                 "ms": main_shape["ms"],
                 "plain_ms": main_shape["plain_ms"],

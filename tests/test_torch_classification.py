@@ -185,14 +185,6 @@ def test_functional_validation_rejects_bad_targets():
         fn.multiclass_auroc(preds, torch.tensor([0, 1, 2, 1]), num_classes=C, thresholds=1)
 
 
-def test_exact_path_is_not_ported_yet():
-    preds = torch.from_numpy(_probs(np.random.default_rng(0), (4, C)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn.multiclass_auroc(preds, torch.tensor([0, 1, 2, 1]), num_classes=C)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls.MulticlassAUROC(num_classes=C, device="cpu")
-
-
 # ------------------------------------------------------------------- modular
 
 MODULAR = [

@@ -74,11 +74,20 @@ def _assert_values(port, ref):
 
 
 def _assert_states(port_state, ref_state):
+    """Tensor states int32 and equal; list states (the exact curve's preds
+    and targets) of equal length, with equal entries of equal dtypes."""
     assert sorted(port_state) == sorted(ref_state)
     for leader in ref_state:
         assert sorted(port_state[leader]) == sorted(ref_state[leader])
         for name, ref in ref_state[leader].items():
             got = port_state[leader][name]
+            if isinstance(ref, list):
+                assert len(got) == len(ref)
+                for g, r in zip(got, ref):
+                    g = g.numpy() if isinstance(g, torch.Tensor) else g
+                    assert g.dtype == np.asarray(r).dtype
+                    np.testing.assert_array_equal(g, np.asarray(r))
+                continue
             got = got.numpy() if isinstance(got, torch.Tensor) else got
             assert got.dtype == np.int32
             np.testing.assert_array_equal(got, np.asarray(ref))
@@ -170,29 +179,69 @@ def test_collection_functional_bridge_matches_jax():
     _assert_values(port.functional_compute(pstate), ref.functional_compute(rstate))
 
 
+def _host_state(state):
+    """A collection state with numpy leaves (lists of them for list states)."""
+    return {k: {s: [np.asarray(x) for x in v] if isinstance(v, list) else np.asarray(v) for s, v in st.items()}
+            for k, st in state.items()}
+
+
+def _jax_state(state):
+    return {k: {s: [jnp.asarray(x) for x in v] if isinstance(v, list) else jnp.asarray(v) for s, v in st.items()}
+            for k, st in state.items()}
+
+
+def _binary_multilabel_collections():
+    """Binary and multilabel members, the binary exact AUROC's list states
+    among them: (port collection, JAX collection, batches) for each task."""
+    rng = np.random.default_rng(9)
+    out = []
+    for task, kw, shape in [("binary", {}, (64,)), ("multilabel", {"num_labels": 5}, (64, 5))]:
+        members = {
+            "acc": lambda pkg, **d: pkg.Accuracy(task=task, ignore_index=-1, **kw, **d),
+            "auroc": lambda pkg, **d: pkg.AUROC(task=task, thresholds=T, ignore_index=-1, **kw, **d),
+        }
+        if task == "binary":
+            members["exact"] = lambda pkg, **d: pkg.AUROC(task=task, ignore_index=-1, **d)
+        groups = [[k] for k in members]
+        port = MetricCollection({k: m(tpumetrics_torch, device="cpu") for k, m in members.items()},
+                                compute_groups=groups, device="cpu")
+        ref = tpumetrics.MetricCollection({k: m(tpumetrics) for k, m in members.items()}, compute_groups=groups)
+        batches = []
+        for _ in range(6):
+            target = rng.integers(0, 2, shape).reshape(64, -1)
+            for col in target.T:  # 6 ignored entries in each column: the exact path's shapes repeat
+                col[rng.choice(64, 6, replace=False)] = -1
+            batches.append(((rng.integers(0, 17, shape) / 16).astype(np.float32), target.reshape(shape)))
+        out.append((port, ref, batches))
+    return out
+
+
 @pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
 def test_state_round_trip_between_packages(direction):
     """Accumulate 3 batches in one package, carry the state over, run 3 more
-    batches in both and compare."""
+    batches in both and compare: the main-path collection, then binary and
+    multilabel collections with binned and exact (list state) AUROC."""
     groups = [["acc", "f1"], ["auroc"]]
-    port, ref = _port_collection(compute_groups=groups), _jax_collection(compute_groups=groups)
-    first, second = _batches(5, 3), _batches(6, 3)
-    if direction == "jax-to-port":
-        rstate = ref.init_state()
-        for preds, target in first:
+    cases = [(_port_collection(compute_groups=groups), _jax_collection(compute_groups=groups), _batches(5, 3) + _batches(6, 3))]
+    for port, ref, batches in cases + _binary_multilabel_collections():
+        first, second = batches[:3], batches[3:]
+        if direction == "jax-to-port":
+            rstate = ref.init_state()
+            for preds, target in first:
+                rstate = ref.functional_update(rstate, jnp.asarray(preds), jnp.asarray(target))
+            load_state(port, _host_state(rstate))
+        else:
+            pstate = port.init_state()
+            for preds, target in first:
+                pstate = port.functional_update(pstate, torch.from_numpy(preds), torch.from_numpy(target))
+            load_state(port, _host_state({k: {s: v.numpy() if isinstance(v, torch.Tensor) else [x.numpy() for x in v]
+                                                 for s, v in st.items()} for k, st in pstate.items()}))
+            rstate = _jax_state(export_state(port))
+        for preds, target in second:
+            port.update(torch.from_numpy(preds), torch.from_numpy(target))
             rstate = ref.functional_update(rstate, jnp.asarray(preds), jnp.asarray(target))
-        load_state(port, {k: {s: np.asarray(v) for s, v in st.items()} for k, st in rstate.items()})
-    else:
-        pstate = port.init_state()
-        for preds, target in first:
-            pstate = port.functional_update(pstate, torch.from_numpy(preds), torch.from_numpy(target))
-        load_state(port, {k: {s: v.numpy() for s, v in st.items()} for k, st in pstate.items()})
-        rstate = {k: {s: jnp.asarray(v) for s, v in st.items()} for k, st in export_state(port).items()}
-    for preds, target in second:
-        port.update(torch.from_numpy(preds), torch.from_numpy(target))
-        rstate = ref.functional_update(rstate, jnp.asarray(preds), jnp.asarray(target))
-    _assert_states(export_state(port), rstate)
-    _assert_values(port.compute(), ref.functional_compute(rstate))
+        _assert_states(export_state(port), rstate)
+        _assert_values(port.compute(), ref.functional_compute(rstate))
 
 
 def test_load_state_refuses_mismatched_groups_and_shapes():

@@ -1,5 +1,6 @@
 """The port on a CUDA card: the kernel against its plain version, and the
-main-path collection on the card against the same stream on the CPU.
+multiclass, binary and multilabel collections on the card against the same
+streams on the CPU.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpumetrics_torch
 import tpumetrics_torch.classification as cls
 from tpumetrics_torch import MetricCollection
 from tpumetrics_torch.interop import export_state
@@ -55,6 +57,8 @@ def _inputs(n, c, t, seed=0):
         (1000, 37, 1),
         (200000, 3, 200),  # splits of thousands of rows into one histogram
         (512, 3, 30000),  # one class's histogram exceeds shared memory: the buckets split into ranges
+        (65536, 1, 200),  # a binary batch: one column
+        (4096, 80, 200),  # a multilabel batch, a fifth of its entries masked out
     ],
 )
 def test_kernel_matches_plain_version(cuda, n, c, t):
@@ -131,3 +135,54 @@ def test_states_default_to_the_card_and_refuse_host_inputs(cuda):
     assert col.device.type == "cuda" and col["auroc"].thresholds.device.type == "cuda"
     with pytest.raises(RuntimeError, match="not moved"):
         col.update(torch.rand(4, 8), torch.zeros(4, dtype=torch.long))
+
+
+def _assert_same_states(gpu_state, cpu_state):
+    """Tensor states equal; list states (the exact curves' preds and targets) equal entry by entry."""
+    for leader, states in cpu_state.items():
+        for name, ref in states.items():
+            got = gpu_state[leader][name]
+            if isinstance(ref, list):
+                assert len(got) == len(ref)
+                for g, r in zip(got, ref):
+                    assert g.dtype == r.dtype
+                    np.testing.assert_array_equal(g, r)
+            else:
+                assert got.dtype == ref.dtype == np.int32
+                np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("task", ["binary", "multilabel"])
+def test_binary_and_multilabel_collections_on_the_card_match_the_cpu(cuda, task):
+    """Binned updates launch the kernel once per batch (binary preds as one
+    column, multilabel preds with a per-entry mask); the exact AUROC's list
+    states and every value equal the CPU run's."""
+    shape, kw = ((2048,), {}) if task == "binary" else ((512, 6), {"num_labels": 6})
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(3):
+        target = rng.integers(0, 2, shape)
+        target[rng.random(shape) < 0.05] = -1
+        batches.append(((rng.integers(0, 257, shape) / 256).astype(np.float32), target))
+    results = {}
+    for device in ("cuda", "cpu"):
+        common = {"ignore_index": -1, "device": device, **kw}
+        col = MetricCollection(
+            {
+                "acc": tpumetrics_torch.Accuracy(task=task, **common),
+                "f1": tpumetrics_torch.F1Score(task=task, **common),
+                "auroc": tpumetrics_torch.AUROC(task=task, thresholds=64, **common),
+                "exact": tpumetrics_torch.AUROC(task=task, **common),
+            },
+            device=device,
+        )
+        before = bc.launches
+        for preds, target in batches:
+            col.update(torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device))
+        assert bc.launches - before == (len(batches) if device == "cuda" else 0)
+        assert list(col.compute_groups.values()) == [["acc", "f1"], ["auroc"], ["exact"]]
+        results[device] = (export_state(col), col.compute())
+    (gpu_state, gpu_vals), (cpu_state, cpu_vals) = results["cuda"], results["cpu"]
+    _assert_same_states(gpu_state, cpu_state)
+    for key in cpu_vals:
+        np.testing.assert_allclose(gpu_vals[key].cpu().numpy(), cpu_vals[key].numpy(), rtol=0, atol=1e-6)

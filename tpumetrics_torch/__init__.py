@@ -1,30 +1,16 @@
 """tpumetrics_torch: the PyTorch/CUDA port of ``tpumetrics``.
 
 States are ``torch.Tensor``s on one device, CUDA unless ``device=`` says
-otherwise; the port imports neither JAX nor the JAX package. This slice
-holds the classification main path (multiclass accuracy, F-beta/F1, stat
-scores, binned precision-recall curve and AUROC, in a ``MetricCollection``)
-and its one CUDA kernel, ``ops.binned_confusion``.
+otherwise; the port imports neither JAX nor the JAX package. It holds the
+classification families stat scores, accuracy, F-beta/F1, precision-recall
+curve, ROC and AUROC (binary, multiclass and multilabel, binned or exact
+curves, and the task-string wrappers such as ``Accuracy(task=...)``), the
+``MetricCollection``, and their one CUDA kernel, ``ops.binned_confusion``.
 """
 
-from tpumetrics_torch.classification import (
-    MulticlassAccuracy,
-    MulticlassAUROC,
-    MulticlassF1Score,
-    MulticlassFBetaScore,
-    MulticlassPrecisionRecallCurve,
-    MulticlassStatScores,
-)
+from tpumetrics_torch.classification import *  # noqa: F401,F403
+from tpumetrics_torch.classification import __all__ as _classification_all
 from tpumetrics_torch.collections import MetricCollection
 from tpumetrics_torch.metric import Metric
 
-__all__ = [
-    "Metric",
-    "MetricCollection",
-    "MulticlassAUROC",
-    "MulticlassAccuracy",
-    "MulticlassF1Score",
-    "MulticlassFBetaScore",
-    "MulticlassPrecisionRecallCurve",
-    "MulticlassStatScores",
-]
+__all__ = ["Metric", "MetricCollection", *_classification_all]

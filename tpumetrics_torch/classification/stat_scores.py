@@ -1,5 +1,5 @@
-"""Modular stat-scores metrics, multiclass part (port of
-``tpumetrics/classification/stat_scores.py``)."""
+"""Modular stat-scores metrics, binary, multiclass and multilabel, and the
+``StatScores`` task wrapper (port of ``tpumetrics/classification/stat_scores.py``)."""
 
 from __future__ import annotations
 
@@ -7,15 +7,28 @@ from typing import Any, Optional
 
 import torch
 
+from tpumetrics_torch.classification.base import _ClassificationTaskWrapper
 from tpumetrics_torch.functional.classification.stat_scores import (
+    _binary_stat_scores_arg_validation,
+    _binary_stat_scores_compute,
+    _binary_stat_scores_format,
+    _binary_stat_scores_tensor_validation,
+    _binary_stat_scores_update,
     _multiclass_stat_scores_arg_validation,
     _multiclass_stat_scores_compute,
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
+    _multilabel_stat_scores_arg_validation,
+    _multilabel_stat_scores_compute,
+    _multilabel_stat_scores_format,
+    _multilabel_stat_scores_tensor_validation,
+    _multilabel_stat_scores_update,
 )
 from tpumetrics_torch.metric import Metric
+from tpumetrics_torch.utils.checks import _check_task_size
 from tpumetrics_torch.utils.data import _count_dtype, dim_zero_cat
+from tpumetrics_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
 
@@ -51,6 +64,53 @@ class _AbstractStatScores(Metric):
     def _final_state(self) -> tuple:
         """Concatenated list states, or the tensor states."""
         return dim_zero_cat(self.tp), dim_zero_cat(self.fp), dim_zero_cat(self.tn), dim_zero_cat(self.fn)
+
+
+class BinaryStatScores(_AbstractStatScores):
+    """tp/fp/tn/fn for binary classification.
+
+    Example:
+        >>> import torch
+        >>> from tpumetrics_torch.classification import BinaryStatScores
+        >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
+        >>> preds = torch.tensor([0, 0, 1, 1, 0, 1])
+        >>> metric = BinaryStatScores(device='cpu')
+        >>> metric.update(preds, target)
+        >>> metric.compute().tolist()
+        [2, 1, 2, 1, 3]
+    """
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
+        self.threshold = threshold
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_state(size=1, multidim_average=multidim_average)
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        if self.validate_args:
+            _binary_stat_scores_tensor_validation(preds, target, self.multidim_average, self.ignore_index)
+        preds, target, mask = _binary_stat_scores_format(preds, target, self.threshold, self.ignore_index)
+        tp, fp, tn, fn = _binary_stat_scores_update(preds, target, mask, self.multidim_average)
+        self._update_state(tp, fp, tn, fn)
+
+    def compute(self) -> Tensor:
+        tp, fp, tn, fn = self._final_state()
+        return _binary_stat_scores_compute(tp, fp, tn, fn, self.multidim_average)
 
 
 class MulticlassStatScores(_AbstractStatScores):
@@ -108,3 +168,106 @@ class MulticlassStatScores(_AbstractStatScores):
     def compute(self) -> Tensor:
         tp, fp, tn, fn = self._final_state()
         return _multiclass_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
+
+
+class MultilabelStatScores(_AbstractStatScores):
+    """Per-label tp/fp/tn/fn for multilabel classification.
+
+    Example:
+        >>> import torch
+        >>> from tpumetrics_torch.classification import MultilabelStatScores
+        >>> target = torch.tensor([[0, 1, 0], [1, 0, 1]])
+        >>> preds = torch.tensor([[0, 0, 1], [1, 0, 1]])
+        >>> metric = MultilabelStatScores(num_labels=3, average='micro', device='cpu')
+        >>> metric.update(preds, target)
+        >>> metric.compute().tolist()
+        [2, 1, 2, 1, 3]
+    """
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        self.num_labels = num_labels
+        self.threshold = threshold
+        self.average = average
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_state(size=num_labels, multidim_average=multidim_average)
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        if self.validate_args:
+            _multilabel_stat_scores_tensor_validation(
+                preds, target, self.num_labels, self.multidim_average, self.ignore_index
+            )
+        preds, target, mask = _multilabel_stat_scores_format(
+            preds, target, self.num_labels, self.threshold, self.ignore_index
+        )
+        tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, mask, self.multidim_average)
+        self._update_state(tp, fp, tn, fn)
+
+    def compute(self) -> Tensor:
+        tp, fp, tn, fn = self._final_state()
+        return _multilabel_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
+
+
+def _check_top_k(top_k: Optional[int]) -> int:
+    if not isinstance(top_k, int):
+        raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+    return top_k
+
+
+class StatScores(_ClassificationTaskWrapper):
+    """Task-string wrapper: ``StatScores(task="binary", ...)`` returns the
+    binary, multiclass or multilabel metric; other keyword arguments
+    (``device=`` among them) go to that metric.
+
+    Example:
+        >>> import torch
+        >>> from tpumetrics_torch import StatScores
+        >>> probs = torch.tensor([0.11, 0.84, 0.22, 0.73, 0.33, 0.92])
+        >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
+        >>> metric = StatScores(task="binary", device='cpu')
+        >>> metric.update(probs, target)
+        >>> metric.compute().tolist()
+        [3, 0, 3, 0, 3]
+    """
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        average: Optional[str] = "micro",
+        multidim_average: str = "global",
+        top_k: Optional[int] = 1,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        task = ClassificationTask.from_str(task)
+        kwargs.update(
+            {"multidim_average": multidim_average, "ignore_index": ignore_index, "validate_args": validate_args}
+        )
+        if task == ClassificationTask.BINARY:
+            return BinaryStatScores(threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            return MulticlassStatScores(
+                _check_task_size("num_classes", num_classes), _check_top_k(top_k), average, **kwargs
+            )
+        return MultilabelStatScores(_check_task_size("num_labels", num_labels), threshold, average, **kwargs)

@@ -1,21 +1,22 @@
-"""Functional metrics of the port (counterpart of ``tpumetrics/functional``)."""
+"""Functional metrics of the port (counterpart of ``tpumetrics/functional``):
+the classification functions and their task-string dispatchers."""
 
-from tpumetrics_torch.functional.classification import (
-    multiclass_accuracy,
-    multiclass_auroc,
-    multiclass_f1_score,
-    multiclass_fbeta_score,
-    multiclass_precision_recall_curve,
-    multiclass_roc,
-    multiclass_stat_scores,
-)
+from tpumetrics_torch.functional.classification import *  # noqa: F401,F403
+from tpumetrics_torch.functional.classification import __all__ as _classification_all
+from tpumetrics_torch.functional.classification.accuracy import accuracy
+from tpumetrics_torch.functional.classification.auroc import auroc
+from tpumetrics_torch.functional.classification.f_beta import f1_score, fbeta_score
+from tpumetrics_torch.functional.classification.precision_recall_curve import precision_recall_curve
+from tpumetrics_torch.functional.classification.roc import roc
+from tpumetrics_torch.functional.classification.stat_scores import stat_scores
 
 __all__ = [
-    "multiclass_accuracy",
-    "multiclass_auroc",
-    "multiclass_f1_score",
-    "multiclass_fbeta_score",
-    "multiclass_precision_recall_curve",
-    "multiclass_roc",
-    "multiclass_stat_scores",
+    *_classification_all,
+    "accuracy",
+    "auroc",
+    "f1_score",
+    "fbeta_score",
+    "precision_recall_curve",
+    "roc",
+    "stat_scores",
 ]

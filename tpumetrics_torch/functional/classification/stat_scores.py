@@ -1,8 +1,8 @@
-"""Stat scores (tp/fp/tn/fn), multiclass part (port of
+"""Stat scores (tp/fp/tn/fn), binary, multiclass and multilabel (port of
 ``tpumetrics/functional/classification/stat_scores.py``).
 
 ``ignore_index`` is handled with a validity mask carried beside the data, as
-in the JAX package, so shapes never depend on the data.
+in the JAX package, so shapes never depend on the data. Counts are int32.
 """
 
 from __future__ import annotations
@@ -11,8 +11,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpumetrics_torch.utils.checks import _check_same_shape
+from tpumetrics_torch.utils.checks import _check_binary_values, _check_same_shape, _check_task_size
+from tpumetrics_torch.utils.compute import normalize_logits_if_needed
 from tpumetrics_torch.utils.data import _bincount, _one_hot, select_topk
+from tpumetrics_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
 
@@ -31,6 +33,125 @@ def _masked_confmat(preds: Tensor, target: Tensor, mask: Tensor, n: int) -> Tens
     valid = (mask.reshape(-1) == 1) & (target >= 0) & (target < n) & (preds >= 0) & (preds < n)
     idx = torch.where(valid, target.to(torch.int64) * n + preds, n * n)
     return _bincount(idx, minlength=n * n + 1)[:-1].reshape(n, n)
+
+
+# --------------------------------------------------------------------- binary
+
+
+def _binary_stat_scores_arg_validation(
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    if not (isinstance(threshold, float) and (0 <= threshold <= 1)):
+        raise ValueError(f"Expected argument `threshold` to be a float in the [0,1] range, but got {threshold}.")
+    if multidim_average not in ("global", "samplewise"):
+        raise ValueError(
+            f"Expected argument `multidim_average` to be one of ('global', 'samplewise'), but got {multidim_average}"
+        )
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an int, but got {ignore_index}")
+
+
+def _binary_stat_scores_tensor_validation(
+    preds: Tensor,
+    target: Tensor,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    _check_same_shape(preds, target)
+    _check_binary_values(target, "target", ignore_index)
+    if not preds.is_floating_point():
+        _check_binary_values(preds, "preds")
+    if multidim_average != "global" and preds.ndim < 2:
+        raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
+
+
+def _binarize(preds: Tensor, threshold: float) -> Tensor:
+    """int32 0/1 preds: probabilities (or logits, through a sigmoid) above
+    ``threshold``, or label preds as they are."""
+    if preds.is_floating_point():
+        return (normalize_logits_if_needed(preds, "sigmoid") > threshold).to(torch.int32)
+    return preds.to(torch.int32)
+
+
+def _target_and_mask(target: Tensor, ignore_index: Optional[int]) -> Tuple[Tensor, Tensor]:
+    """int32 target with ignored positions set to 0, and the int32 validity mask."""
+    if ignore_index is None:
+        return target.to(torch.int32), torch.ones_like(target, dtype=torch.int32)
+    ignored = target == ignore_index
+    return torch.where(ignored, 0, target).to(torch.int32), (~ignored).to(torch.int32)
+
+
+def _binary_stat_scores_format(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Binarize and flatten to ``(N, X)``; returns (preds, target, valid mask)."""
+    preds = _binarize(preds, threshold)
+    target, mask = _target_and_mask(target, ignore_index)
+    return preds.reshape(preds.shape[0], -1), target.reshape(target.shape[0], -1), mask.reshape(mask.shape[0], -1)
+
+
+def _confusion_sums(preds: Tensor, target: Tensor, mask: Tensor, dim) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Mask-weighted int32 tp/fp/tn/fn of 0/1 preds and targets, summed over ``dim``."""
+    valid = mask == 1
+    p1, p0 = preds == 1, preds == 0
+    t1, t0 = target == 1, target == 0
+    return (
+        _sum32(p1 & t1 & valid, dim),
+        _sum32(p1 & t0 & valid, dim),
+        _sum32(p0 & t0 & valid, dim),
+        _sum32(p0 & t1 & valid, dim),
+    )
+
+
+def _binary_stat_scores_update(
+    preds: Tensor,
+    target: Tensor,
+    mask: Tensor,
+    multidim_average: str = "global",
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Counts over everything (global, 0-d) or per sample (samplewise, ``(N,)``)."""
+    return _confusion_sums(preds, target, mask, (0, 1) if multidim_average == "global" else 1)
+
+
+def _binary_stat_scores_compute(
+    tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor, multidim_average: str = "global"
+) -> Tensor:
+    """Stack into ``[tp, fp, tn, fn, support]`` (per sample for samplewise)."""
+    return torch.stack([tp, fp, tn, fn, tp + fn], dim=0 if multidim_average == "global" else -1).squeeze()
+
+
+def binary_stat_scores(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """tp/fp/tn/fn for binary tasks.
+
+    Example:
+        >>> import torch
+        >>> from tpumetrics_torch.functional.classification import binary_stat_scores
+        >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
+        >>> preds = torch.tensor([0, 0, 1, 1, 0, 1])
+        >>> binary_stat_scores(preds, target).tolist()
+        [2, 1, 2, 1, 3]
+    """
+    if validate_args:
+        _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
+        _binary_stat_scores_tensor_validation(preds, target, multidim_average, ignore_index)
+    preds, target, mask = _binary_stat_scores_format(preds, target, threshold, ignore_index)
+    tp, fp, tn, fn = _binary_stat_scores_update(preds, target, mask, multidim_average)
+    return _binary_stat_scores_compute(tp, fp, tn, fn, multidim_average)
+
+
+# ----------------------------------------------------------------- multiclass
 
 
 def _multiclass_stat_scores_arg_validation(
@@ -114,13 +235,7 @@ def _multiclass_stat_scores_format(
     flatten extra dims; build the int32 validity mask."""
     if preds.ndim == target.ndim + 1 and top_k == 1:
         preds = torch.argmax(preds, dim=1)
-    if ignore_index is not None:
-        mask = (target != ignore_index).to(torch.int32)
-        target = torch.where(target == ignore_index, 0, target)
-    else:
-        mask = torch.ones_like(target, dtype=torch.int32)
-    target = target.to(torch.int32)
-
+    target, mask = _target_and_mask(target, ignore_index)
     if preds.ndim == target.ndim + 1:  # top_k > 1: scores retained
         preds = preds.reshape(preds.shape[0], num_classes, -1)
     else:
@@ -216,3 +331,138 @@ def multiclass_stat_scores(
         preds, target, mask, num_classes, top_k, average, multidim_average
     )
     return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+# ----------------------------------------------------------------- multilabel
+
+
+def _multilabel_stat_scores_arg_validation(
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    if not isinstance(num_labels, int) or num_labels < 2:
+        raise ValueError(f"Expected argument `num_labels` to be an integer larger than 1, but got {num_labels}")
+    if not (isinstance(threshold, float) and (0 <= threshold <= 1)):
+        raise ValueError(f"Expected argument `threshold` to be a float, but got {threshold}.")
+    allowed_average = ("micro", "macro", "weighted", "none", None)
+    if average not in allowed_average:
+        raise ValueError(f"Expected argument `average` to be one of {allowed_average}, but got {average}")
+    if multidim_average not in ("global", "samplewise"):
+        raise ValueError(
+            f"Expected argument `multidim_average` to be one of ('global', 'samplewise'), but got {multidim_average}"
+        )
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an int, but got {ignore_index}")
+
+
+def _multilabel_stat_scores_tensor_validation(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    _check_same_shape(preds, target)
+    if preds.shape[1] != num_labels:
+        raise ValueError(
+            f"Expected both `target.shape[1]` and `preds.shape[1]` to be equal to the number of labels"
+            f" but got {preds.shape[1]} and expected {num_labels}"
+        )
+    if multidim_average != "global" and preds.ndim < 3:
+        raise ValueError("Expected input to be at least 3D when multidim_average is set to `samplewise`")
+    _check_binary_values(target, "target", ignore_index)
+
+
+def _multilabel_stat_scores_format(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Binarize and reshape to ``(N, L, X)``; returns (preds, target, valid mask)."""
+    preds = _binarize(preds, threshold)
+    target, mask = _target_and_mask(target, ignore_index)
+    return (
+        preds.reshape(preds.shape[0], num_labels, -1),
+        target.reshape(target.shape[0], num_labels, -1),
+        mask.reshape(mask.shape[0], num_labels, -1),
+    )
+
+
+def _multilabel_stat_scores_update(
+    preds: Tensor, target: Tensor, mask: Tensor, multidim_average: str = "global"
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Per-label counts ``(L,)``, or per sample and label ``(N, L)`` for samplewise."""
+    return _confusion_sums(preds, target, mask, (0, 2) if multidim_average == "global" else 2)
+
+
+def _multilabel_stat_scores_compute(
+    tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor, average: Optional[str] = "macro", multidim_average: str = "global"
+) -> Tensor:
+    res = torch.stack([tp, fp, tn, fn, tp + fn], dim=-1)
+    if average == "micro":
+        return _sum32(res, -2)
+    return res
+
+
+def multilabel_stat_scores(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Per-label tp/fp/tn/fn for multilabel tasks.
+
+    Example:
+        >>> import torch
+        >>> from tpumetrics_torch.functional.classification import multilabel_stat_scores
+        >>> target = torch.tensor([[0, 1, 0], [1, 0, 1]])
+        >>> preds = torch.tensor([[0, 0, 1], [1, 0, 1]])
+        >>> multilabel_stat_scores(preds, target, num_labels=3, average='micro').tolist()
+        [2, 1, 2, 1, 3]
+    """
+    if validate_args:
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target, mask = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, mask, multidim_average)
+    return _multilabel_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+# --------------------------------------------------------------- task dispatch
+
+
+def stat_scores(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Task-string dispatcher over the binary, multiclass and multilabel stat scores."""
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary_stat_scores(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    if task == ClassificationTask.MULTICLASS:
+        return multiclass_stat_scores(
+            preds, target, _check_task_size("num_classes", num_classes), average, top_k, multidim_average,
+            ignore_index, validate_args,
+        )
+    return multilabel_stat_scores(
+        preds, target, _check_task_size("num_labels", num_labels), threshold, average, multidim_average,
+        ignore_index, validate_args,
+    )

@@ -76,11 +76,14 @@ def normalize_logits_if_needed(tensor: Tensor, normalization: str) -> Tensor:
     """Apply sigmoid/softmax only when the input looks like logits (outside [0,1]).
 
     The global is-probability predicate stays a ``torch.where`` on the
-    device, so no host sync happens here.
+    device, so no host sync happens here. The sigmoid is ``1 / (1 + exp(-x))``:
+    ``torch.sigmoid`` on the CPU rounds the elements past the last full
+    vector of a call differently, which would split tied logits into distinct
+    probabilities on the exact curve path.
     """
     is_prob = torch.logical_and(torch.amin(tensor) >= 0, torch.amax(tensor) <= 1)
     if normalization == "sigmoid":
-        return torch.where(is_prob, tensor, torch.sigmoid(tensor))
+        return torch.where(is_prob, tensor, torch.reciprocal(1 + torch.exp(-tensor)))
     if normalization == "softmax":
         return torch.where(is_prob, tensor, torch.softmax(tensor, dim=1))
     return tensor

@@ -84,6 +84,12 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     return torch.zeros_like(prob_tensor, dtype=torch.int32).scatter_(dim, idx, 1)
 
 
+def _cumsum(x: Tensor, dim: int = 0, dtype: Optional[torch.dtype] = None) -> Tensor:
+    """Cumulative sum along ``dim``. Pass ``dtype`` to keep integer counts
+    in int32: ``torch.cumsum`` of an int32 tensor returns int64 otherwise."""
+    return torch.cumsum(x, dim=dim, dtype=dtype)
+
+
 def _count_dtype() -> torch.dtype:
     """Integer dtype of count accumulators: int32, the JAX package's default
     (it wraps past ~2.1B accumulated samples, as there)."""
