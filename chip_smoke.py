@@ -35,7 +35,17 @@ Phases, each of which passes or exits non-zero:
    the CPU: identical states (the exact AUROC's list states included),
    binned counts equal to numpy's, exact AUROC against a float64 rank
    statistic, one steady update run with host syncs made errors, and the
-   kernel's launches counted.
+   kernel's launches counted;
+6. sync phase: the ImageNet-size stream again, through the collection of
+   the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
+   values added, its ``compute()`` synced over a real NCCL process group of
+   world size 1 (one card) through ``MetricCollection``'s fused sync:
+   values and synced states bit for bit equal to the unsynced ones, every
+   state back to its own tensor after ``compute()``, the collectives of one
+   ``compute()`` (one ``all_reduce`` per (op, dtype) class of the group
+   leaders' states, two gathers per list state) counted by a wrapper around
+   the backend and in ``torch.profiler``, the binned update free of host
+   syncs, and the sync's host-clock time per ``compute()``.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -488,6 +498,222 @@ def task_phase(torch, bc, task: str) -> dict:
     return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms}
 
 
+def sync_phase(torch, bc, smi: str) -> dict:
+    """The ImageNet-size collection synced over NCCL at world size 1 (see the module note)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumetrics_torch import (
+        CatMetric,
+        MeanMetric,
+        MetricCollection,
+        MulticlassAccuracy,
+        MulticlassAUROC,
+        MulticlassF1Score,
+    )
+    from tpumetrics_torch.parallel import (
+        NoOpBackend,
+        TorchDistBackend,
+        distributed_available,
+        get_default_backend,
+        set_default_backend,
+    )
+
+    class Forced(TorchDistBackend):
+        """The NCCL group's backend, made to sync at world size 1 (where
+        ``available()`` is false and a sync is skipped), counting what it sends."""
+
+        def __init__(self):
+            super().__init__()
+            self.reset()
+
+        def reset(self):
+            self.reduces, self.gathers, self.wire, self.wire_bytes = [], 0, 0, 0
+
+        def available(self):
+            return True
+
+        def all_reduce(self, x, op, group=None):
+            self.reduces.append((op, str(x.dtype).replace("torch.", ""), x.numel()))
+            self.wire += 1
+            self.wire_bytes += x.numel() * x.element_size()
+            return super().all_reduce(x, op, group)
+
+        def all_gather(self, x, group=None):
+            self.gathers += 1
+            return super().all_gather(x, group)
+
+        def _gather_equal(self, x, group):
+            self.wire += 1
+            self.wire_bytes += x.numel() * x.element_size()
+            return super()._gather_equal(x, group)
+
+    label = "ImageNet-1k val 50000x1000 T=200 + mean + cat, synced over NCCL"
+    n, c, t, batch = 50000, 1000, 200, 8192
+    batches = make_stream(n, c, batch, SEED)
+    dev_batches = [(torch.from_numpy(p).cuda(), torch.from_numpy(y).cuda()) for p, y in batches]
+    col = MetricCollection(
+        {
+            "acc": MulticlassAccuracy(c, average="micro", validate_args=False),
+            "f1": MulticlassF1Score(c, average="macro", validate_args=False),
+            "auroc": MulticlassAUROC(c, thresholds=t, validate_args=False),
+            "mean": MeanMetric(),
+            "cat": CatMetric(),
+        }
+    )
+
+    def update(preds, target):
+        col.update(preds=preds, target=target, value=preds.max(dim=1).values.mean())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        forced = Forced()
+        try:
+            group_backend = dist.get_backend()
+            check(group_backend == "nccl", f"{label}: process group backend {group_backend}")
+            check(isinstance(get_default_backend(), NoOpBackend) and not distributed_available(), f"{label}: world 1 syncs")
+            set_default_backend(forced)
+            check(get_default_backend() is forced and distributed_available(), f"{label}: forced backend not in effect")
+
+            bc.launches = 0  # count only this path's launches
+            auroc = col._modules["auroc"]
+            for i, (preds, target) in enumerate(dev_batches):
+                if i == 1:  # a steady update: the binned AUROC leader's update must not sync with the host
+                    plain = auroc.update
+
+                    def guarded(*args, **kwargs):
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            plain(*args, **kwargs)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+
+                    auroc.update = guarded
+                    update(preds, target)
+                    auroc.update = plain
+                else:
+                    update(preds, target)
+            torch.cuda.synchronize()
+            launches = bc.launches
+            groups = [list(g) for g in col.compute_groups.values()]
+            check(groups == [["acc", "f1"], ["auroc"], ["cat"], ["mean"]], f"{label}: compute groups {groups}")
+            check(launches == len(batches), f"{label}: {launches} kernel launches for {len(batches)} AUROC updates")
+
+            leaders = [col._modules[g[0]] for g in col.compute_groups.values()]
+            schedule = [e for m in leaders for e in m._sync_schedule()]
+            classes = sorted({(op, dt.replace("torch.", "")) for _, op, dt, _ in schedule if op != "gather"})
+            n_gathers = sum(op == "gather" for _, op, _, _ in schedule)
+            own = {k: m._copy_state_dict() for k, m in col.items(keep_base=True, copy_state=False)}
+
+            forced.reset()
+            synced = col.compute()
+            torch.cuda.synchronize()
+            by_class = {}
+            for op, dt, numel in forced.reduces:
+                by_class[f"{op}:{dt}"] = by_class.get(f"{op}:{dt}", 0) + numel
+            check(sorted(tuple(k.split(":")) for k in by_class) == classes and len(forced.reduces) == len(classes),
+                  f"{label}: reduces {forced.reduces} for classes {classes}")
+            check(forced.gathers == n_gathers and forced.wire == len(classes) + 2 * n_gathers,
+                  f"{label}: {forced.gathers} gathers / {forced.wire} wire ops for {n_gathers} list states")
+            for k, m in col.items(keep_base=True, copy_state=False):
+                now = m._copy_state_dict()
+                for name, val in own[k].items():
+                    back = now[name]
+                    same = all(a is b for a, b in zip(back, val)) and len(back) == len(val) if isinstance(val, list) else back is val
+                    check(same and not m._is_synced, f"{label}: {k}.{name} is not its own state after compute()")
+
+            # the same states computed unsynced: bit for bit the synced values at world size 1
+            update(*dev_batches[0])
+            set_default_backend(NoOpBackend())
+            local_values = col.compute()
+            for m in col.values(copy_state=False):
+                m._computed = None  # compute the same states again, synced
+            set_default_backend(forced)
+            synced_again = col.compute()
+            for key in synced:
+                check(torch.equal(synced_again[key], local_values[key]), f"{label}: {key} synced != unsynced")
+                val = synced[key].float()
+                check(bool(torch.isfinite(val).all()), f"{label}: {key} = {val}")
+            # and the synced states themselves, through the functional path
+            state = {k: m._copy_state_dict() for k, m in zip([g[0] for g in col.compute_groups.values()], leaders)}
+            synced_state = col.sync_states(state, forced)
+            for leader, states in state.items():
+                for name, val in states.items():
+                    got = synced_state[leader][name]
+                    if isinstance(val, list):
+                        same = torch.equal(got[0], torch.cat([v.reshape(-1) for v in val]))
+                    else:
+                        same = got.dtype == val.dtype and torch.equal(got, val)
+                    check(same, f"{label}: synced state {leader}.{name} differs from the unsynced one")
+
+            # the collectives of one compute() as NCCL saw them (the c10d ops' profiler events)
+            update(*dev_batches[0])
+            torch.cuda.synchronize()
+            forced.reset()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                col.compute()
+                torch.cuda.synchronize()
+            events = prof.events()
+            tagged = [e for e in events if e.name.startswith(f"{group_backend}:")]  # "nccl:all_reduce", ...
+            nccl_ops = outermost(e for e in tagged if e.device_type == DeviceType.CPU)
+            nccl_kernels = [e.name for e in events if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower()]
+            wire, wire_bytes = forced.wire, forced.wire_bytes
+            check(
+                len(nccl_ops) == wire,
+                f"{label}: profiler saw NCCL ops {nccl_ops} (all events: "
+                f"{[(e.name, str(e.device_type), e.thread, e.time_range.start, e.time_range.end) for e in tagged]}),"
+                f" the backend sent {wire}",
+            )
+
+            # the sync's host-clock cost per compute(): synced and unsynced in turns
+            synced_ms, local_ms = [], []
+            for _ in range(7):
+                for backend, out in ((forced, synced_ms), (NoOpBackend(), local_ms)):
+                    set_default_backend(backend)
+                    update(*dev_batches[0])
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    col.compute()
+                    torch.cuda.synchronize()
+                    out.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            set_default_backend(None)
+            dist.destroy_process_group()
+    sync_ms = float(np.median(synced_ms) - np.median(local_ms))
+    print(
+        f"sync phase: {label}: backend {group_backend} world 1 (forced); {len(batches)} batches, kernel launches"
+        f" {launches}; binned AUROC update free of host syncs; values and synced states equal to the unsynced ones"
+        f" bit for bit, states back to their own tensors after compute(); collectives per compute(): all_reduce"
+        f" by class (elements) {by_class}, {n_gathers} list-state gathers, {wire} NCCL ops"
+        f" ({len(classes)} + 2 x {n_gathers}), {wire_bytes} bytes sent by this rank; profiler: {len(nccl_ops)}"
+        f" NCCL ops {sorted(set(nccl_ops))}, {len(nccl_kernels)} NCCL device kernels; compute() median"
+        f" {np.median(synced_ms):.3f} ms synced vs {np.median(local_ms):.3f} ms unsynced (host clock, 7 each),"
+        f" the sync {sync_ms:.3f} ms; card {smi}",
+        flush=True,
+    )
+    return {
+        "launches": launches, "sync_ms": sync_ms, "compute_ms": synced_ms, "local_compute_ms": local_ms,
+        "wire": wire, "wire_bytes": wire_bytes, "by_class": by_class, "gathers": n_gathers,
+    }
+
+
+def outermost(events) -> list:
+    """Names of the events not nested in an earlier one of the same name on
+    the same thread: a c10d all_gather records its profiling title twice,
+    one range inside the other."""
+    kept, seen = [], []
+    for e in sorted(events, key=lambda e: (e.time_range.start, -e.time_range.end)):
+        if not any(o.name == e.name and o.thread == e.thread and o.time_range.start <= e.time_range.start
+                   and e.time_range.end <= o.time_range.end for o in seen):
+            kept.append(e.name)
+        seen.append(e)
+    return kept
+
+
 def busy_union_us(intervals) -> float:
     """Microseconds covered by the union of ``(start, end)`` intervals."""
     total, reach = 0.0, float("-inf")
@@ -581,6 +807,7 @@ def main() -> None:
         "headline": slice_phase(torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192),
         "binary": task_phase(torch, bc, "binary"),
         "multilabel": task_phase(torch, bc, "multilabel"),
+        "sync": sync_phase(torch, bc, smi),
     }
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],

@@ -28,6 +28,13 @@ import tpumetrics_torch
 import tpumetrics_torch.classification as cls
 from tpumetrics_torch import Metric, MetricCollection
 from tpumetrics_torch.interop import export_state, load_state
+from tpumetrics_torch.parallel import (
+    NoOpBackend,
+    TorchDistBackend,
+    distributed_available,
+    get_default_backend,
+    set_default_backend,
+)
 
 C, B, T = 16, 1024, 64
 ATOL = 1e-6
@@ -275,8 +282,9 @@ def test_update_refuses_inputs_on_another_device():
 
 
 def test_unknown_kwarg_is_refused():
+    # the sync kwargs (dist_sync_fn, process_group, ...) are known now: a misspelt one is not
     with pytest.raises(ValueError, match="Unexpected keyword"):
-        cls.MulticlassAccuracy(C, device="cpu", dist_sync_fn=None)
+        cls.MulticlassAccuracy(C, device="cpu", dist_sync_func=None)
 
 
 def test_sync_is_a_no_op_on_one_rank_and_refused_on_more(monkeypatch):
@@ -290,11 +298,32 @@ def test_sync_is_a_no_op_on_one_rank_and_refused_on_more(monkeypatch):
         finally:
             dist.destroy_process_group()
         assert value.ndim == 0
+    # more ranks: no longer refused; compute syncs through the ambient backend
+    # (torch.distributed's), here one that stands in for two equal ranks
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
+    assert isinstance(get_default_backend(), TorchDistBackend) and distributed_available()
+
+    class _TwoEqualRanks(NoOpBackend):
+        reduces = 0
+
+        def available(self):
+            return True
+
+        def all_reduce(self, x, op, group=None):
+            self.reduces += 1
+            return x + x if op == "sum" else x
+
     metric.update(torch.from_numpy(preds), torch.from_numpy(target))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        metric.compute()
+    local = metric.tp
+    twins = _TwoEqualRanks()
+    set_default_backend(twins)
+    try:
+        assert float(metric.compute()) == pytest.approx(float((preds.argmax(1) == target).mean()))
+    finally:
+        set_default_backend(None)
+    assert twins.reduces == 1  # tp, fp, tn, fn: one int32 "sum" class
+    assert metric.tp is local and not metric._is_synced
     off = cls.MulticlassAccuracy(C, average="micro", device="cpu", sync_on_compute=False)
     off.update(torch.from_numpy(preds), torch.from_numpy(target))
     assert off.compute().ndim == 0

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the kernel against its plain version, and the
+"""The port on a CUDA card: the kernel against its plain version, the
 multiclass, binary and multilabel collections on the card against the same
-streams on the CPU.
+streams on the CPU, a collection synced over a real NCCL group of one rank,
+and a MaskedBuffer's dump row on the card.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -186,3 +187,82 @@ def test_binary_and_multilabel_collections_on_the_card_match_the_cpu(cuda, task)
     _assert_same_states(gpu_state, cpu_state)
     for key in cpu_vals:
         np.testing.assert_allclose(gpu_vals[key].cpu().numpy(), cpu_vals[key].numpy(), rtol=0, atol=1e-6)
+
+
+def test_collection_synced_over_nccl_at_world_size_one(cuda, tmp_path):
+    """A real NCCL group of one rank, the sync forced on (world size 1 skips
+    it otherwise): one all_reduce per (op, dtype) class, two gathers for the
+    list state, values equal to the unsynced ones, and every state back to
+    its own tensor afterwards."""
+    import torch.distributed as dist
+
+    from tpumetrics_torch import CatMetric, MeanMetric
+    from tpumetrics_torch.parallel import NoOpBackend, TorchDistBackend, set_default_backend
+
+    class Forced(TorchDistBackend):
+        reduces, gathers = [], 0
+
+        def available(self):
+            return True
+
+        def all_reduce(self, x, op, group=None):
+            self.reduces.append((op, x.dtype))
+            return super().all_reduce(x, op, group)
+
+        def all_gather(self, x, group=None):
+            self.gathers += 1
+            return super().all_gather(x, group)
+
+    col = _collection(cuda, 8, 16)
+    col.add_metrics({"mean": MeanMetric(device=cuda), "cat": CatMetric(device=cuda)})
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        preds = torch.from_numpy(rng.random((256, 8)).astype(np.float32)).to(cuda)
+        col.update(preds=preds, target=torch.from_numpy(rng.integers(0, 8, 256)).to(cuda), value=preds.mean())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    forced = Forced()
+    try:
+        set_default_backend(NoOpBackend())
+        local = col.compute()
+        own = {k: m._copy_state_dict() for k, m in col.items(keep_base=True, copy_state=False)}
+        for m in col.values(copy_state=False):
+            m._computed = None
+        set_default_backend(forced)
+        synced = col.compute()
+    finally:
+        set_default_backend(None)
+        dist.destroy_process_group()
+    assert sorted(forced.reduces, key=str) == [("sum", torch.float32), ("sum", torch.int32)]
+    assert forced.gathers == 1
+    for key in local:
+        assert torch.equal(synced[key], local[key])
+    for k, m in col.items(keep_base=True, copy_state=False):
+        for name, val in own[k].items():
+            now = getattr(m, name)
+            assert all(a is b for a, b in zip(now, val)) if isinstance(val, list) else now is val
+
+
+def test_masked_buffer_dump_row_on_the_card(cuda):
+    """Masked-out and overflow rows go to the dump row on the card, with no
+    host sync, and the buffer equals the same appends on the CPU."""
+    from tpumetrics_torch import buffers as tb
+
+    rng = np.random.default_rng(6)
+    batches = [(rng.random((5, 3)).astype(np.float32), rng.random(5) < 0.6) for _ in range(4)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        buf = tb.create_buffer(8, (3,), torch.float32, device)
+        for i, (rows, valid) in enumerate(batches):
+            rows, valid = torch.from_numpy(rows).to(device), torch.from_numpy(valid).to(device)
+            if device == "cuda" and i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    buf = tb.buffer_append(buf, rows, valid)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                buf = tb.buffer_append(buf, rows, valid)
+        out[device] = [t.cpu() for t in buf]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert int(out["cuda"][1]) == 8 and int(out["cuda"][2]) == sum(int(v.sum()) for _, v in batches) > 8

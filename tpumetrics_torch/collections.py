@@ -1,21 +1,30 @@
-"""MetricCollection for one process (counterpart of ``tpumetrics/collections.py``).
+"""MetricCollection (counterpart of ``tpumetrics/collections.py``).
 
 Compute groups work as in the JAX package: the first ``update`` runs every
 metric, then metrics whose states came out value-identical are merged into
 one group, and later updates run each group's leader only. Members alias
 their leader's tensors (safe, because states are never mutated in place) and
 are refreshed right before any member access.
+
+``compute`` syncs the whole collection across ranks in one flush of a
+shared :class:`~tpumetrics_torch.parallel.fuse.FusedReducer`: one
+``all_reduce`` per (op, dtype) class of the group leaders' reduce states,
+plus the gathers of their list states. Members adopt their leader's synced
+tensors; every metric unsyncs back to its own states afterwards.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from tpumetrics_torch.metric import Metric, _resolve_device
+from tpumetrics_torch.metric import Metric, _refuse_axis_name, _resolve_device
+from tpumetrics_torch.parallel.backend import DistributedBackend, get_default_backend
+from tpumetrics_torch.parallel.fuse import FusedReducer
 from tpumetrics_torch.utils.data import _flatten_dict
 from tpumetrics_torch.utils.prints import rank_zero_warn
 
@@ -202,13 +211,16 @@ class MetricCollection:
                 m0 = self._modules[cg[0]]
                 for name in cg[1:]:
                     mi = self._modules[name]
-                    for state in m0._defaults:
-                        m0_state = getattr(m0, state)
-                        # lists are shallow-copied so member appends never touch the leader's
-                        object.__setattr__(mi, state, list(m0_state) if isinstance(m0_state, list) else m0_state)
+                    self._alias_leader_states(m0, mi)
                     mi._update_count = m0._update_count
                     mi._computed = None
         self._state_is_copy = copy
+
+    @staticmethod
+    def _alias_leader_states(m0: Metric, mi: Metric) -> None:
+        """Point every state of ``mi`` at ``m0``'s tensors (lists are
+        shallow-copied, so member appends never touch the leader's)."""
+        mi._set_states(m0._copy_state_dict())
 
     # ---------------------------------------------------------------- results
 
@@ -219,13 +231,80 @@ class MetricCollection:
     def _compute_and_reduce(self, method_name: str, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         if method_name == "compute":
             self._compute_groups_create_state_ref(copy=False)
-            result = {k: m.compute() for k, m in self._modules.items()}
+            with self._fused_eager_sync():
+                result = {k: m.compute() for k, m in self._modules.items()}
         elif method_name == "forward":
             result = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self._modules.items()}
             self._state_is_copy = False  # every metric advanced its own state
         else:
             raise ValueError(f"method_name should be either 'compute' or 'forward', but got {method_name}")
         return self._flatten_results(result)
+
+    @contextmanager
+    def _fused_eager_sync(self) -> Iterator[None]:
+        """Sync every metric due to sync with ONE shared FusedReducer flush.
+
+        Without it a K-metric collection pays K sync rounds at ``compute()``.
+        Only each compute group's LEADER registers with the reducer (members
+        alias the leader's tensors; adding them would multiply the payload by
+        the group's size); members then adopt the leader's synced tensors,
+        keeping their own states to unsync to. Each synced metric's
+        ``_to_sync`` is parked so its own compute neither syncs again nor
+        raises; its compute wrapper unsyncs it on exit. Metrics with their
+        own ``sync_backend``, ``process_group`` or ``dist_sync_fn`` sync on
+        their own path. Every rank must enter with the same metrics due to
+        sync, as the collectives of all ranks must match.
+
+        An error in a collective propagates, and every metric synced so far
+        is restored to its local states first.
+        """
+
+        def _eligible(m: Metric) -> bool:
+            return (
+                m._to_sync
+                and not m._is_synced
+                and m._computed is None
+                and m.sync_backend is None
+                and m.dist_sync_fn is None
+                and m.process_group is None
+            )
+
+        leaders: List[Tuple[Metric, List[Metric]]] = []
+        for cg in self._groups.values():
+            m0 = self._modules[cg[0]]
+            if _eligible(m0):
+                leaders.append((m0, [self._modules[k] for k in cg[1:] if _eligible(self._modules[k])]))
+        parked: List[Metric] = []
+        try:
+            if leaders:
+                reducer = FusedReducer(get_default_backend())
+                finalizers: List[Callable[[], None]] = []
+                synced: List[Tuple[Metric, List[Metric]]] = []
+                for m0, members in leaders:
+                    fin = m0.sync(_reducer=reducer)
+                    if m0._is_synced:
+                        parked.append(m0)
+                        m0._to_sync = False
+                        synced.append((m0, members))
+                    if fin is not None:
+                        finalizers.append(fin)
+                if finalizers:
+                    reducer.flush()
+                    for fin in finalizers:
+                        fin()
+                for m0, members in synced:
+                    for mi in members:
+                        mi._cache = mi._copy_state_dict()
+                        self._alias_leader_states(m0, mi)
+                        mi._is_synced = True
+                        mi._to_sync = False
+                        parked.append(mi)
+            yield
+        finally:
+            for m in parked:
+                m._to_sync = True
+                if m._is_synced:  # its compute never ran (an error): restore
+                    m.unsync()
 
     def _flatten_results(self, result: Dict[str, Any]) -> Dict[str, Any]:
         """Flatten dict-valued results (colliding inner keys get the metric
@@ -379,10 +458,39 @@ class MetricCollection:
             out[cg[0]] = m0.functional_update(state[cg[0]], *args, **m0._filter_kwargs(**kwargs))
         return out
 
-    def functional_compute(self, state: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
-        """Pure collection compute: each member computes from its leader's state."""
+    def functional_compute(
+        self,
+        state: Dict[str, Dict[str, Any]],
+        axis_name: Optional[str] = None,
+        backend: Optional[DistributedBackend] = None,
+    ) -> Dict[str, Any]:
+        """Pure collection compute: each member computes from its leader's
+        state, synced first through ``backend`` when one is given (one
+        collective per (op, dtype) class for the whole collection).
+        ``axis_name`` has no torch counterpart and raises."""
+        _refuse_axis_name(axis_name)
+        synced = self.sync_states(state, backend) if backend is not None else state
         results: Dict[str, Any] = {}
         for cg in self._groups.values():
             for name in cg:
-                results[name] = self._modules[name].functional_compute(state[cg[0]])
+                results[name] = self._modules[name].functional_compute(synced[cg[0]])
         return self._flatten_results(results)
+
+    def sync_states(self, state: Dict[str, Dict[str, Any]], backend: DistributedBackend) -> Dict[str, Dict[str, Any]]:
+        """Pure cross-rank merge of every group leader's state with one fused
+        flush (one collective per (op, dtype) class)."""
+        reducer = FusedReducer(backend)
+        finalize = self._sync_state_collect(state, backend, reducer)
+        reducer.flush()
+        return finalize()
+
+    def _sync_state_collect(
+        self, state: Dict[str, Dict[str, Any]], backend: DistributedBackend, reducer: FusedReducer, group: Any = None
+    ) -> Callable[[], Dict[str, Dict[str, Any]]]:
+        """First phase of a shared fused sync, shaped like the collection's
+        state (the closure protocol of ``Metric._sync_state_collect``)."""
+        finalizers = {
+            cg[0]: self._modules[cg[0]]._sync_state_collect(state[cg[0]], backend, reducer, group)
+            for cg in self._groups.values()
+        }
+        return lambda: {name: fin() for name, fin in finalizers.items()}

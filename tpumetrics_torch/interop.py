@@ -3,10 +3,16 @@
 A state is what ``init_state()`` / ``functional_update()`` return, with
 numpy arrays as leaves: ``{state_name: array}`` for a metric (a list of
 arrays for a list state), ``{leader_name: {state_name: array}}`` for a
-collection, keyed by compute-group leader. ``load_state`` puts such a state
-into a port metric or collection on its device; ``export_state`` takes it
-out. Dtypes are kept (int32 counts, float32 values). This module imports
-nothing of JAX: the JAX side converts with ``np.asarray`` / ``jnp.asarray``.
+collection, keyed by compute-group leader. A fixed-capacity list state
+(a MaskedBuffer) is a leaf with ``values``, ``count`` and ``requested``
+fields: the JAX package's ``MaskedBuffer`` with numpy leaves loads as is,
+and an exported one is the port's :class:`~tpumetrics_torch.buffers.MaskedBuffer`
+with numpy leaves, whose fields are in the JAX one's order
+(``tpumetrics.buffers.MaskedBuffer(*leaf)``). ``load_state`` puts such a
+state into a port metric or collection on its device; ``export_state``
+takes it out. Dtypes are kept (int32 counts, float32 values). This module
+imports nothing of JAX: the JAX side converts with ``np.asarray`` /
+``jnp.asarray``.
 """
 
 from __future__ import annotations
@@ -16,16 +22,26 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
+from tpumetrics_torch.buffers import MaskedBuffer
 from tpumetrics_torch.collections import MetricCollection
 from tpumetrics_torch.metric import Metric
+
+
+def _is_buffer(value: Any) -> bool:
+    return all(hasattr(value, f) for f in MaskedBuffer._fields)
 
 
 def _load_metric(metric: Metric, state: Dict[str, Any]) -> None:
     if set(state) != set(metric._defaults):
         raise ValueError(f"{type(metric).__name__} has states {sorted(metric._defaults)}, got {sorted(state)}")
+    loaded: Dict[str, Any] = {}
     for name, value in state.items():
         default = metric._defaults[name]
-        if isinstance(default, list):
+        if isinstance(default, list) and _is_buffer(value):
+            value = MaskedBuffer(
+                *(torch.tensor(np.asarray(getattr(value, f)), device=metric.device) for f in MaskedBuffer._fields)
+            )
+        elif isinstance(default, list):
             value = [torch.tensor(np.asarray(v), device=metric.device) for v in value]
         else:
             value = torch.tensor(np.asarray(value), device=metric.device)
@@ -34,7 +50,8 @@ def _load_metric(metric: Metric, state: Dict[str, Any]) -> None:
                     f"{type(metric).__name__}.{name}: expected {default.dtype}{tuple(default.shape)},"
                     f" got {value.dtype}{tuple(value.shape)}"
                 )
-        object.__setattr__(metric, name, value)
+        loaded[name] = value
+    metric._set_states(loaded)
     metric._computed = None
 
 
@@ -63,10 +80,12 @@ def export_state(source: Union[Metric, MetricCollection]) -> Dict[str, Any]:
     """``source``'s state as numpy arrays, keyed like ``init_state()``."""
 
     def _host(val: Any) -> Any:
+        if isinstance(val, MaskedBuffer):
+            return MaskedBuffer(*(_host(t) for t in val))
         if isinstance(val, list):
             return [v.detach().cpu().numpy() for v in val]
         return val.detach().cpu().numpy()
 
     if isinstance(source, Metric):
-        return {name: _host(getattr(source, name)) for name in source._defaults}
+        return {name: _host(val) for name, val in source._copy_state_dict().items()}
     return {cg[0]: export_state(source._modules[cg[0]]) for cg in source.compute_groups.values()}

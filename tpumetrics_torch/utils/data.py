@@ -10,24 +10,38 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from tpumetrics_torch.buffers import MaskedBuffer, _BufferList, materialize
+
 Tensor = torch.Tensor
 
 
-def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
-    """Concatenate a (possibly listed) state along dim 0."""
+def dim_zero_cat(x: Union[Tensor, List[Tensor], MaskedBuffer]) -> Tensor:
+    """Concatenate a (possibly listed) state along dim 0. MaskedBuffer
+    states materialize to their valid rows."""
+    if isinstance(x, _BufferList):
+        x = x.buffer
+    if isinstance(x, MaskedBuffer):
+        return materialize(x)
     if isinstance(x, Tensor):
         return x
     if not x:
         raise ValueError("No samples to concatenate")
+    x = [y.buffer if isinstance(y, _BufferList) else y for y in x]
+    x = [materialize(y) if isinstance(y, MaskedBuffer) else y for y in x]
     return torch.cat([y.reshape(1) if y.ndim == 0 else y for y in x], dim=0)
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:
-    return torch.sum(x, dim=0)
+    """Sum over dim 0, keeping an integer dtype (``torch.sum`` would widen
+    int32 to int64; ``jnp.sum`` keeps it), bool summed as int32."""
+    if x.is_floating_point():
+        return torch.sum(x, dim=0)
+    return torch.sum(x, dim=0, dtype=torch.int32 if x.dtype == torch.bool else x.dtype)
 
 
 def dim_zero_mean(x: Tensor) -> Tensor:
-    return torch.mean(x, dim=0)
+    """Mean over dim 0; an integer mean is float32, as ``jnp.mean``'s."""
+    return torch.mean(x if x.is_floating_point() else x.to(torch.float32), dim=0)
 
 
 def dim_zero_max(x: Tensor) -> Tensor:
