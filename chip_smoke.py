@@ -20,11 +20,12 @@ Phases, each of which passes or exits non-zero:
    multilabel shapes;
 4. slice phase: an ImageNet-1k validation-sized evaluation (50,000 samples,
    1000 classes, batches of 8192 and a ragged 848) through
-   ``MetricCollection({acc, f1, auroc(T=200)})`` on the card, held against
-   the same stream on the CPU (identical int32 states, values within 1e-6)
-   and against numpy counts; the kernel's launches in that run are counted.
-   The bench headline shape (N=8192, C=128, T=64, 5 batches) runs the same
-   way;
+   ``MetricCollection({acc, f1, auroc(T=200), ap(T=200), confmat})`` on the
+   card, held against the same stream on the CPU (identical int32 states,
+   values within 1e-6) and against numpy counts, with one steady update
+   run with host syncs made errors; the kernel's launches in that run are
+   counted. The bench headline shape (N=8192, C=128, T=64, 5 batches; acc,
+   f1 and auroc) runs the same way;
 5. task phase: a binary stream (1,000,000 samples, batches of 65,536 and a
    ragged 16,960: a CTR or fraud classifier's eval shard) through
    ``Accuracy``, ``F1Score``, binned and exact ``AUROC`` with
@@ -45,7 +46,17 @@ Phases, each of which passes or exits non-zero:
    ``compute()`` (one ``all_reduce`` per (op, dtype) class of the group
    leaders' states, two gathers per list state) counted by a wrapper around
    the backend and in ``torch.profiler``, the binned update free of host
-   syncs, and the sync's host-clock time per ``compute()``.
+   syncs, and the sync's host-clock time per ``compute()``;
+7. fused phase, at the end of each of the five streams above: the stream's
+   collection twice, ``fused_update=False`` and ``True`` (CUDA graphs), fed
+   update by update in turns: states bit for bit and ``compute()`` values
+   equal after every update, the updates of each mode counted (a key's
+   first sighting eager, its capture, its replays; the synced stream's
+   tensor kwarg keeps every update eager), one replay with host syncs made
+   errors, 15 steady updates of each timed on the host clock in turns, one
+   of each under ``torch.profiler`` (device union), the capture time, and
+   the kernel's launches (eager calls plus each graph's replays times the
+   calls it captured) equal to the unfused run's.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -54,6 +65,7 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -261,23 +273,41 @@ def numpy_reference(batches, c: int, thresholds: np.ndarray) -> dict:
     acc = float(np.mean(np.argmax(probs, axis=1) == target))
     hit = target[:, None] == np.arange(c)[None, :]
     tp, predpos = numpy_binned_counts(probs, hit, np.ones_like(hit), thresholds)
-    return {"acc": acc, "tp": tp, "predpos": predpos}
+    confmat = np.bincount(target * c + np.argmax(probs, axis=1), minlength=c * c).reshape(c, c).astype(np.int32)
+    return {"acc": acc, "tp": tp, "predpos": predpos, "confmat": confmat}
 
 
-def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int) -> dict:
-    """Stream through the collection on the card and on the CPU; compare."""
-    from tpumetrics_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
+def multiclass_members(c: int, t: int, device, extra: bool) -> dict:
+    """Micro accuracy, macro F1 and binned AUROC (BASELINE config #2's set);
+    with ``extra``, binned AP (in AUROC's compute group) and the confusion
+    matrix too."""
+    from tpumetrics_torch.classification import (
+        MulticlassAccuracy,
+        MulticlassAUROC,
+        MulticlassAveragePrecision,
+        MulticlassConfusionMatrix,
+        MulticlassF1Score,
+    )
+
+    out = {
+        "acc": MulticlassAccuracy(c, average="micro", validate_args=False, device=device),
+        "f1": MulticlassF1Score(c, average="macro", validate_args=False, device=device),
+        "auroc": MulticlassAUROC(c, thresholds=t, validate_args=False, device=device),
+    }
+    if extra:
+        out["ap"] = MulticlassAveragePrecision(c, thresholds=t, validate_args=False, device=device)
+        out["confmat"] = MulticlassConfusionMatrix(c, validate_args=False, device=device)
+    return out
+
+
+def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra: bool = False) -> dict:
+    """Stream through the collection on the card and on the CPU; compare;
+    then the fused phase of the same stream."""
+    from tpumetrics_torch import MetricCollection
     from tpumetrics_torch.interop import export_state
 
-    def collection(device):
-        return MetricCollection(
-            {
-                "acc": MulticlassAccuracy(c, average="micro", validate_args=False, device=device),
-                "f1": MulticlassF1Score(c, average="macro", validate_args=False, device=device),
-                "auroc": MulticlassAUROC(c, thresholds=t, validate_args=False, device=device),
-            },
-            device=device,
-        )
+    def collection(device, fused=False):
+        return MetricCollection(multiclass_members(c, t, device, extra), fused_update=fused, device=device)
 
     batches = make_stream(n, c, batch, SEED)
     dev_batches = [(torch.from_numpy(p).cuda(), torch.from_numpy(y).cuda()) for p, y in batches]
@@ -286,20 +316,14 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int) -> di
 
     bc.launches = 0  # count only the main path's launches
     update_ms = []
-    syncs = []
     for i, (preds, target) in enumerate(dev_batches):
         t0 = time.perf_counter()
-        if i == 1:  # a steady update: count the host syncs in it (a probe, not a check)
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    col.update(preds, target)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            syncs = [
-                f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)
-            ]
+        if i == 1:  # a steady update (leaders only): a host sync in it raises
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                col.update(preds, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
         else:
             col.update(preds, target)
         torch.cuda.synchronize()
@@ -311,8 +335,11 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int) -> di
     launches = bc.launches
 
     groups = [list(g) for g in col.compute_groups.values()]
-    check(groups == [["acc", "f1"], ["auroc"]], f"{label}: compute groups {groups}")
-    check(launches == len(batches), f"{label}: {launches} kernel launches for {len(batches)} AUROC leader updates")
+    want = [["acc", "f1"], ["ap", "auroc"], ["confmat"]] if extra else [["acc", "f1"], ["auroc"]]
+    check(groups == want, f"{label}: compute groups {groups}")
+    # the first update runs every member (AP's own launch with AUROC's); AP then shares AUROC's group
+    want_launches = len(batches) + (1 if extra else 0)
+    check(launches == want_launches, f"{label}: {launches} kernel launches, expected {want_launches}")
 
     cpu = collection("cpu")
     for preds, target in batches:
@@ -325,24 +352,31 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int) -> di
 
     ref = numpy_reference(batches, c, col["auroc"].thresholds.cpu().numpy())
     check(abs(float(values["acc"]) - ref["acc"]) <= 1e-6, f"{label}: acc {float(values['acc'])} vs numpy {ref['acc']}")
-    confmat = gpu_state["auroc"]["confmat"]
+    confmat = gpu_state["ap" if extra else "auroc"]["confmat"]
     check(np.array_equal(confmat[:, :, 1, 1], ref["tp"]), f"{label}: AUROC tp counts differ from numpy")
     check(
         np.array_equal(confmat[:, :, 0, 1] + confmat[:, :, 1, 1], ref["predpos"]),
         f"{label}: AUROC predicted-positive counts differ from numpy",
     )
+    if extra:
+        check(np.array_equal(gpu_state["confmat"]["confmat"], ref["confmat"]), f"{label}: confusion matrix != numpy")
     # the first update runs every metric and compares states: report it apart
     steady = update_ms[1:]
+    ap = f" ap {float(values['ap']):.6f}" if extra else ""
     print(
         f"slice phase: {label}: {len(batches)} batches, states identical to the CPU run and to numpy counts;"
-        f" acc {float(values['acc']):.6f} f1 {float(values['f1']):.6f} auroc {float(values['auroc']):.6f};"
+        f" acc {float(values['acc']):.6f} f1 {float(values['f1']):.6f} auroc {float(values['auroc']):.6f}{ap};"
         f" first update {update_ms[0]:.3f} ms, later updates median {np.median(steady):.3f} ms"
         f" (min {min(steady):.3f}, max {max(steady):.3f}); compute {compute_ms:.3f} ms;"
-        f" kernel launches {launches}; host syncs in update 1: {len(syncs)}, from {sorted(set(syncs))}",
+        f" kernel launches {launches}; update 1 free of host syncs",
         flush=True,
     )
     profile_step(torch, col, dev_batches[0], label)
-    return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms}
+    del col
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    if extra:
+        check(fused["groups"] == want, f"{label}: fused compute groups {fused['groups']}")
+    return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms, "fused": fused}
 
 
 def check_same_states(label: str, gpu_state: dict, cpu_state: dict) -> None:
@@ -368,6 +402,183 @@ def check_same_values(torch, label: str, values: dict, cpu_values: dict) -> None
         check(bool(torch.isfinite(val).all()) and val.shape == cpu_values[key].shape, f"{label}: {key} = {val}")
         diff = float((val - cpu_values[key]).abs().max())
         check(diff <= 1e-6, f"{label}: {key} card {val} vs CPU {cpu_values[key]} (diff {diff})")
+
+
+def check_identical_states(label: str, got: dict, want: dict) -> None:
+    """Two collections' exported states bit for bit: every tensor state of
+    one dtype and equal, list states entry by entry."""
+    check(got.keys() == want.keys(), f"{label}: leaders {sorted(got)} vs {sorted(want)}")
+    for leader, states in want.items():
+        for name, ref in states.items():
+            val = got[leader][name]
+            if isinstance(ref, list):
+                same = len(val) == len(ref) and all(
+                    v.dtype == r.dtype and np.array_equal(v, r, equal_nan=True) for v, r in zip(val, ref)
+                )
+            else:
+                same = val.dtype == ref.dtype and np.array_equal(val, ref, equal_nan=True)
+            check(same, f"{label}: {leader}.{name} differs fused vs unfused")
+
+
+def update_mode(step, before: dict) -> str:
+    """How the fused collection's last update ran: "groups" (the first, every
+    metric), "eager", "captured", "replayed" or "unfused" (every leader eager)."""
+    if step is None:
+        return "groups"
+    now = step.counts
+    changed = [k for k in now if now[k] != before.get(k, 0)]
+    return changed[0] if len(changed) == 1 else "groups"
+
+
+def profile_update(torch, fn) -> dict:
+    """One call of ``fn`` (an update) under ``torch.profiler``: its wall time
+    (host clock, to the end of ``torch.cuda.synchronize()``), the union of
+    its device intervals and their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    busy = busy_union_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
+    return {"wall_ms": wall, "busy_ms": busy, "intervals": len(device), "share": busy / wall if wall else 0.0}
+
+
+def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: int = 15) -> dict:
+    """The fused phase of one stream: the same collection twice,
+    ``fused_update=False`` and ``True``, fed the stream update by update in
+    turns. After every update the states are identical bit for bit and the
+    ``compute()`` values equal. Then one steady update of each on the first
+    batch, the fused one with host syncs made errors when it is a replay,
+    and ``rounds`` more of each in turns (the order flips each round),
+    timed on the host clock to the end of ``torch.cuda.synchronize()``; the
+    states and values are compared again, and one update of each runs
+    under the profiler.
+    Kernel launches: the wrapper's count for eager calls, plus each graph's
+    replays times the kernel calls it captured."""
+    from tpumetrics_torch.interop import export_state
+
+    update = update or (lambda col, batch: col.update(*batch))
+    cols = {"plain": make(False), "fused": make(True)}
+    launches = {"plain": 0, "fused": 0}
+    modes = {"groups": 0, "eager": 0, "captured": 0, "replayed": 0, "unfused": 0}
+    times = {"plain": [], "fused": []}
+
+    def run(name, batch, guard=False):
+        col = cols[name]
+        step = col._fused_oo_step
+        before = dict(step.counts) if step is not None else {}
+        n0 = bc.launches
+        t0 = time.perf_counter()
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            update(col, batch)
+        finally:
+            if guard:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[name] += bc.launches - n0
+        mode = update_mode(col._fused_oo_step, before) if name == "fused" else "plain"
+        if name == "fused":
+            modes[mode] += 1
+        return ms, mode
+
+    def compare(when):
+        check_identical_states(f"{label} {when}", export_state(cols["fused"]), export_state(cols["plain"]))
+        got, want = cols["fused"].compute(), cols["plain"].compute()
+        for key in want:
+            check(torch.equal(got[key], want[key]), f"{label} {when}: {key} fused {got[key]} vs unfused {want[key]}")
+
+    for i, batch in enumerate(dev_batches):
+        run("plain", batch)
+        run("fused", batch)
+        compare(f"after update {i + 1}")
+    steady = dev_batches[0]
+    run("plain", steady)
+    _, guarded = run("fused", steady, guard=modes["replayed"] > 0)  # a replay raises on any host sync
+    timed_modes = []
+    # what else the host did in the timed updates: Python's garbage collections and
+    # their time, and new device memory segments (cudaMalloc calls of the allocator)
+    gc_ms = {"plain": 0.0, "fused": 0.0}
+    gc_runs = {"plain": 0, "fused": 0}
+    segments = {"plain": 0, "fused": 0}
+    current = {"name": None, "t0": 0.0}
+
+    def on_gc(phase, info):
+        if current["name"] is None:
+            return
+        if phase == "start":
+            current["t0"] = time.perf_counter()
+        else:
+            gc_ms[current["name"]] += (time.perf_counter() - current["t0"]) * 1e3
+            gc_runs[current["name"]] += 1
+
+    gc.callbacks.append(on_gc)
+    try:
+        for r in range(rounds):
+            for name in ("plain", "fused") if r % 2 == 0 else ("fused", "plain"):
+                seg0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                current["name"] = name
+                ms, mode = run(name, steady)
+                current["name"] = None
+                segments[name] += torch.cuda.memory_stats().get("segment.all.allocated", 0) - seg0
+                times[name].append(ms)
+                if name == "fused":
+                    timed_modes.append(mode)
+    finally:
+        gc.callbacks.remove(on_gc)
+    compare("after the timed updates")
+    step = cols["fused"]._fused_oo_step
+    replay_launches = step.kernel_launches().get("binned_confusion", 0) if step is not None else 0
+    prof = {name: profile_update(torch, lambda: update(cols[name], steady)) for name in ("plain", "fused")}
+    groups = [list(g) for g in cols["fused"].compute_groups.values()]
+    leaders = step.leaders if step is not None else []
+    out = {
+        "modes": modes,
+        "timed_modes": sorted(set(timed_modes)),
+        "guarded_replay": guarded == "replayed",
+        "plain_ms": float(np.median(times["plain"])),
+        "fused_ms": float(np.median(times["fused"])),
+        "plain_ms_all": times["plain"],
+        "fused_ms_all": times["fused"],
+        "gc_ms": gc_ms,
+        "gc_runs": gc_runs,
+        "new_segments": segments,
+        "profile": prof,
+        "capture_s": list(step.capture_seconds) if step is not None else [],
+        "graphs": step.program_count if step is not None else 0,
+        "launches_plain": launches["plain"],
+        "launches_fused": launches["fused"] + replay_launches,
+        "launches_fused_eager": launches["fused"],
+        "launches_fused_replayed": replay_launches,
+        "groups": groups,
+        "eager_leaders": [g[0] for g in groups if g[0] not in leaders],
+    }
+    check(out["launches_fused"] == out["launches_plain"],
+          f"{label}: fused kernel launches {out['launches_fused']} (eager {launches['fused']} + replayed"
+          f" {replay_launches}) vs unfused {out['launches_plain']}")
+    print(
+        f"fused phase: {label}: {len(dev_batches)} + {rounds + 1} updates in turns, states bit for bit and values"
+        f" equal to the unfused collection after every update; fused updates by mode {modes}"
+        f" (timed ones: {out['timed_modes']}); a replay under sync errors: {out['guarded_replay']};"
+        f" host-clock update median fused {out['fused_ms']:.3f} ms vs unfused {out['plain_ms']:.3f} ms"
+        f" ({rounds} each, in turns; in them, garbage collections {gc_runs} taking {({k: round(v, 3) for k, v in gc_ms.items()})} ms,"
+        f" new device memory segments {segments}); device union of a fused update over its unprofiled median"
+        f" {100 * prof['fused']['busy_ms'] / out['fused_ms']:.1f}%; profiled update: fused {prof['fused']['wall_ms']:.3f} ms wall, device union"
+        f" {prof['fused']['busy_ms']:.3f} ms ({100 * prof['fused']['share']:.1f}%, {prof['fused']['intervals']}"
+        f" intervals) vs unfused {prof['plain']['wall_ms']:.3f} ms wall, {prof['plain']['busy_ms']:.3f} ms"
+        f" ({100 * prof['plain']['share']:.1f}%, {prof['plain']['intervals']} intervals); graphs {out['graphs']},"
+        f" capture {[round(x, 4) for x in out['capture_s']]} s; eager leaders {out['eager_leaders']};"
+        f" binned_confusion launches fused {out['launches_fused']} ({launches['fused']} eager + {replay_launches}"
+        f" replayed) vs unfused {out['launches_plain']}",
+        flush=True,
+    )
+    return out
 
 
 def make_binary_stream(n: int, batch: int, seed: int):
@@ -432,8 +643,8 @@ def task_phase(torch, bc, task: str) -> dict:
         }
         groups = [["acc", "f1"], ["auroc"]]
 
-    def collection(device):
-        return MetricCollection({k: m(device=device) for k, m in members.items()}, device=device)
+    def collection(device, fused=False):
+        return MetricCollection({k: m(device=device) for k, m in members.items()}, fused_update=fused, device=device)
 
     dev_batches = [(torch.from_numpy(p).cuda(), torch.from_numpy(y).cuda()) for p, y in batches]
     col = collection("cuda")
@@ -495,7 +706,11 @@ def task_phase(torch, bc, task: str) -> dict:
         flush=True,
     )
     profile_step(torch, col, dev_batches[1], label)
-    return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms}
+    del col
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    eager = ["auroc_exact"] if task == "binary" else []
+    check(fused["eager_leaders"] == eager, f"{label}: eager leaders {fused['eager_leaders']}, expected {eager}")
+    return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms, "fused": fused}
 
 
 def sync_phase(torch, bc, smi: str) -> dict:
@@ -555,18 +770,26 @@ def sync_phase(torch, bc, smi: str) -> dict:
     n, c, t, batch = 50000, 1000, 200, 8192
     batches = make_stream(n, c, batch, SEED)
     dev_batches = [(torch.from_numpy(p).cuda(), torch.from_numpy(y).cuda()) for p, y in batches]
-    col = MetricCollection(
-        {
-            "acc": MulticlassAccuracy(c, average="micro", validate_args=False),
-            "f1": MulticlassF1Score(c, average="macro", validate_args=False),
-            "auroc": MulticlassAUROC(c, thresholds=t, validate_args=False),
-            "mean": MeanMetric(),
-            "cat": CatMetric(),
-        }
-    )
+    def collection(fused=False):
+        return MetricCollection(
+            {
+                "acc": MulticlassAccuracy(c, average="micro", validate_args=False),
+                "f1": MulticlassF1Score(c, average="macro", validate_args=False),
+                "auroc": MulticlassAUROC(c, thresholds=t, validate_args=False),
+                "mean": MeanMetric(),
+                "cat": CatMetric(),
+            },
+            fused_update=fused,
+        )
+
+    def update_of(col, batch):
+        preds, target = batch
+        col.update(preds=preds, target=target, value=preds.max(dim=1).values.mean())
+
+    col = collection()
 
     def update(preds, target):
-        col.update(preds=preds, target=target, value=preds.max(dim=1).values.mean())
+        update_of(col, (preds, target))
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.set_device(0)
@@ -680,6 +903,16 @@ def sync_phase(torch, bc, smi: str) -> dict:
                     col.compute()
                     torch.cuda.synchronize()
                     out.append((time.perf_counter() - t0) * 1e3)
+
+            # the fused phase: every compute() synced over the NCCL group; the tensor
+            # kwarg (value=) keys no graph, so every update after the first runs eagerly
+            set_default_backend(forced)
+            fused = fused_pair(torch, bc, label, collection, dev_batches, update_of)
+            modes = fused["modes"]
+            check(
+                modes["unfused"] == sum(modes.values()) - modes["groups"] and modes["groups"] == 1 and fused["graphs"] == 0,
+                f"{label}: fused updates by mode {modes}, {fused['graphs']} graphs; expected every update but the first unfused",
+            )
         finally:
             set_default_backend(None)
             dist.destroy_process_group()
@@ -697,7 +930,7 @@ def sync_phase(torch, bc, smi: str) -> dict:
     )
     return {
         "launches": launches, "sync_ms": sync_ms, "compute_ms": synced_ms, "local_compute_ms": local_ms,
-        "wire": wire, "wire_bytes": wire_bytes, "by_class": by_class, "gathers": n_gathers,
+        "wire": wire, "wire_bytes": wire_bytes, "by_class": by_class, "gathers": n_gathers, "fused": fused,
     }
 
 
@@ -787,9 +1020,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     print(smi, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
 
     t0 = time.perf_counter()
     libs = _build.build()
@@ -803,7 +1036,9 @@ def main() -> None:
 
     kern = kernel_phase(torch, bc)
     paths = {
-        "imagenet": slice_phase(torch, bc, "ImageNet-1k val 50000x1000 T=200", 50000, 1000, 200, 8192),
+        "imagenet": slice_phase(
+            torch, bc, "ImageNet-1k val 50000x1000 T=200 + AP + confmat", 50000, 1000, 200, 8192, extra=True
+        ),
         "headline": slice_phase(torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192),
         "binary": task_phase(torch, bc, "binary"),
         "multilabel": task_phase(torch, bc, "multilabel"),
@@ -815,6 +1050,21 @@ def main() -> None:
     ).stdout.strip()
     print(f"card after the runs (SM clock, power draw, power limit, temperature): {clocks}", flush=True)
 
+    for path, p in paths.items():
+        fused = p["fused"]
+        if path != "sync":  # the synced stream's tensor kwarg keeps every update eager (checked in its phase)
+            check(fused["modes"]["replayed"] >= 1 and fused["guarded_replay"], f"{path}: no checked graph replay")
+    launches_by_path = {path: p["launches"] for path, p in paths.items()}
+    for path, p in paths.items():
+        launches_by_path[f"{path} fused phase, unfused"] = p["fused"]["launches_plain"]
+        launches_by_path[f"{path} fused phase, fused (eager + replayed)"] = p["fused"]["launches_fused"]
+    fused_report = {
+        path: {k: p["fused"][k] for k in (
+            "modes", "plain_ms", "fused_ms", "plain_ms_all", "fused_ms_all", "gc_ms", "gc_runs", "new_segments",
+            "profile", "capture_s", "graphs", "launches_fused_eager", "launches_fused_replayed", "eager_leaders",
+        )}
+        for path, p in paths.items()
+    }
     main_shape = kern["timed"]["main path 8192x1000x200"]
     report = {
         "kernels": [
@@ -823,8 +1073,8 @@ def main() -> None:
                 "route": "cuda",
                 "source": "tpumetrics_torch/csrc/binned_confusion.cu",
                 "replaces": "tpumetrics/ops/binned_confusion.py:62",
-                "launches": sum(p["launches"] for p in paths.values()),
-                "launches_by_path": {name: p["launches"] for name, p in paths.items()},
+                "launches": sum(launches_by_path.values()),
+                "launches_by_path": launches_by_path,
                 "max_abs_err": kern["max_abs_err"],
                 "ms": main_shape["ms"],
                 "plain_ms": main_shape["plain_ms"],
@@ -836,10 +1086,11 @@ def main() -> None:
                 "timed_shapes": kern["timed"],
                 "card": smi,
             }
-        ]
+        ],
+        "fused_update": fused_report,
     }
     print(json.dumps(report), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

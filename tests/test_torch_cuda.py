@@ -1,7 +1,8 @@
 """The port on a CUDA card: the kernel against its plain version, the
 multiclass, binary and multilabel collections on the card against the same
 streams on the CPU, a collection synced over a real NCCL group of one rank,
-and a MaskedBuffer's dump row on the card.
+a MaskedBuffer's dump row on the card, and the fused collection update
+(CUDA graphs) against the unfused one.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -266,3 +267,196 @@ def test_masked_buffer_dump_row_on_the_card(cuda):
     for got, want in zip(out["cuda"], out["cpu"]):
         assert got.dtype == want.dtype and torch.equal(got, want)
     assert int(out["cuda"][1]) == 8 and int(out["cuda"][2]) == sum(int(v.sum()) for _, v in batches) > 8
+
+
+# ---------------------------------------------------------- fused update (CUDA graphs)
+
+
+def _fused_pair(kind, device):
+    """The same collection twice, unfused and fused, with its batches: the
+    multiclass one with accuracy, F1, binned AUROC, AP and the confusion
+    matrix; binary with an exact AUROC (list states: it stays eager); and
+    multilabel with ignore_index."""
+    rng = np.random.default_rng(8)
+    if kind == "multiclass":
+        c, n = 10, 512
+        batches = []
+        for b in (n, n, n, n, 96, n):
+            z = rng.standard_normal((b, c)).astype(np.float32)
+            e = np.exp(z - z.max(axis=1, keepdims=True))
+            batches.append(((e / e.sum(axis=1, keepdims=True)).astype(np.float32), rng.integers(0, c, b)))
+
+        def members():
+            return {
+                "acc": cls.MulticlassAccuracy(c, average="micro", device=device),
+                "f1": cls.MulticlassF1Score(c, device=device),
+                "auroc": cls.MulticlassAUROC(c, thresholds=32, device=device),
+                "ap": cls.MulticlassAveragePrecision(c, thresholds=32, device=device),
+                "confmat": cls.MulticlassConfusionMatrix(c, device=device),
+            }
+
+    else:
+        shape = (1024,) if kind == "binary" else (256, 6)
+        kw = {"task": kind, "device": device, "ignore_index": -1}
+        if kind == "multilabel":
+            kw["num_labels"] = 6
+        batches = []
+        for _ in range(5):
+            target = rng.integers(0, 2, shape)
+            target[rng.random(shape) < 0.05] = -1
+            batches.append(((rng.integers(0, 257, shape) / 256).astype(np.float32), target))
+
+        def members():
+            out = {
+                "acc": tpumetrics_torch.Accuracy(**kw),
+                "f1": tpumetrics_torch.F1Score(**kw),
+                "auroc": tpumetrics_torch.AUROC(thresholds=32, **kw),
+                "ap": tpumetrics_torch.AveragePrecision(thresholds=32, **kw),
+            }
+            if kind == "binary":
+                out["exact"] = tpumetrics_torch.AUROC(**kw)
+            return out
+
+    cols = [MetricCollection(members(), fused_update=fused, device=device) for fused in (False, True)]
+    return cols, [(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)) for p, t in batches]
+
+
+@pytest.mark.parametrize("kind", ["multiclass", "binary", "multilabel"])
+def test_fused_collection_matches_the_unfused_one_bit_for_bit(cuda, kind):
+    """States equal after every update and values equal at the end; the
+    fused collection captured a graph and replayed it, and the kernel's
+    launches (eager ones plus replays times captured calls) equal the
+    unfused run's."""
+    (plain, fused), batches = _fused_pair(kind, cuda)
+    launches = {"plain": 0, "fused": 0}
+    for preds, target in batches:
+        for name, col in (("plain", plain), ("fused", fused)):
+            before = bc.launches
+            col.update(preds, target)
+            launches[name] += bc.launches - before
+        _assert_same_states(export_state(fused), export_state(plain))
+    step = fused._fused_oo_step
+    assert step.counts["captured"] >= 1 and step.counts["replayed"] >= 1
+    assert step.program_count >= 1
+    eager_leaders = [g[0] for g in fused.compute_groups.values() if g[0] not in step.leaders]
+    assert eager_leaders == (["exact"] if kind == "binary" else [])
+    replayed = step.kernel_launches().get("binned_confusion", 0)
+    assert launches["fused"] + replayed == launches["plain"]
+    vals, ref = fused.compute(), plain.compute()
+    for key in ref:
+        assert torch.equal(vals[key], ref[key]), key
+
+
+def test_a_replayed_update_syncs_nothing(cuda):
+    """A graph replay (batch copied in, graph launched, states written back)
+    raises nothing with host syncs made errors."""
+    (_, fused), batches = _fused_pair("multiclass", cuda)
+    for preds, target in batches[:3]:  # groups, warm-up, capture
+        fused.update(preds, target)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused.update(*batches[3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused._fused_oo_step.counts["replayed"] == 1
+
+
+def test_a_steady_multiclass_eager_update_syncs_nothing(cuda):
+    """The unfused multiclass update (the confusion matrix's int32 count
+    included) raises nothing with host syncs made errors."""
+    col = _collection(cuda, 1000, 200)
+    col.add_metrics({"confmat": cls.MulticlassConfusionMatrix(1000, validate_args=False, device=cuda)})
+    rng = np.random.default_rng(9)
+    batches = [
+        (torch.from_numpy(rng.random((2048, 1000), dtype=np.float32)).to(cuda), torch.from_numpy(rng.integers(0, 1000, 2048)).to(cuda))
+        for _ in range(2)
+    ]
+    col.update(*batches[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        col.update(*batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_a_capture_breaking_update_raises_instead_of_running_eagerly(cuda):
+    """An update that reads the device on the host runs on its first
+    sighting (eagerly) and raises at the capture of the second; the state
+    is left as the first update made it."""
+    from tpumetrics_torch.metric import Metric
+
+    class HostRead(Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("total", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + float(x.sum())  # a host read
+
+        def compute(self):
+            return self.total
+
+    col = MetricCollection({"h": HostRead(device=cuda)}, compute_groups=[["h"]], fused_update=True, device=cuda)
+    x = torch.ones(8, device=cuda)
+    col.update(x)
+    with pytest.raises(RuntimeError):
+        col.update(x)
+    step = col._fused_oo_step
+    assert step.counts == {"eager": 1, "captured": 0, "replayed": 0, "unfused": 0} and step.program_count == 0
+    torch.cuda.synchronize()
+    assert float(col["h"].total) == 8.0
+
+
+def test_masked_confmat_counts_at_1000_classes_equal_the_cpu(cuda):
+    """The int32 index_add_ count at C=1000, with ignored positions and
+    out-of-range labels, equals the CPU count."""
+    from tpumetrics_torch.functional.classification.stat_scores import _masked_confmat
+
+    rng = np.random.default_rng(10)
+    n, c = 200_000, 1000
+    preds = rng.integers(-3, c + 3, n)
+    target = rng.integers(-3, c + 3, n)
+    mask = (rng.random(n) < 0.9).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (preds, target, mask)]
+    cpu = _masked_confmat(*args, c)
+    gpu = _masked_confmat(*(a.to(cuda) for a in args), c)
+    assert gpu.dtype == cpu.dtype == torch.int32
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_fused_aggregators_replay_with_nans_as_the_eager_update_drops_them(cuda):
+    """Sum, Mean, Max and Min with their default NaN strategy ("warn": an
+    eager update drops NaN entries after reading on the host whether there
+    are any) are captured and replayed: inside the graph a NaN entry becomes
+    the reduction's identity with a zero weight, so every state equals the
+    unfused collection's: max and min exactly, the float32 sums within 1e-6
+    relative (the zeros change the order of the device's summation tree)."""
+    import warnings
+
+    from tpumetrics_torch import MaxMetric, MeanMetric, MinMetric, SumMetric
+
+    def make(fused):
+        return MetricCollection(
+            {"sum": SumMetric(device=cuda), "mean": MeanMetric(device=cuda), "max": MaxMetric(device=cuda),
+             "min": MinMetric(device=cuda)},
+            fused_update=fused,
+            device=cuda,
+        )
+
+    plain, fused = make(False), make(True)
+    rng = np.random.default_rng(11)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "warn" warns on the eager path
+        for i in range(6):
+            x = rng.random(64).astype(np.float32)
+            if i % 2:
+                x[[3, 17]] = np.nan
+            x = torch.from_numpy(x).to(cuda)
+            plain.update(x)
+            fused.update(x)
+            got = export_state(fused)
+            for key, want in export_state(plain).items():
+                for name, ref in want.items():
+                    rtol = 0 if key in ("max", "min") else 1e-6
+                    np.testing.assert_allclose(got[key][name], ref, rtol=rtol, atol=0, err_msg=f"{i} {key}.{name}")
+    assert fused._fused_oo_step.counts["replayed"] >= 3

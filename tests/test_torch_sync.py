@@ -269,6 +269,25 @@ def test_gloo_aggregator_collection_and_composition_match_jax(gloo, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_gloo_running_metrics_in_a_collection_sync_the_union_of_last_windows(gloo, world):
+    """RunningMean and RunningSum inside a synced MetricCollection, next to a
+    SumMetric: each running value is that of the union of every rank's last
+    window (the wrapped metric syncs once, in its own compute), not that
+    union multiplied by the world size; the sum is that of the whole data."""
+    batches = w.aggregator_batches()
+    ref = {
+        "sum": _jax_aggregator("SumMetric", 0.0, batches, world),
+        "rmean": _jax_aggregator("RunningMean", 0.0, batches, world),
+        "rsum": _jax_aggregator("RunningSum", 0.0, batches, world),
+    }
+    for res in gloo[world]:
+        got = res["running_collection"]
+        assert sorted(got["values"]) == sorted(ref)
+        for key, val in ref.items():
+            np.testing.assert_allclose(got["values"][key], val, rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_gloo_backend_pads_gathers_means_ints_and_refuses_foreign_devices(gloo, world):
     for r, res in enumerate(gloo[world]):
         b = res["backend"]

@@ -347,6 +347,32 @@ def scenario_aggregator_collection(rank: int, world: int) -> Dict[str, Any]:
     }
 
 
+def scenario_running_collection(rank: int, world: int) -> Dict[str, Any]:
+    """RunningMean and RunningSum next to a SumMetric in one collection,
+    synced in the collection's compute(): each Running metric's wrapped
+    metric syncs the union of every rank's last window."""
+    import warnings
+
+    from tpumetrics_torch import MetricCollection, RunningMean, RunningSum, SumMetric
+
+    batches = aggregator_batches()
+    mine = batches[shards(len(batches), world)[rank]]
+    col = MetricCollection(
+        {
+            "sum": SumMetric(nan_strategy=0.0, device="cpu"),
+            "rmean": RunningMean(window=WINDOW, nan_strategy=0.0, device="cpu"),
+            "rsum": RunningSum(window=WINDOW, nan_strategy=0.0, device="cpu"),
+        },
+        device="cpu",
+    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a rank without data warns at compute
+        for x, _ in mine:
+            col.update(torch.from_numpy(x))
+        values = col.compute()
+    return {"values": _np(values), "groups": [list(g) for g in col.compute_groups.values()]}
+
+
 def scenario_backend(rank: int, world: int) -> Dict[str, Any]:
     """The backend's own edge cases: gathers of ranks that differ in ndim,
     dtype and size, an int "mean", and a state the group cannot carry."""
@@ -383,6 +409,7 @@ SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "masked_buffer": scenario_masked_buffer,
     "aggregators": scenario_aggregators,
     "aggregator_collection": scenario_aggregator_collection,
+    "running_collection": scenario_running_collection,
     "backend": scenario_backend,
 }
 

@@ -2,13 +2,16 @@
 
 States are ``torch.Tensor``s on one device, CUDA unless ``device=`` says
 otherwise; the port imports neither JAX nor the JAX package. It holds the
-classification families stat scores, accuracy, F-beta/F1, precision-recall
-curve, ROC and AUROC (binary, multiclass and multilabel, binned or exact
-curves, and the task-string wrappers such as ``Accuracy(task=...)``), the
+classification families stat scores, accuracy, F-beta/F1, confusion
+matrix, precision-recall curve, ROC, AUROC and average precision (binary,
+multiclass and multilabel, binned or exact curves, and the task-string
+wrappers such as ``Accuracy(task=...)``), the
 aggregation metrics (``SumMetric``, ``MeanMetric``, ...), metric arithmetic
 (``CompositionalMetric``), the ``MetricCollection``, cross-rank sync over
 ``torch.distributed`` (``parallel``), fixed-capacity list states
-(``buffers``), and their one CUDA kernel, ``ops.binned_confusion``.
+(``buffers``), the collection update captured as CUDA graphs
+(``MetricCollection(fused_update=True)``, ``parallel.FusedCollectionStep``),
+and their one CUDA kernel, ``ops.binned_confusion``.
 """
 
 from tpumetrics_torch.aggregation import (

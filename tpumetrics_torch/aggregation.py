@@ -5,7 +5,9 @@ NaN handling: a float ``nan_strategy`` replaces NaNs on the device and
 ``"disable"`` skips the check; both leave the host out of ``update``.
 ``"error"``, ``"warn"`` and ``"ignore"`` read whether the batch holds a NaN
 on the host in every ``update`` (as the JAX package's eager path does), and
-``"warn"``/``"ignore"`` then drop those entries.
+``"warn"``/``"ignore"`` then drop those entries. Inside a CUDA graph capture
+nothing may be read on the host: there, as under ``jit`` in the JAX package,
+a NaN entry becomes the reduction's identity with a zero weight.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from tpumetrics_torch.metric import Metric
+from tpumetrics_torch.utils.checks import _is_capturing
 from tpumetrics_torch.utils.data import dim_zero_cat
 from tpumetrics_torch.utils.prints import rank_zero_warn
 from tpumetrics_torch.wrappers.running import Running
@@ -38,6 +41,8 @@ class BaseAggregator(Metric):
     is_differentiable = None
     higher_is_better = None
     full_state_update: bool = False
+    #: what a NaN entry becomes inside a CUDA graph capture (the reduction's identity)
+    _capture_nan_fill = 0.0
 
     def __init__(
         self,
@@ -62,7 +67,12 @@ class BaseAggregator(Metric):
     ) -> Tuple[Tensor, Tensor]:
         """Cast to float tensors on the metric's device and apply the NaN policy."""
         x = torch.as_tensor(x, dtype=self._dtype, device=self.device)
-        weight = torch.ones_like(x) if weight is None else torch.as_tensor(weight, dtype=self._dtype, device=self.device)
+        if weight is None:
+            weight = torch.ones_like(x)
+        elif isinstance(weight, (int, float)):
+            weight = torch.full_like(x, weight)  # a fill, not a copy from the host
+        else:
+            weight = torch.as_tensor(weight, dtype=self._dtype, device=self.device)
         weight = weight.broadcast_to(x.shape)
         if self.nan_strategy == "disable":
             return x, weight
@@ -71,6 +81,8 @@ class BaseAggregator(Metric):
         if isinstance(self.nan_strategy, float):
             return torch.where(nans, self.nan_strategy, x), torch.where(wnans, self.nan_strategy, weight)
         anynan = nans | wnans
+        if _is_capturing():
+            return torch.where(anynan, self._capture_nan_fill, x), torch.where(anynan, 0.0, weight)
         if bool(anynan.any()):  # reads the device: the eager checks of these strategies
             if self.nan_strategy == "error":
                 raise RuntimeError("Encountered `nan` values in tensor")
@@ -102,6 +114,7 @@ class MaxMetric(BaseAggregator):
     """
 
     full_state_update: bool = True
+    _capture_nan_fill = float("-inf")
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("max", -torch.tensor(float("inf")), nan_strategy, state_name="max_value", **kwargs)
@@ -126,6 +139,7 @@ class MinMetric(BaseAggregator):
     """
 
     full_state_update: bool = True
+    _capture_nan_fill = float("inf")
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("min", torch.tensor(float("inf")), nan_strategy, state_name="min_value", **kwargs)

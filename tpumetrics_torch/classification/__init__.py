@@ -3,6 +3,18 @@ multilabel variants and their task-string wrappers."""
 
 from tpumetrics_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
 from tpumetrics_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
+from tpumetrics_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
+)
+from tpumetrics_torch.classification.confusion_matrix import (
+    BinaryConfusionMatrix,
+    ConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
 from tpumetrics_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -30,17 +42,23 @@ from tpumetrics_torch.classification.stat_scores import (
 __all__ = [
     "AUROC",
     "Accuracy",
+    "AveragePrecision",
     "BinaryAUROC",
     "BinaryAccuracy",
+    "BinaryAveragePrecision",
+    "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
     "BinaryStatScores",
+    "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
     "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
+    "MulticlassConfusionMatrix",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassPrecisionRecallCurve",
@@ -48,6 +66,8 @@ __all__ = [
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
+    "MultilabelAveragePrecision",
+    "MultilabelConfusionMatrix",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
     "MultilabelPrecisionRecallCurve",

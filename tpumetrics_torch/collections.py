@@ -3,8 +3,11 @@
 Compute groups work as in the JAX package: the first ``update`` runs every
 metric, then metrics whose states came out value-identical are merged into
 one group, and later updates run each group's leader only. Members alias
-their leader's tensors (safe, because states are never mutated in place) and
-are refreshed right before any member access.
+their leader's tensors and are refreshed right before any member access.
+An eager update rebinds its states; with ``fused_update=True`` the leaders'
+states advance in place (the donation contract of
+:mod:`~tpumetrics_torch.parallel.fuse_update`), and the members that alias
+them see the new values at once, as their next refresh would give them.
 
 ``compute`` syncs the whole collection across ranks in one flush of a
 shared :class:`~tpumetrics_torch.parallel.fuse.FusedReducer`: one
@@ -25,7 +28,9 @@ import torch
 from tpumetrics_torch.metric import Metric, _refuse_axis_name, _resolve_device
 from tpumetrics_torch.parallel.backend import DistributedBackend, get_default_backend
 from tpumetrics_torch.parallel.fuse import FusedReducer
+from tpumetrics_torch.parallel.fuse_update import FusedCollectionStep, UnhashableKwargsError, fusable_oo_leaders
 from tpumetrics_torch.utils.data import _flatten_dict
+from tpumetrics_torch.utils.exceptions import TPUMetricsUserError
 from tpumetrics_torch.utils.prints import rank_zero_warn
 
 
@@ -43,6 +48,16 @@ class MetricCollection:
             and F1, both over tp/fp/tn/fn: only the group leader runs
             ``update``); ``False`` to disable; or an explicit list of lists
             of names.
+        fused_update: once compute groups are established, advance every
+            tensor-state group leader through one
+            :class:`~tpumetrics_torch.parallel.fuse_update.FusedCollectionStep`
+            per ``update``: on a card, one CUDA graph replay per batch
+            signature, the states updated in place at fixed addresses. The
+            first call with a batch signature runs eagerly (the warm-up).
+            Leaders with list states, wrappers, and calls with a tensor among
+            the keyword arguments (or a positional argument that is not a
+            tensor) keep the per-leader eager path. A state tensor read
+            before a fused update may change with it (the donation contract).
         device: where every member's states live; ``"cuda"`` (the current
             card) when omitted, which raises ``RuntimeError`` without a card.
             Members are moved there at construction.
@@ -70,6 +85,7 @@ class MetricCollection:
         prefix: Optional[str] = None,
         postfix: Optional[str] = None,
         compute_groups: Union[bool, List[List[str]]] = True,
+        fused_update: bool = False,
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         self._device = _resolve_device(device)
@@ -79,6 +95,8 @@ class MetricCollection:
         self._enable_compute_groups = compute_groups
         self._groups_checked: bool = False
         self._state_is_copy: bool = False
+        self._fused_update = bool(fused_update)
+        self._fused_oo_step: Optional[Any] = None  # built lazily per group layout
 
         self.add_metrics(metrics, *additional_metrics)
 
@@ -94,9 +112,13 @@ class MetricCollection:
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update every metric or, once compute groups are established, only
-        each group's leader."""
+        each group's leader. With ``fused_update=True`` the tensor-state
+        leaders advance through one fused step instead of one update each."""
         if self._groups_checked:
+            fused = self._fused_oo_update(args, kwargs) if self._fused_update else frozenset()
             for cg in self._groups.values():
+                if cg[0] in fused:
+                    continue
                 m0 = self._modules[cg[0]]
                 m0.update(*args, **m0._filter_kwargs(**kwargs))
             # leaders advanced: members are stale until the next propagation
@@ -111,6 +133,38 @@ class MetricCollection:
             else:
                 self._state_is_copy = False
             self._groups_checked = True
+
+    def _fused_oo_update(self, args: tuple, kwargs: Dict[str, Any]) -> frozenset:
+        """Advance every fusable group leader through the fused step; returns
+        the leader names covered (the caller runs the rest eagerly: list-state
+        leaders, or every leader when the call's arguments cannot key a
+        graph). The leaders' attribute states go in, the step's buffers come
+        back as their states, and the eager update wrapper's side effects
+        (cache invalidation, update counter) are applied by hand."""
+        step = self._fused_oo_step
+        if step is None:
+            leaders = fusable_oo_leaders(self)
+            if not leaders:
+                return frozenset()
+            step = self._fused_oo_step = FusedCollectionStep(self, leaders=leaders, donate=True)
+        leaders = step.leaders
+        modules = [self._modules[name] for name in leaders]
+        if any(m._is_synced for m in modules):
+            raise TPUMetricsUserError(
+                "A fused update of a synced metric would copy the synced states into the local ones that"
+                " ``unsync`` restores; call ``unsync`` before updating."
+            )
+        state = {name: {attr: getattr(m, attr) for attr in m._defaults} for name, m in zip(leaders, modules)}
+        try:
+            new_state = step.update(state, *args, **kwargs)
+        except UnhashableKwargsError:
+            return frozenset()  # tensor kwargs: this call runs fully eager
+        for name, m0 in zip(leaders, modules):
+            for attr, val in new_state[name].items():
+                object.__setattr__(m0, attr, val)
+            m0._computed = None
+            m0._update_count += 1
+        return frozenset(leaders)
 
     @classmethod
     def _merged_groups(
@@ -364,6 +418,7 @@ class MetricCollection:
             self._modules[name] = metric.to(self._device) if metric.device != self._device else metric
 
         self._groups_checked = False
+        self._fused_oo_step = None  # the group layout changes
         if isinstance(self._enable_compute_groups, list):
             self._groups = dict(enumerate(self._enable_compute_groups))
             for group in self._groups.values():
@@ -439,6 +494,27 @@ class MetricCollection:
         return repr_str + "\n)"
 
     # ------------------------------------------------------ functional bridge
+
+    def establish_compute_groups(self, *args: Any, **kwargs: Any) -> None:
+        """Discover compute groups from one throwaway eager update on example
+        inputs, without touching accumulated state.
+
+        The eager path discovers groups on its first ``update``; the
+        functional path (and a fused step built before any update) never
+        updates eagerly, so call this once with a representative batch
+        first. The probe updates deep copies, never the metrics themselves.
+        """
+        if self._groups_checked:
+            return
+        import copy
+
+        probes = {name: copy.deepcopy(m) for name, m in self._modules.items()}
+        for m in probes.values():
+            m.update(*args, **m._filter_kwargs(**kwargs))
+        if self._enable_compute_groups:
+            self._groups = self._merged_groups(self._groups, probes)
+        self._groups_checked = True
+        self._state_is_copy = False
 
     def init_state(self) -> Dict[str, Dict[str, Any]]:
         """Fresh per-leader state dicts (name -> state dict): one per compute

@@ -5,6 +5,8 @@ from tpumetrics_torch.functional.classification import *  # noqa: F401,F403
 from tpumetrics_torch.functional.classification import __all__ as _classification_all
 from tpumetrics_torch.functional.classification.accuracy import accuracy
 from tpumetrics_torch.functional.classification.auroc import auroc
+from tpumetrics_torch.functional.classification.average_precision import average_precision
+from tpumetrics_torch.functional.classification.confusion_matrix import confusion_matrix
 from tpumetrics_torch.functional.classification.f_beta import f1_score, fbeta_score
 from tpumetrics_torch.functional.classification.precision_recall_curve import precision_recall_curve
 from tpumetrics_torch.functional.classification.roc import roc
@@ -14,6 +16,8 @@ __all__ = [
     *_classification_all,
     "accuracy",
     "auroc",
+    "average_precision",
+    "confusion_matrix",
     "f1_score",
     "fbeta_score",
     "precision_recall_curve",

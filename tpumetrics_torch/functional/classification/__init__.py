@@ -9,6 +9,16 @@ from tpumetrics_torch.functional.classification.accuracy import (
     multilabel_accuracy,
 )
 from tpumetrics_torch.functional.classification.auroc import binary_auroc, multiclass_auroc, multilabel_auroc
+from tpumetrics_torch.functional.classification.average_precision import (
+    binary_average_precision,
+    multiclass_average_precision,
+    multilabel_average_precision,
+)
+from tpumetrics_torch.functional.classification.confusion_matrix import (
+    binary_confusion_matrix,
+    multiclass_confusion_matrix,
+    multilabel_confusion_matrix,
+)
 from tpumetrics_torch.functional.classification.f_beta import (
     binary_f1_score,
     binary_fbeta_score,
@@ -32,6 +42,8 @@ from tpumetrics_torch.functional.classification.stat_scores import (
 __all__ = [
     "binary_accuracy",
     "binary_auroc",
+    "binary_average_precision",
+    "binary_confusion_matrix",
     "binary_f1_score",
     "binary_fbeta_score",
     "binary_precision_recall_curve",
@@ -39,6 +51,8 @@ __all__ = [
     "binary_stat_scores",
     "multiclass_accuracy",
     "multiclass_auroc",
+    "multiclass_average_precision",
+    "multiclass_confusion_matrix",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
     "multiclass_precision_recall_curve",
@@ -46,6 +60,8 @@ __all__ = [
     "multiclass_stat_scores",
     "multilabel_accuracy",
     "multilabel_auroc",
+    "multilabel_average_precision",
+    "multilabel_confusion_matrix",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
     "multilabel_precision_recall_curve",

@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 
 from tpumetrics_torch.ops.binned_confusion import binned_confusion_counts
-from tpumetrics_torch.utils.checks import _check_binary_values, _check_same_shape, _check_task_size
+from tpumetrics_torch.utils.checks import _check_binary_values, _check_same_shape, _check_task_size, _is_capturing
 from tpumetrics_torch.utils.compute import EXACT_F32_COUNT, _safe_divide, interp, normalize_logits_if_needed
 from tpumetrics_torch.utils.data import _bincount, _cumsum, _one_hot
 from tpumetrics_torch.utils.enums import ClassificationTask
@@ -376,7 +376,8 @@ def _multiclass_precision_recall_curve_arg_validation(
 def _multiclass_precision_recall_curve_tensor_validation(
     preds: Tensor, target: Tensor, num_classes: int, ignore_index: Optional[int] = None
 ) -> None:
-    """Shape and value checks; the value check copies to the host by design."""
+    """Shape and value checks; the value check copies to the host by design
+    (skipped inside a CUDA graph capture)."""
     if preds.ndim != target.ndim + 1:
         raise ValueError("Expected `preds` to have one more dimension than `target`")
     if target.is_floating_point():
@@ -387,6 +388,8 @@ def _multiclass_precision_recall_curve_tensor_validation(
         raise ValueError(f"Expected `preds.shape[1]={preds.shape[1]}` to be equal to the number of classes")
     if preds.shape[2:] != target.shape[1:]:
         raise ValueError("Expected the shape of `preds` should be (N, C, ...) and the shape of `target` (N, ...)")
+    if _is_capturing():
+        return
     if target.numel():
         unique_values = torch.unique(target).tolist()
         bad = [v for v in unique_values if (v < 0 or v >= num_classes) and v != ignore_index]

@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpumetrics_torch.utils.checks import _check_binary_values, _check_same_shape, _check_task_size
+from tpumetrics_torch.utils.checks import _check_binary_values, _check_same_shape, _check_task_size, _is_capturing
 from tpumetrics_torch.utils.compute import normalize_logits_if_needed
 from tpumetrics_torch.utils.data import _bincount, _one_hot, select_topk
 from tpumetrics_torch.utils.enums import ClassificationTask
@@ -22,11 +22,12 @@ Tensor = torch.Tensor
 def _masked_confmat(preds: Tensor, target: Tensor, mask: Tensor, n: int) -> Tensor:
     """(n, n) int32 confusion matrix over valid positions only.
 
-    One ``bincount`` over the flat index ``target * n + preds``, with masked
+    One int32 count over the flat index ``target * n + preds`` into a fixed
+    ``(n * n + 1,)`` buffer (``_bincount`` with ``minlength``), with masked
     positions and labels outside ``[0, n)`` sent to a sentinel bucket that is
     dropped: the same counts as the JAX package's one-hot matmul (where an
-    out-of-range label one-hots to a zero row), exact at any size and
-    unaffected by autocast.
+    out-of-range label one-hots to a zero row), exact at any size, unaffected
+    by autocast, and read nowhere on the host, so a CUDA graph can hold it.
     """
     preds = preds.reshape(-1)
     target = target.reshape(-1)
@@ -188,7 +189,7 @@ def _multiclass_stat_scores_tensor_validation(
     ignore_index: Optional[int] = None,
 ) -> None:
     """Shape and value checks. The value checks copy to the host by design
-    (``validate_args=False`` skips them)."""
+    (``validate_args=False`` skips them, and so does a CUDA graph capture)."""
     if preds.ndim == target.ndim + 1:
         if not preds.is_floating_point():
             raise ValueError("If `preds` have one dimension more than `target`, `preds` should be a float tensor.")
@@ -211,6 +212,8 @@ def _multiclass_stat_scores_tensor_validation(
             "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
             " and `preds` should be (N, C, ...)."
         )
+    if _is_capturing():
+        return
     if target.numel():
         unique_values = torch.unique(target).tolist()
         bad = [v for v in unique_values if (v < 0 or v >= num_classes) and v != ignore_index]

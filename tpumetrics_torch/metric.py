@@ -6,10 +6,16 @@ states) on one device, the metric's ``device``. A metric built without
 back to the CPU quietly. ``update`` refuses inputs on another device instead
 of moving them.
 
-States are updated by reassignment, never in place (``self.tp = self.tp +
-tp``, not ``+=``), as the JAX package's immutable arrays force. That keeps
-sharing a tensor between a default, a forward cache, a functional state and
-the members of a compute group safe without copies.
+An ``update`` changes its states by reassignment, never in place
+(``self.tp = self.tp + tp``, not ``+=``), as the JAX package's immutable
+arrays force. That keeps sharing a tensor between a default, a forward
+cache, a functional state and the members of a compute group safe without
+copies. The one exception is the fused collection update
+(``MetricCollection(fused_update=True)``,
+:class:`~tpumetrics_torch.parallel.fuse_update.FusedCollectionStep`): it
+advances its leaders' states in place in buffers it owns, the torch form of
+the JAX package's buffer donation, so a state tensor read before such an
+update may change with it.
 
 ``compute`` syncs the states across ranks first (``sync_on_compute``)
 through a :class:`~tpumetrics_torch.parallel.backend.DistributedBackend`:
@@ -82,6 +88,25 @@ def _squeeze_if_scalar(value: Any) -> Any:
     if isinstance(value, (list, tuple)):
         return type(value)(_squeeze_if_scalar(v) for v in value)
     return value
+
+
+def _unaliased(value: Any, states: Any) -> Any:
+    """``value`` with every tensor that shares storage with one of the
+    ``states`` cloned, through dicts, lists and tuples. A computed value may
+    be a state itself (a confusion matrix, a sum); a fused update changes its
+    states in place, so a value the caller keeps must not be one of them."""
+    ptrs = {t.untyped_storage().data_ptr() for t in states if isinstance(t, Tensor)}
+
+    def fix(v: Any) -> Any:
+        if isinstance(v, Tensor):
+            return v.clone() if v.untyped_storage().data_ptr() in ptrs else v
+        if isinstance(v, dict):
+            return {k: fix(x) for k, x in v.items()}
+        if isinstance(v, list) or (isinstance(v, tuple) and not hasattr(v, "_fields")):
+            return type(v)(fix(x) for x in v)
+        return v
+
+    return fix(value) if ptrs else value
 
 
 class Metric(ABC):
@@ -262,9 +287,18 @@ class Metric(ABC):
         return {attr: getattr(self, attr) for attr in self._defaults}
 
     def _copy_state_dict(self) -> Dict[str, StateType]:
-        """Snapshot of the states: tensors are shared (never mutated in
-        place), lists shallow-copied, buffer adapters unwrapped to their
-        MaskedBuffer."""
+        """Snapshot of the states: tensors are shared, lists shallow-copied,
+        buffer adapters unwrapped to their MaskedBuffer.
+
+        An eager update rebinds states and never changes a tensor in place,
+        so the snapshot keeps its values across one. A fused collection
+        update (``fused_update=True``) changes its leaders' state buffers in
+        place: a snapshot of a fused leader taken before it changes with it,
+        unless a ``reset``, ``forward``, sync or assignment has put another
+        tensor in the state in between. The snapshots kept here (``sync``'s
+        ``_cache``, the forward caches, compute-group members) are all
+        restored or refreshed before the next update reads them.
+        """
         out: Dict[str, StateType] = {}
         for attr, val in self.metric_state().items():
             if isinstance(val, _BufferList):
@@ -633,7 +667,7 @@ class Metric(ABC):
             with self.sync_context(
                 dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
             ):
-                value = _squeeze_if_scalar(compute(*args, **kwargs))
+                value = _unaliased(_squeeze_if_scalar(compute(*args, **kwargs)), self.metric_state().values())
             if self.compute_with_cache:
                 self._computed = value
             return value
@@ -697,7 +731,7 @@ class Metric(ABC):
         if backend is not None:
             state = self.sync_state(state, backend)
         with self._borrowed_state(state):
-            return _squeeze_if_scalar(type(self).compute(self))
+            return _unaliased(_squeeze_if_scalar(type(self).compute(self)), state.values())
 
     def functional_forward(
         self,

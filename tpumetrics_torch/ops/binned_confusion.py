@@ -12,7 +12,9 @@ in one pass over the inputs: the thresholds are ranked on the device, each
 element is bucketed into a shared-memory histogram by a search over them,
 and suffix sums of the histogram become the counts, with int32 atomics that
 are exact up to 2^31 per call (the source's note gives its bound and
-design). One call makes two device launches and no host sync. On a CPU
+design). One call makes two device launches and no host sync, so it can be
+captured into a CUDA graph (its launches then go to the capture stream and
+its buffers come from the graph's pool). On a CPU
 tensor the plain version below runs: the
 ``_binned_confusion_contract`` formula in plain torch, which the tests and
 ``chip_smoke.py`` also hold the kernel against. There is no fallback: a CUDA
@@ -33,6 +35,9 @@ Tensor = torch.Tensor
 
 #: kernel launches in this process; callers may set it to 0 to count a run
 launches = 0
+#: kernel calls recorded into CUDA graphs (a capture launches nothing: each
+#: replay of the graph launches them again)
+captured = 0
 
 
 @functools.cache
@@ -93,8 +98,11 @@ def binned_confusion_counts(preds: Tensor, y: Tensor, v: Tensor, thresholds: Ten
         )
     if err != 0:
         raise RuntimeError(f"binned_confusion kernel launch failed with CUDA error {err}")
-    global launches
-    launches += 1
+    global launches, captured
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out[0], out[1]
 
 

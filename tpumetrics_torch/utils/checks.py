@@ -1,7 +1,9 @@
 """Input checks (counterpart of ``tpumetrics/utils/checks.py``).
 
 The value checks copy to the host by design; callers skip them with
-``validate_args=False``.
+``validate_args=False``. Inside a CUDA graph capture they are skipped as the
+JAX package skips them under ``jit`` (``_is_capturing`` stands for its
+``_is_tracer``); the shape and dtype checks still run.
 """
 
 from __future__ import annotations
@@ -9,6 +11,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def _is_capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph, where nothing may
+    be read on the host."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
@@ -22,6 +30,8 @@ def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
 
 def _check_binary_values(x: torch.Tensor, name: str, ignore_index: Optional[int] = None) -> None:
     """Check that ``x`` holds only 0, 1 and ``ignore_index`` (binary and multilabel targets and label preds)."""
+    if _is_capturing():
+        return
     allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
     bad = [v for v in torch.unique(x).tolist() if v not in allowed]
     if bad:

@@ -112,10 +112,19 @@ def _count_dtype() -> torch.dtype:
 
 def _bincount(x: Tensor, minlength: Optional[int] = None) -> Tensor:
     """int32 counts of the ints in ``x``; negative values and values
-    ``>= minlength`` are DROPPED (``torch.bincount`` raises on negatives, so
-    they go to a sentinel bucket that is sliced off)."""
+    ``>= minlength`` are DROPPED (they go to a sentinel bucket that is sliced
+    off).
+
+    With ``minlength`` given, the counts are an int32 ``index_add_`` of ones
+    into a fixed ``(minlength + 1,)`` buffer: exact, and nothing is read on
+    the host, so the call can run inside a CUDA graph (CUDA ``torch.bincount``
+    reads its input's maximum on the host even when ``minlength`` is given).
+    Without it, the length is read from the data on the host.
+    """
     x = x.reshape(-1)
     if minlength is None:
         minlength = int(x.max()) + 1 if x.numel() else 0
-    x = torch.where((x < 0) | (x >= minlength), minlength, x)
-    return torch.bincount(x, minlength=minlength + 1)[:minlength].to(torch.int32)
+    x = torch.where((x < 0) | (x >= minlength), minlength, x).long()
+    counts = torch.zeros((minlength + 1,), dtype=torch.int32, device=x.device)
+    counts.index_add_(0, x, torch.ones_like(x, dtype=torch.int32))
+    return counts[:minlength]
