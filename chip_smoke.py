@@ -19,23 +19,30 @@ Phases, each of which passes or exits non-zero:
    yardstick, and the bound, at the main-path, headline, binary and
    multilabel shapes;
 4. slice phase: an ImageNet-1k validation-sized evaluation (50,000 samples,
-   1000 classes, batches of 8192 and a ragged 848) through
-   ``MetricCollection({acc, f1, auroc(T=200), ap(T=200), confmat})`` on the
-   card, held against the same stream on the CPU (identical int32 states,
-   values within 1e-6) and against numpy counts, with one steady update
-   run with host syncs made errors; the kernel's launches in that run are
-   counted. The bench headline shape (N=8192, C=128, T=64, 5 batches; acc,
-   f1 and auroc) runs the same way;
+   1000 classes, batches of 8192 and a ragged 848) through a classification
+   report, ``MetricCollection({acc, f1, precision, recall, specificity,
+   auroc(T=200), ap(T=200), recall@precision(T=200), confmat, jaccard, mcc,
+   kappa})``, on the card, held against the same stream on the CPU
+   (identical int32 states, values within 1e-6), against numpy counts and,
+   for the report's values, against a float64 numpy oracle, with one steady
+   update run with host syncs made errors; its compute groups must be the
+   three of the accuracy, AP and confusion-matrix leaders, and the kernel's
+   launches are counted per update. The bench headline shape (N=8192,
+   C=128, T=64, 5 batches; acc, f1 and auroc) runs the same way;
 5. task phase: a binary stream (1,000,000 samples, batches of 65,536 and a
    ragged 16,960: a CTR or fraud classifier's eval shard) through
-   ``Accuracy``, ``F1Score``, binned and exact ``AUROC`` with
-   ``task="binary"``, and a multilabel stream at MS-COCO 2014 val size
-   (40,504 images x 80 labels, batches of 4096 and a ragged 3640, about 1%
-   of the targets ignored) through ``Accuracy``, macro ``F1Score`` and
-   binned ``AUROC`` with ``task="multilabel"``. Each runs on the card and on
-   the CPU: identical states (the exact AUROC's list states included),
-   binned counts equal to numpy's, exact AUROC against a float64 rank
-   statistic, one steady update run with host syncs made errors, and the
+   ``Accuracy``, ``F1Score``, ``Precision``, ``Recall``, ``Specificity``,
+   ``MatthewsCorrCoef``, ``CohenKappa``, binned and exact ``AUROC`` and
+   binned ``RecallAtFixedPrecision`` with ``task="binary"``, and a
+   multilabel stream at MS-COCO 2014 val size (40,504 images x 80 labels,
+   batches of 4096 and a ragged 3640, about 1% of the targets ignored)
+   through ``Accuracy``, macro ``F1Score``, ``Precision``, ``Recall`` and
+   ``HammingDistance``, ``ExactMatch``, ``JaccardIndex``, binned ``AUROC``
+   and binned ``PrecisionAtFixedRecall`` with ``task="multilabel"``. Each
+   runs on the card and on the CPU: identical states (the exact AUROC's
+   list states included), binned counts equal to numpy's, exact AUROC
+   against a float64 rank statistic, the new values against a float64
+   numpy oracle, one steady update run with host syncs made errors, and the
    kernel's launches counted;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
@@ -279,24 +286,140 @@ def numpy_reference(batches, c: int, thresholds: np.ndarray) -> dict:
 
 def multiclass_members(c: int, t: int, device, extra: bool) -> dict:
     """Micro accuracy, macro F1 and binned AUROC (BASELINE config #2's set);
-    with ``extra``, binned AP (in AUROC's compute group) and the confusion
-    matrix too."""
-    from tpumetrics_torch.classification import (
-        MulticlassAccuracy,
-        MulticlassAUROC,
-        MulticlassAveragePrecision,
-        MulticlassConfusionMatrix,
-        MulticlassF1Score,
-    )
+    with ``extra``, a whole classification report: macro precision, recall
+    and specificity (in F1's compute group), binned AP and recall at
+    precision 0.5 (in AUROC's), and the confusion matrix with the Jaccard
+    index, MCC and Cohen's kappa (in its group)."""
+    from tpumetrics_torch import classification as cls
 
+    kw = {"validate_args": False, "device": device}
     out = {
-        "acc": MulticlassAccuracy(c, average="micro", validate_args=False, device=device),
-        "f1": MulticlassF1Score(c, average="macro", validate_args=False, device=device),
-        "auroc": MulticlassAUROC(c, thresholds=t, validate_args=False, device=device),
+        "acc": cls.MulticlassAccuracy(c, average="micro", **kw),
+        "f1": cls.MulticlassF1Score(c, average="macro", **kw),
+        "auroc": cls.MulticlassAUROC(c, thresholds=t, **kw),
     }
     if extra:
-        out["ap"] = MulticlassAveragePrecision(c, thresholds=t, validate_args=False, device=device)
-        out["confmat"] = MulticlassConfusionMatrix(c, validate_args=False, device=device)
+        out.update({
+            "ap": cls.MulticlassAveragePrecision(c, thresholds=t, **kw),
+            "confmat": cls.MulticlassConfusionMatrix(c, **kw),
+            "precision": cls.MulticlassPrecision(c, average="macro", **kw),
+            "recall": cls.MulticlassRecall(c, average="macro", **kw),
+            "specificity": cls.MulticlassSpecificity(c, average="macro", **kw),
+            "jaccard": cls.MulticlassJaccardIndex(c, **kw),
+            "mcc": cls.MulticlassMatthewsCorrCoef(c, **kw),
+            "kappa": cls.MulticlassCohenKappa(c, **kw),
+            "rafp": cls.MulticlassRecallAtFixedPrecision(c, min_precision=0.5, thresholds=t, **kw),
+        })
+    return out
+
+
+# The compute groups of the ImageNet-size collection: three leaders (acc, ap,
+# confmat), as before the report's other members came, each with them inside.
+IMAGENET_GROUPS = [
+    ["acc", "f1", "precision", "recall", "specificity"],
+    ["ap", "auroc", "rafp"],
+    ["confmat", "jaccard", "kappa", "mcc"],
+]
+# float64 numpy oracle tolerances of the new values: absolute for the
+# float32 ratios and averages, relative (to max(1, |value|)) for MCC and
+# kappa, whose float32 sums of squared counts lose low bits at these sizes
+ORACLE_TOL = 1e-6
+ORACLE_RTOL_MCC_KAPPA = 1e-5
+
+
+def sdiv(num, den):
+    """num / den with 0 where den is 0, in float64."""
+    num, den = np.asarray(num, np.float64), np.asarray(den, np.float64)
+    return np.where(den == 0, 0.0, num / np.where(den == 0, 1.0, den))
+
+
+def macro(score, tp, fp, fn, multilabel: bool) -> float:
+    """The JAX package's macro average: classes with no tp, fp or fn weigh 0 (multiclass)."""
+    w = np.ones_like(score) if multilabel else np.where(tp + fp + fn == 0, 0.0, 1.0)
+    return float((w * score).sum() / w.sum())
+
+
+def stat_oracle(tp, fp, tn, fn, multilabel: bool = False) -> dict:
+    """Precision, recall, specificity and Hamming distance in float64 from
+    int counts: per class and macro-averaged, or scalars for binary counts."""
+    scores = {
+        "precision": sdiv(tp, tp + fp),
+        "recall": sdiv(tp, tp + fn),
+        "specificity": sdiv(tn, tn + fp),
+        "hamming": 1 - sdiv(tp + tn, tp + fp + tn + fn) if multilabel or np.ndim(tp) == 0 else 1 - sdiv(tp, tp + fn),
+    }
+    if np.ndim(tp) == 0:
+        return {k: float(v) for k, v in scores.items()}
+    return {k: macro(v, tp, fp, fn, multilabel) for k, v in scores.items()}
+
+
+def confmat_oracle(cm) -> dict:
+    """Macro Jaccard, MCC and unweighted Cohen's kappa of a (C, C) confusion matrix, in float64."""
+    cm = np.asarray(cm, np.float64)
+    diag, rows, cols, s = np.diag(cm), cm.sum(1), cm.sum(0), cm.sum()
+    jaccard = sdiv(diag, rows + cols - diag)
+    w = np.where(rows + cols == 0, 0.0, 1.0)
+    mcc = (diag.sum() * s - rows @ cols) / np.sqrt((s * s - cols @ cols) * (s * s - rows @ rows))
+    expected = np.outer(rows, cols) / s
+    off = 1 - np.eye(cm.shape[0])
+    kappa = 1 - (off * cm).sum() / (off * expected).sum()
+    return {"jaccard": float((w * jaccard).sum() / w.sum()), "mcc": float(mcc), "kappa": float(kappa)}
+
+
+def fixed_point_oracle(tp, predpos, npos, thresholds, min_value: float, primary: str):
+    """Per class, the largest recall with precision >= ``min_value``
+    (``primary="recall"``) or the largest precision with recall >=
+    ``min_value``, and its threshold, ties to the larger other value, then
+    the larger threshold; (0, 1e6) when nothing qualifies or the value is 0.
+    From the numpy binned counts ``(T, C)`` in float64."""
+    precision, recall = sdiv(tp, predpos), sdiv(tp, np.asarray(npos)[None, :])
+    first, second = (recall, precision) if primary == "recall" else (precision, recall)
+    constraint = precision if primary == "recall" else recall
+    values, best = [], []
+    for col in range(tp.shape[1]):
+        ok = constraint[:, col] >= min_value
+        if not ok.any():
+            values.append(0.0)
+            best.append(1e6)
+            continue
+        top = first[ok, col].max()
+        ok &= first[:, col] == top
+        ok &= second[:, col] == second[ok, col].max()
+        values.append(float(top))
+        best.append(1e6 if top == 0 else float(thresholds[ok].max()))
+    return np.asarray(values), np.asarray(best)
+
+
+def check_oracle(label: str, values: dict, oracle: dict) -> float:
+    """Every value with an oracle entry against it; returns the worst
+    difference (relative for MCC and kappa). A fixed-point value is checked
+    with its threshold, which must be equal."""
+    worst = 0.0
+    for key, want in oracle.items():
+        got = values[key]
+        if isinstance(want, tuple):
+            val, thr = (np.asarray(x.cpu(), np.float64).reshape(-1) for x in got)
+            check(np.array_equal(thr, np.asarray(want[1], np.float64).reshape(-1)),
+                  f"{label}: {key} thresholds {thr} vs float64 oracle {want[1]}")
+            diff = float(np.max(np.abs(val - np.asarray(want[0]).reshape(-1))))
+            tol = ORACLE_TOL
+        else:
+            scale = max(1.0, abs(want)) if key in ("mcc", "kappa") else 1.0
+            diff = abs(float(got) - want) / scale
+            tol = ORACLE_RTOL_MCC_KAPPA if key in ("mcc", "kappa") else ORACLE_TOL
+        check(diff <= tol, f"{label}: {key} = {got} vs float64 oracle {want} (diff {diff}, tolerance {tol})")
+        worst = max(worst, diff)
+    return worst
+
+
+def flat_values(values: dict) -> dict:
+    """``compute()`` values with each fixed-point (value, threshold) pair as two entries."""
+    out = {}
+    for key, val in values.items():
+        if isinstance(val, tuple):
+            out.update({f"{key}[{i}]": v for i, v in enumerate(val)})
+        else:
+            out[key] = val
     return out
 
 
@@ -315,8 +438,9 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
     torch.cuda.synchronize()
 
     bc.launches = 0  # count only the main path's launches
-    update_ms = []
+    update_ms, per_update = [], []
     for i, (preds, target) in enumerate(dev_batches):
+        n0 = bc.launches
         t0 = time.perf_counter()
         if i == 1:  # a steady update (leaders only): a host sync in it raises
             torch.cuda.set_sync_debug_mode("error")
@@ -328,6 +452,7 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
             col.update(preds, target)
         torch.cuda.synchronize()
         update_ms.append((time.perf_counter() - t0) * 1e3)
+        per_update.append(bc.launches - n0)
     t0 = time.perf_counter()
     values = col.compute()
     torch.cuda.synchronize()
@@ -335,11 +460,15 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
     launches = bc.launches
 
     groups = [list(g) for g in col.compute_groups.values()]
-    want = [["acc", "f1"], ["ap", "auroc"], ["confmat"]] if extra else [["acc", "f1"], ["auroc"]]
+    want = IMAGENET_GROUPS if extra else [["acc", "f1"], ["auroc"]]
     check(groups == want, f"{label}: compute groups {groups}")
-    # the first update runs every member (AP's own launch with AUROC's); AP then shares AUROC's group
-    want_launches = len(batches) + (1 if extra else 0)
-    check(launches == want_launches, f"{label}: {launches} kernel launches, expected {want_launches}")
+    leaders = [g[0] for g in groups]
+    check(leaders == (["acc", "ap", "confmat"] if extra else ["acc", "auroc"]), f"{label}: leaders {leaders}")
+    # the first update runs every member: AP's and recall-at-precision's own launches beside AUROC's;
+    # both then share AUROC's group, so a steady update launches the kernel once, as before
+    first = 3 if extra else 1
+    want_per_update = [first] + [1] * (len(batches) - 1)
+    check(per_update == want_per_update, f"{label}: kernel launches per update {per_update}, expected {want_per_update}")
 
     cpu = collection("cpu")
     for preds, target in batches:
@@ -358,17 +487,33 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
         np.array_equal(confmat[:, :, 0, 1] + confmat[:, :, 1, 1], ref["predpos"]),
         f"{label}: AUROC predicted-positive counts differ from numpy",
     )
+    report = ""
     if extra:
         check(np.array_equal(gpu_state["confmat"]["confmat"], ref["confmat"]), f"{label}: confusion matrix != numpy")
+        cm = ref["confmat"].astype(np.int64)
+        tp = np.diag(cm)
+        fp, fn = cm.sum(0) - tp, cm.sum(1) - tp
+        oracle = {**stat_oracle(tp, fp, cm.sum() - tp - fp - fn, fn), **confmat_oracle(cm)}
+        del oracle["hamming"]
+        thresholds = col["auroc"].thresholds.cpu().numpy()
+        oracle["rafp"] = fixed_point_oracle(ref["tp"], ref["predpos"], cm.sum(1), thresholds, 0.5, "recall")
+        worst = check_oracle(label, values, oracle)
+        report = (
+            f" precision {float(values['precision']):.6f} recall {float(values['recall']):.6f}"
+            f" specificity {float(values['specificity']):.6f} jaccard {float(values['jaccard']):.6f}"
+            f" mcc {float(values['mcc']):.6f} kappa {float(values['kappa']):.6f}"
+            f" recall@precision0.5 mean {float(values['rafp'][0].mean()):.6f};"
+            f" new values against a float64 numpy oracle: worst difference {worst:.3e}"
+        )
     # the first update runs every metric and compares states: report it apart
     steady = update_ms[1:]
-    ap = f" ap {float(values['ap']):.6f}" if extra else ""
+    ap = f" ap {float(values['ap']):.6f};{report}" if extra else ""
     print(
         f"slice phase: {label}: {len(batches)} batches, states identical to the CPU run and to numpy counts;"
         f" acc {float(values['acc']):.6f} f1 {float(values['f1']):.6f} auroc {float(values['auroc']):.6f}{ap};"
         f" first update {update_ms[0]:.3f} ms, later updates median {np.median(steady):.3f} ms"
         f" (min {min(steady):.3f}, max {max(steady):.3f}); compute {compute_ms:.3f} ms;"
-        f" kernel launches {launches}; update 1 free of host syncs",
+        f" kernel launches {launches} ({per_update} per update); update 1 free of host syncs",
         flush=True,
     )
     profile_step(torch, col, dev_batches[0], label)
@@ -396,12 +541,16 @@ def check_same_states(label: str, gpu_state: dict, cpu_state: dict) -> None:
 
 
 def check_same_values(torch, label: str, values: dict, cpu_values: dict) -> None:
-    """Finite values of the CPU run's shapes, within 1e-6 of them."""
+    """Finite values of the CPU run's shapes, within 1e-6 of them (MCC and
+    kappa: 1e-5 of max(1, |value|), float32 sums of squared counts taken in
+    another order on the card)."""
+    values, cpu_values = flat_values(values), flat_values(cpu_values)
     for key, val in values.items():
-        val = val.cpu()
-        check(bool(torch.isfinite(val).all()) and val.shape == cpu_values[key].shape, f"{label}: {key} = {val}")
-        diff = float((val - cpu_values[key]).abs().max())
-        check(diff <= 1e-6, f"{label}: {key} card {val} vs CPU {cpu_values[key]} (diff {diff})")
+        val, ref = val.cpu(), cpu_values[key]
+        check(bool(torch.isfinite(val).all()) and val.shape == ref.shape, f"{label}: {key} = {val}")
+        diff = float((val - ref).abs().max())
+        tol = ORACLE_RTOL_MCC_KAPPA * max(1.0, float(ref.abs().max())) if key in ("mcc", "kappa") else 1e-6
+        check(diff <= tol, f"{label}: {key} card {val} vs CPU {ref} (diff {diff})")
 
 
 def check_identical_states(label: str, got: dict, want: dict) -> None:
@@ -490,7 +639,7 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
 
     def compare(when):
         check_identical_states(f"{label} {when}", export_state(cols["fused"]), export_state(cols["plain"]))
-        got, want = cols["fused"].compute(), cols["plain"].compute()
+        got, want = flat_values(cols["fused"].compute()), flat_values(cols["plain"].compute())
         for key in want:
             check(torch.equal(got[key], want[key]), f"{label} {when}: {key} fused {got[key]} vs unfused {want[key]}")
 
@@ -617,7 +766,8 @@ def rank_auroc(probs: np.ndarray, target: np.ndarray) -> float:
 def task_phase(torch, bc, task: str) -> dict:
     """One binary or multilabel stream through its collection on the card and
     on the CPU (see the module note); returns the launches and times."""
-    from tpumetrics_torch import AUROC, Accuracy, F1Score, MetricCollection
+    import tpumetrics_torch as tm
+    from tpumetrics_torch import MetricCollection
     from tpumetrics_torch.interop import export_state
 
     t = 200
@@ -626,22 +776,37 @@ def task_phase(torch, bc, task: str) -> dict:
         batches = make_binary_stream(1_000_000, 65536, SEED)
         kw = {"task": "binary", "validate_args": False}
         members = {
-            "acc": lambda **d: Accuracy(**kw, **d),
-            "f1": lambda **d: F1Score(**kw, **d),
-            "auroc": lambda **d: AUROC(thresholds=t, **kw, **d),
-            "auroc_exact": lambda **d: AUROC(**kw, **d),
+            "acc": lambda **d: tm.Accuracy(**kw, **d),
+            "f1": lambda **d: tm.F1Score(**kw, **d),
+            "auroc": lambda **d: tm.AUROC(thresholds=t, **kw, **d),
+            "auroc_exact": lambda **d: tm.AUROC(**kw, **d),
+            "precision": lambda **d: tm.Precision(**kw, **d),
+            "recall": lambda **d: tm.Recall(**kw, **d),
+            "specificity": lambda **d: tm.Specificity(**kw, **d),
+            "mcc": lambda **d: tm.MatthewsCorrCoef(**kw, **d),
+            "kappa": lambda **d: tm.CohenKappa(**kw, **d),
+            "rafp": lambda **d: tm.RecallAtFixedPrecision(min_precision=0.5, thresholds=t, **kw, **d),
         }
-        groups = [["acc", "f1"], ["auroc"], ["auroc_exact"]]
+        # one new leader: MCC and kappa share a 2x2 confusion matrix
+        groups = [["acc", "f1", "precision", "recall", "specificity"], ["auroc", "rafp"], ["auroc_exact"],
+                  ["kappa", "mcc"]]
     else:
         label = "multilabel stream COCO-80 40504x80 T=200"
         batches = make_multilabel_stream(40504, 80, 4096, SEED)
         kw = {"task": "multilabel", "num_labels": 80, "ignore_index": -1, "validate_args": False}
         members = {
-            "acc": lambda **d: Accuracy(**kw, **d),
-            "f1": lambda **d: F1Score(average="macro", **kw, **d),
-            "auroc": lambda **d: AUROC(thresholds=t, **kw, **d),
+            "acc": lambda **d: tm.Accuracy(**kw, **d),
+            "f1": lambda **d: tm.F1Score(average="macro", **kw, **d),
+            "auroc": lambda **d: tm.AUROC(thresholds=t, **kw, **d),
+            "precision": lambda **d: tm.Precision(average="macro", **kw, **d),
+            "recall": lambda **d: tm.Recall(average="macro", **kw, **d),
+            "hamming": lambda **d: tm.HammingDistance(average="macro", **kw, **d),
+            "exact": lambda **d: tm.ExactMatch(**kw, **d),
+            "jaccard": lambda **d: tm.JaccardIndex(**kw, **d),
+            "pafr": lambda **d: tm.PrecisionAtFixedRecall(min_recall=0.5, thresholds=t, **kw, **d),
         }
-        groups = [["acc", "f1"], ["auroc"]]
+        # two new leaders: exact match's correct/total and the per-label confusion matrices
+        groups = [["acc", "f1", "hamming", "precision", "recall"], ["auroc", "pafr"], ["exact"], ["jaccard"]]
 
     def collection(device, fused=False):
         return MetricCollection({k: m(device=device) for k, m in members.items()}, fused_update=fused, device=device)
@@ -671,7 +836,8 @@ def task_phase(torch, bc, task: str) -> dict:
 
     found = [list(g) for g in col.compute_groups.values()]
     check(found == groups, f"{label}: compute groups {found}")
-    check(launches == len(batches), f"{label}: {launches} kernel launches for {len(batches)} binned AUROC updates")
+    # the first update also runs the fixed-point metric's own binned update; later ones only AUROC's group leader
+    check(launches == len(batches) + 1, f"{label}: {launches} kernel launches for {len(batches)} updates")
 
     cpu = collection("cpu")
     for preds, target in batches:
@@ -690,12 +856,32 @@ def task_phase(torch, bc, task: str) -> dict:
     check(np.array_equal(confmat[:, :, 0, 1] + confmat[:, :, 1, 1], predpos), f"{label}: predicted positives differ")
     acc = float(np.mean(((probs > 0.5) == (target == 1))[valid]))
     check(abs(float(values["acc"]) - acc) <= 1e-6, f"{label}: acc {float(values['acc'])} vs numpy {acc}")
-    extra = ""
+    # the new members against a float64 oracle from numpy counts of the same stream
+    hit, pred = target == 1, probs > 0.5
+    tp_, fp_, tn_, fn_ = ((m & valid).sum(axis=0) for m in (pred & hit, pred & ~hit, ~pred & ~hit, ~pred & hit))
+    npos, thresholds = (hit & valid).sum(axis=0), col["auroc"].thresholds.cpu().numpy()
+    if task == "binary":
+        oracle = stat_oracle(tp_[0], fp_[0], tn_[0], fn_[0])
+        del oracle["hamming"]
+        cm = confmat_oracle([[tn_[0], fp_[0]], [fn_[0], tp_[0]]])
+        oracle.update(mcc=cm["mcc"], kappa=cm["kappa"])
+        oracle["rafp"] = fixed_point_oracle(tp, predpos, npos, thresholds, 0.5, "recall")
+    else:
+        oracle = stat_oracle(tp_, fp_, tn_, fn_, multilabel=True)
+        del oracle["specificity"]
+        oracle["exact"] = float(np.mean(np.all((pred == hit) | ~valid, axis=1)))
+        oracle["jaccard"] = float(np.mean(sdiv(tp_, tp_ + fp_ + fn_)))
+        oracle["pafr"] = fixed_point_oracle(tp, predpos, npos, thresholds, 0.5, "precision")
+    worst = check_oracle(label, values, oracle)
+    new_values = " ".join(
+        f"{k} {float(values[k][0].float().mean() if isinstance(values[k], tuple) else values[k]):.6f}" for k in oracle
+    )
+    extra = f" {new_values} (float64 numpy oracle: worst difference {worst:.3e});"
     if task == "binary":
         ranked = rank_auroc(probs[:, 0], target[:, 0])
         exact = float(values["auroc_exact"])
         check(abs(exact - ranked) <= 1e-5, f"{label}: exact AUROC {exact} vs float64 rank statistic {ranked}")
-        extra = f" exact auroc {exact:.7f} vs float64 rank statistic {ranked:.7f} (diff {abs(exact - ranked):.2e});"
+        extra += f" exact auroc {exact:.7f} vs float64 rank statistic {ranked:.7f} (diff {abs(exact - ranked):.2e});"
     steady = update_ms[1:]
     print(
         f"task phase: {label}: {len(batches)} batches, states identical to the CPU run, binned counts equal to"
@@ -1037,7 +1223,7 @@ def main() -> None:
     kern = kernel_phase(torch, bc)
     paths = {
         "imagenet": slice_phase(
-            torch, bc, "ImageNet-1k val 50000x1000 T=200 + AP + confmat", 50000, 1000, 200, 8192, extra=True
+            torch, bc, "ImageNet-1k val 50000x1000 T=200, classification report", 50000, 1000, 200, 8192, extra=True
         ),
         "headline": slice_phase(torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192),
         "binary": task_phase(torch, bc, "binary"),

@@ -75,9 +75,13 @@ def _jax_collection(**kw):
 
 
 def _assert_values(port, ref):
+    """Values within ATOL; a tuple value (a fixed-point metric's value and
+    threshold) entry by entry."""
     assert sorted(port) == sorted(ref)
     for k in ref:
-        np.testing.assert_allclose(port[k].numpy(), np.asarray(ref[k]), rtol=0, atol=ATOL)
+        pairs = zip(port[k], ref[k]) if isinstance(ref[k], tuple) else [(port[k], ref[k])]
+        for got, want in pairs:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
 
 
 def _assert_states(port_state, ref_state):
@@ -223,14 +227,66 @@ def _binary_multilabel_collections():
     return out
 
 
+def _report_collections():
+    """The families of a classification report: a multiclass collection
+    whose precision, recall and specificity share F1's stat scores, whose
+    Jaccard, MCC and kappa share the confusion matrix and whose recall at a
+    fixed precision shares the binned AUROC's curve tensor; and a multilabel
+    one on (N, L, X) inputs with exact match (correct/total, and the
+    samplewise list state), Hamming distance, Jaccard and precision at a
+    fixed recall, binned and exact (list states)."""
+    mc = {
+        "f1": lambda pkg, **d: pkg.MulticlassF1Score(C, **d),
+        "precision": lambda pkg, **d: pkg.MulticlassPrecision(C, **d),
+        "recall": lambda pkg, **d: pkg.MulticlassRecall(C, **d),
+        "specificity": lambda pkg, **d: pkg.MulticlassSpecificity(C, **d),
+        "confmat": lambda pkg, **d: pkg.MulticlassConfusionMatrix(C, **d),
+        "jaccard": lambda pkg, **d: pkg.MulticlassJaccardIndex(C, **d),
+        "kappa": lambda pkg, **d: pkg.MulticlassCohenKappa(C, weights="linear", **d),
+        "mcc": lambda pkg, **d: pkg.MulticlassMatthewsCorrCoef(C, **d),
+        "auroc": lambda pkg, **d: pkg.MulticlassAUROC(C, thresholds=T, **d),
+        "rafp": lambda pkg, **d: pkg.MulticlassRecallAtFixedPrecision(C, min_precision=0.5, thresholds=T, **d),
+    }
+    mc_groups = [
+        ["f1", "precision", "recall", "specificity"], ["confmat", "jaccard", "kappa", "mcc"], ["auroc", "rafp"]
+    ]
+    kw = {"num_labels": 5, "ignore_index": -1}
+    ml = {
+        "exact": lambda pkg, **d: pkg.MultilabelExactMatch(**kw, **d),
+        "exact_sw": lambda pkg, **d: pkg.MultilabelExactMatch(multidim_average="samplewise", **kw, **d),
+        "hamming": lambda pkg, **d: pkg.MultilabelHammingDistance(**kw, **d),
+        "jaccard": lambda pkg, **d: pkg.MultilabelJaccardIndex(**kw, **d),
+        "pafr": lambda pkg, **d: pkg.MultilabelPrecisionAtFixedRecall(min_recall=0.5, thresholds=T, **kw, **d),
+        "pafr_exact": lambda pkg, **d: pkg.MultilabelPrecisionAtFixedRecall(min_recall=0.5, **kw, **d),
+    }
+    ml_groups = [[k] for k in ml]
+    rng = np.random.default_rng(10)
+    ml_batches = []
+    for _ in range(6):
+        target = rng.integers(0, 2, (64, 5, 2))
+        for label in range(5):  # 6 ignored entries of each label: the exact path's shapes repeat
+            flat = rng.choice(128, 6, replace=False)
+            target[flat // 2, label, flat % 2] = -1
+        ml_batches.append(((rng.integers(0, 17, (64, 5, 2)) / 16).astype(np.float32), target))
+    out = []
+    for members, groups, batches in ((mc, mc_groups, _batches(11, 6)), (ml, ml_groups, ml_batches)):
+        port = MetricCollection({k: m(cls, device="cpu") for k, m in members.items()}, compute_groups=groups,
+                                device="cpu")
+        ref = tpumetrics.MetricCollection({k: m(jax_cls) for k, m in members.items()}, compute_groups=groups)
+        out.append((port, ref, batches))
+    return out
+
+
 @pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
 def test_state_round_trip_between_packages(direction):
     """Accumulate 3 batches in one package, carry the state over, run 3 more
-    batches in both and compare: the main-path collection, then binary and
-    multilabel collections with binned and exact (list state) AUROC."""
+    batches in both and compare: the main-path collection, binary and
+    multilabel collections with binned and exact (list state) AUROC, and the
+    report collections of the precision/recall, confusion-matrix, exact-match
+    and fixed-point families."""
     groups = [["acc", "f1"], ["auroc"]]
     cases = [(_port_collection(compute_groups=groups), _jax_collection(compute_groups=groups), _batches(5, 3) + _batches(6, 3))]
-    for port, ref, batches in cases + _binary_multilabel_collections():
+    for port, ref, batches in cases + _binary_multilabel_collections() + _report_collections():
         first, second = batches[:3], batches[3:]
         if direction == "jax-to-port":
             rstate = ref.init_state()

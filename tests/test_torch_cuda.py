@@ -460,3 +460,115 @@ def test_fused_aggregators_replay_with_nans_as_the_eager_update_drops_them(cuda)
                     rtol = 0 if key in ("max", "min") else 1e-6
                     np.testing.assert_allclose(got[key][name], ref, rtol=rtol, atol=0, err_msg=f"{i} {key}.{name}")
     assert fused._fused_oo_step.counts["replayed"] >= 3
+
+
+# ------------------------------------------- classification report (card, fused)
+
+
+def _report_members(task, device):
+    """A classification report per task: the new families beside the
+    members they share a compute group with. Returns the members and the
+    compute groups they must form."""
+    if task == "multiclass":
+        c, t = 10, 32
+        kw = {"validate_args": False, "device": device}
+        members = {
+            "acc": cls.MulticlassAccuracy(c, average="micro", **kw),
+            "f1": cls.MulticlassF1Score(c, **kw),
+            "precision": cls.MulticlassPrecision(c, **kw),
+            "recall": cls.MulticlassRecall(c, **kw),
+            "specificity": cls.MulticlassSpecificity(c, **kw),
+            "auroc": cls.MulticlassAUROC(c, thresholds=t, **kw),
+            "ap": cls.MulticlassAveragePrecision(c, thresholds=t, **kw),
+            "rafp": cls.MulticlassRecallAtFixedPrecision(c, min_precision=0.5, thresholds=t, **kw),
+            "confmat": cls.MulticlassConfusionMatrix(c, **kw),
+            "jaccard": cls.MulticlassJaccardIndex(c, **kw),
+            "mcc": cls.MulticlassMatthewsCorrCoef(c, **kw),
+            "kappa": cls.MulticlassCohenKappa(c, **kw),
+        }
+        groups = [["acc", "f1", "precision", "recall", "specificity"], ["ap", "auroc", "rafp"],
+                  ["confmat", "jaccard", "kappa", "mcc"]]
+        return members, groups
+    kw = {"task": task, "ignore_index": -1, "validate_args": False, "device": device}
+    if task == "multilabel":
+        kw["num_labels"] = 6
+    members = {
+        "acc": tpumetrics_torch.Accuracy(**kw),
+        "f1": tpumetrics_torch.F1Score(**kw),
+        "precision": tpumetrics_torch.Precision(**kw),
+        "recall": tpumetrics_torch.Recall(**kw),
+        "auroc": tpumetrics_torch.AUROC(thresholds=32, **kw),
+    }
+    if task == "binary":
+        members["specificity"] = tpumetrics_torch.Specificity(**kw)
+        members["mcc"] = tpumetrics_torch.MatthewsCorrCoef(**kw)
+        members["kappa"] = tpumetrics_torch.CohenKappa(**kw)
+        members["rafp"] = tpumetrics_torch.RecallAtFixedPrecision(min_precision=0.5, thresholds=32, **kw)
+        groups = [["acc", "f1", "precision", "recall", "specificity"], ["auroc", "rafp"], ["kappa", "mcc"]]
+    else:
+        members["hamming"] = tpumetrics_torch.HammingDistance(**kw)
+        members["exact"] = tpumetrics_torch.ExactMatch(**kw)
+        members["jaccard"] = tpumetrics_torch.JaccardIndex(**kw)
+        members["pafr"] = tpumetrics_torch.PrecisionAtFixedRecall(min_recall=0.5, thresholds=32, **kw)
+        groups = [["acc", "f1", "hamming", "precision", "recall"], ["auroc", "pafr"], ["exact"], ["jaccard"]]
+    return members, groups
+
+
+def _report_batches(task, rng):
+    out = []
+    for _ in range(6):
+        if task == "multiclass":
+            z = rng.standard_normal((512, 10)).astype(np.float32)
+            e = np.exp(z - z.max(axis=1, keepdims=True))
+            out.append(((e / e.sum(axis=1, keepdims=True)).astype(np.float32), rng.integers(0, 10, 512)))
+            continue
+        shape = (1024,) if task == "binary" else (256, 6)
+        target = rng.integers(0, 2, shape)
+        target[rng.random(shape) < 0.05] = -1
+        out.append(((rng.integers(0, 257, shape) / 256).astype(np.float32), target))
+    return out
+
+
+def _values_close(got, want):
+    for key in want:
+        pairs = zip(got[key], want[key]) if isinstance(want[key], tuple) else [(got[key], want[key])]
+        for g, w in pairs:
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            np.testing.assert_allclose(g, w, rtol=1e-5 if key in ("mcc", "kappa") else 0, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("task", ["binary", "multiclass", "multilabel"])
+def test_report_collection_on_the_card_fused_and_against_the_cpu(cuda, task):
+    """The new families in one collection per task: their compute groups
+    (they join the leaders already there), the fused collection bit for bit
+    the unfused one after every update with a replay under host-sync errors,
+    and the card's states identical to the CPU's, values within 1e-6 (MCC
+    and kappa 1e-5 relative: float32 sums in another order)."""
+    batches = _report_batches(task, np.random.default_rng(12))
+    cols = {}
+    for name, device, fused in (("plain", cuda, False), ("fused", cuda, True), ("cpu", "cpu", False)):
+        members, groups = _report_members(task, device)
+        cols[name] = MetricCollection(members, fused_update=fused, device=device)
+    for i, (preds, target) in enumerate(batches):
+        for name, col in cols.items():
+            dev = torch.device("cpu") if name == "cpu" else cuda
+            args = (torch.from_numpy(preds).to(dev), torch.from_numpy(target).to(dev))
+            if name == "fused" and i >= 3:  # replays: a host sync raises
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    col.update(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                col.update(*args)
+        _assert_same_states(export_state(cols["fused"]), export_state(cols["plain"]))
+    step = cols["fused"]._fused_oo_step
+    assert step.counts["replayed"] >= 3 and step.program_count == 1
+    for col in cols.values():
+        assert [list(g) for g in col.compute_groups.values()] == groups
+    _assert_same_states(export_state(cols["plain"]), export_state(cols["cpu"]))
+    plain, fused, cpu = (cols[k].compute() for k in ("plain", "fused", "cpu"))
+    for key in plain:
+        for g, w in zip(*(v if isinstance(v, tuple) else (v,) for v in (fused[key], plain[key]))):
+            assert torch.equal(g, w), key
+    _values_close(plain, cpu)

@@ -9,12 +9,14 @@ from tpumetrics_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from tpumetrics_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from tpumetrics_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from tpumetrics_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from tpumetrics_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -25,13 +27,59 @@ from tpumetrics_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from tpumetrics_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
+)
+from tpumetrics_torch.classification.jaccard import (
+    BinaryJaccardIndex,
+    JaccardIndex,
+    MulticlassJaccardIndex,
+    MultilabelJaccardIndex,
+)
+from tpumetrics_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
+)
+from tpumetrics_torch.classification.precision_fixed_recall import (
+    BinaryPrecisionAtFixedRecall,
+    MulticlassPrecisionAtFixedRecall,
+    MultilabelPrecisionAtFixedRecall,
+    PrecisionAtFixedRecall,
+)
+from tpumetrics_torch.classification.precision_recall import (
+    BinaryPrecision,
+    BinaryRecall,
+    MulticlassPrecision,
+    MulticlassRecall,
+    MultilabelPrecision,
+    MultilabelRecall,
+    Precision,
+    Recall,
+)
 from tpumetrics_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
-from tpumetrics_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
+from tpumetrics_torch.classification.recall_fixed_precision import (
+    BinaryRecallAtFixedPrecision,
+    MulticlassRecallAtFixedPrecision,
+    MultilabelRecallAtFixedPrecision,
+    RecallAtFixedPrecision,
+)
+from tpumetrics_torch.classification.roc import BinaryROC, MulticlassROC, MultilabelROC, ROC
+from tpumetrics_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
+)
 from tpumetrics_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
@@ -46,34 +94,72 @@ __all__ = [
     "BinaryAUROC",
     "BinaryAccuracy",
     "BinaryAveragePrecision",
+    "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryHammingDistance",
+    "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
+    "BinaryPrecision",
+    "BinaryPrecisionAtFixedRecall",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
+    "BinaryRecall",
+    "BinaryRecallAtFixedPrecision",
+    "BinarySpecificity",
     "BinaryStatScores",
+    "CohenKappa",
     "ConfusionMatrix",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
+    "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
+    "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassHammingDistance",
+    "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
+    "MulticlassPrecision",
+    "MulticlassPrecisionAtFixedRecall",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
+    "MulticlassRecall",
+    "MulticlassRecallAtFixedPrecision",
+    "MulticlassSpecificity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
+    "MultilabelHammingDistance",
+    "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
+    "MultilabelPrecision",
+    "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
+    "MultilabelRecall",
+    "MultilabelRecallAtFixedPrecision",
+    "MultilabelSpecificity",
     "MultilabelStatScores",
+    "Precision",
+    "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
     "ROC",
+    "Recall",
+    "RecallAtFixedPrecision",
+    "Specificity",
     "StatScores",
 ]

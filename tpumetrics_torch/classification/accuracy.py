@@ -12,12 +12,10 @@ from tpumetrics_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
     MultilabelStatScores,
-    _check_top_k,
+    _stat_scores_task_metric,
 )
 from tpumetrics_torch.functional.classification.accuracy import _accuracy_reduce
 from tpumetrics_torch.metric import Metric
-from tpumetrics_torch.utils.checks import _check_task_size
-from tpumetrics_torch.utils.enums import ClassificationTask
 
 
 class BinaryAccuracy(BinaryStatScores):
@@ -120,14 +118,10 @@ class Accuracy(_ClassificationTaskWrapper):
         validate_args: bool = True,
         **kwargs: Any,
     ) -> Metric:
-        task = ClassificationTask.from_str(task)
         kwargs.update(
             {"multidim_average": multidim_average, "ignore_index": ignore_index, "validate_args": validate_args}
         )
-        if task == ClassificationTask.BINARY:
-            return BinaryAccuracy(threshold, **kwargs)
-        if task == ClassificationTask.MULTICLASS:
-            return MulticlassAccuracy(
-                _check_task_size("num_classes", num_classes), _check_top_k(top_k), average, **kwargs
-            )
-        return MultilabelAccuracy(_check_task_size("num_labels", num_labels), threshold, average, **kwargs)
+        return _stat_scores_task_metric(
+            BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy, task, threshold, num_classes, num_labels,
+            average, top_k, kwargs,
+        )

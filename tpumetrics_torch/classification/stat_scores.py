@@ -231,6 +231,28 @@ def _check_top_k(top_k: Optional[int]) -> int:
     return top_k
 
 
+def _stat_scores_task_metric(
+    binary: type,
+    multiclass: type,
+    multilabel: type,
+    task: str,
+    threshold: float,
+    num_classes: Optional[int],
+    num_labels: Optional[int],
+    average: Optional[str],
+    top_k: Optional[int],
+    kwargs: dict,
+) -> Metric:
+    """The metric of ``task`` a stat-score task wrapper returns, from its
+    binary, multiclass and multilabel classes."""
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary(threshold, **kwargs)
+    if task == ClassificationTask.MULTICLASS:
+        return multiclass(_check_task_size("num_classes", num_classes), _check_top_k(top_k), average, **kwargs)
+    return multilabel(_check_task_size("num_labels", num_labels), threshold, average, **kwargs)
+
+
 class StatScores(_ClassificationTaskWrapper):
     """Task-string wrapper: ``StatScores(task="binary", ...)`` returns the
     binary, multiclass or multilabel metric; other keyword arguments
@@ -260,14 +282,10 @@ class StatScores(_ClassificationTaskWrapper):
         validate_args: bool = True,
         **kwargs: Any,
     ) -> Metric:
-        task = ClassificationTask.from_str(task)
         kwargs.update(
             {"multidim_average": multidim_average, "ignore_index": ignore_index, "validate_args": validate_args}
         )
-        if task == ClassificationTask.BINARY:
-            return BinaryStatScores(threshold, **kwargs)
-        if task == ClassificationTask.MULTICLASS:
-            return MulticlassStatScores(
-                _check_task_size("num_classes", num_classes), _check_top_k(top_k), average, **kwargs
-            )
-        return MultilabelStatScores(_check_task_size("num_labels", num_labels), threshold, average, **kwargs)
+        return _stat_scores_task_metric(
+            BinaryStatScores, MulticlassStatScores, MultilabelStatScores, task, threshold, num_classes, num_labels,
+            average, top_k, kwargs,
+        )

@@ -8,18 +8,9 @@ from typing import Optional
 import torch
 
 from tpumetrics_torch.functional.classification.stat_scores import (
-    _binary_stat_scores_arg_validation,
-    _binary_stat_scores_format,
-    _binary_stat_scores_tensor_validation,
-    _binary_stat_scores_update,
-    _multiclass_stat_scores_arg_validation,
-    _multiclass_stat_scores_format,
-    _multiclass_stat_scores_tensor_validation,
-    _multiclass_stat_scores_update,
-    _multilabel_stat_scores_arg_validation,
-    _multilabel_stat_scores_format,
-    _multilabel_stat_scores_tensor_validation,
-    _multilabel_stat_scores_update,
+    _binary_counts,
+    _multiclass_counts,
+    _multilabel_counts,
 )
 from tpumetrics_torch.utils.checks import _check_task_size
 from tpumetrics_torch.utils.compute import _adjust_weights_safe_divide, _safe_divide
@@ -79,10 +70,7 @@ def binary_fbeta_score(
     """
     if validate_args:
         _check_beta(beta)
-        _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
-        _binary_stat_scores_tensor_validation(preds, target, multidim_average, ignore_index)
-    preds, target, mask = _binary_stat_scores_format(preds, target, threshold, ignore_index)
-    tp, fp, tn, fn = _binary_stat_scores_update(preds, target, mask, multidim_average)
+    tp, fp, tn, fn = _binary_counts(preds, target, threshold, multidim_average, ignore_index, validate_args)
     return _fbeta_reduce(tp, fp, tn, fn, beta, average="binary", multidim_average=multidim_average)
 
 
@@ -109,11 +97,8 @@ def multiclass_fbeta_score(
     """
     if validate_args:
         _check_beta(beta)
-        _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index)
-        _multiclass_stat_scores_tensor_validation(preds, target, num_classes, multidim_average, ignore_index)
-    preds, target, mask = _multiclass_stat_scores_format(preds, target, num_classes, ignore_index, top_k)
-    tp, fp, tn, fn = _multiclass_stat_scores_update(
-        preds, target, mask, num_classes, top_k, average, multidim_average
+    tp, fp, tn, fn = _multiclass_counts(
+        preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
     )
     return _fbeta_reduce(tp, fp, tn, fn, beta, average=average, multidim_average=multidim_average)
 
@@ -157,10 +142,9 @@ def multilabel_fbeta_score(
     """
     if validate_args:
         _check_beta(beta)
-        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
-        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
-    preds, target, mask = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
-    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, mask, multidim_average)
+    tp, fp, tn, fn = _multilabel_counts(
+        preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+    )
     return _fbeta_reduce(tp, fp, tn, fn, beta, average=average, multidim_average=multidim_average, multilabel=True)
 
 

@@ -144,12 +144,25 @@ def binary_stat_scores(
         >>> binary_stat_scores(preds, target).tolist()
         [2, 1, 2, 1, 3]
     """
+    tp, fp, tn, fn = _binary_counts(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    return _binary_stat_scores_compute(tp, fp, tn, fn, multidim_average)
+
+
+def _binary_counts(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    multidim_average: str,
+    ignore_index: Optional[int],
+    validate_args: bool,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """A binary batch checked (with ``validate_args``), formatted and counted:
+    the int32 (tp, fp, tn, fn) every binary stat-score function reduces."""
     if validate_args:
         _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
         _binary_stat_scores_tensor_validation(preds, target, multidim_average, ignore_index)
     preds, target, mask = _binary_stat_scores_format(preds, target, threshold, ignore_index)
-    tp, fp, tn, fn = _binary_stat_scores_update(preds, target, mask, multidim_average)
-    return _binary_stat_scores_compute(tp, fp, tn, fn, multidim_average)
+    return _binary_stat_scores_update(preds, target, mask, multidim_average)
 
 
 # ----------------------------------------------------------------- multiclass
@@ -326,14 +339,29 @@ def multiclass_stat_scores(
         >>> multiclass_stat_scores(preds, target, num_classes=3, average='micro').tolist()
         [3, 1, 7, 1, 4]
     """
+    tp, fp, tn, fn = _multiclass_counts(
+        preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
+    )
+    return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+def _multiclass_counts(
+    preds: Tensor,
+    target: Tensor,
+    num_classes: int,
+    average: Optional[str],
+    top_k: int,
+    multidim_average: str,
+    ignore_index: Optional[int],
+    validate_args: bool,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """A multiclass batch checked (with ``validate_args``), formatted and
+    counted: the per-class int32 (tp, fp, tn, fn)."""
     if validate_args:
         _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index)
         _multiclass_stat_scores_tensor_validation(preds, target, num_classes, multidim_average, ignore_index)
     preds, target, mask = _multiclass_stat_scores_format(preds, target, num_classes, ignore_index, top_k)
-    tp, fp, tn, fn = _multiclass_stat_scores_update(
-        preds, target, mask, num_classes, top_k, average, multidim_average
-    )
-    return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+    return _multiclass_stat_scores_update(preds, target, mask, num_classes, top_k, average, multidim_average)
 
 
 # ----------------------------------------------------------------- multilabel
@@ -432,12 +460,29 @@ def multilabel_stat_scores(
         >>> multilabel_stat_scores(preds, target, num_labels=3, average='micro').tolist()
         [2, 1, 2, 1, 3]
     """
+    tp, fp, tn, fn = _multilabel_counts(
+        preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+    )
+    return _multilabel_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+def _multilabel_counts(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float,
+    average: Optional[str],
+    multidim_average: str,
+    ignore_index: Optional[int],
+    validate_args: bool,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """A multilabel batch checked (with ``validate_args``), formatted and
+    counted: the per-label int32 (tp, fp, tn, fn)."""
     if validate_args:
         _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
         _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
     preds, target, mask = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
-    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, mask, multidim_average)
-    return _multilabel_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+    return _multilabel_stat_scores_update(preds, target, mask, multidim_average)
 
 
 # --------------------------------------------------------------- task dispatch

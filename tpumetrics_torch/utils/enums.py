@@ -47,3 +47,25 @@ class ClassificationTask(EnumStr):
     BINARY = "binary"
     MULTICLASS = "multiclass"
     MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoBinary(EnumStr):
+    """Task vocabulary of the metrics without a binary form (exact match)."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification"
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """Task vocabulary of the metrics without a multilabel form (Cohen's kappa)."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification"
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"
