@@ -21,29 +21,45 @@ Phases, each of which passes or exits non-zero:
 4. slice phase: an ImageNet-1k validation-sized evaluation (50,000 samples,
    1000 classes, batches of 8192 and a ragged 848) through a classification
    report, ``MetricCollection({acc, f1, precision, recall, specificity,
-   auroc(T=200), ap(T=200), recall@precision(T=200), confmat, jaccard, mcc,
-   kappa})``, on the card, held against the same stream on the CPU
-   (identical int32 states, values within 1e-6), against numpy counts and,
-   for the report's values, against a float64 numpy oracle, with one steady
-   update run with host syncs made errors; its compute groups must be the
-   three of the accuracy, AP and confusion-matrix leaders, and the kernel's
+   auroc(T=200), ap(T=200), recall@precision(T=200),
+   specificity@sensitivity(T=200), confmat, jaccard, mcc, kappa, hinge,
+   calibration error (15 bins, l1)})``, on the card, held against the same
+   stream on the CPU (identical int32 and list states, float sums within
+   1e-6 relative, values within 1e-6), against numpy counts and, for the
+   report's values, against a float64 numpy oracle (the calibration error
+   within 1e-5), with one steady update run with host syncs made errors;
+   its compute groups must be the five of the accuracy, AP,
+   confusion-matrix, calibration and hinge leaders, and the kernel's
    launches are counted per update. The bench headline shape (N=8192,
    C=128, T=64, 5 batches; acc, f1 and auroc) runs the same way;
 5. task phase: a binary stream (1,000,000 samples, batches of 65,536 and a
    ragged 16,960: a CTR or fraud classifier's eval shard) through
    ``Accuracy``, ``F1Score``, ``Precision``, ``Recall``, ``Specificity``,
-   ``MatthewsCorrCoef``, ``CohenKappa``, binned and exact ``AUROC`` and
-   binned ``RecallAtFixedPrecision`` with ``task="binary"``, and a
+   ``MatthewsCorrCoef``, ``CohenKappa``, binned and exact ``AUROC``,
+   binned ``RecallAtFixedPrecision`` and ``SpecificityAtSensitivity``,
+   ``HingeLoss`` and ``CalibrationError`` with ``task="binary"``, and a
    multilabel stream at MS-COCO 2014 val size (40,504 images x 80 labels,
    batches of 4096 and a ragged 3640, about 1% of the targets ignored)
    through ``Accuracy``, macro ``F1Score``, ``Precision``, ``Recall`` and
-   ``HammingDistance``, ``ExactMatch``, ``JaccardIndex``, binned ``AUROC``
-   and binned ``PrecisionAtFixedRecall`` with ``task="multilabel"``. Each
-   runs on the card and on the CPU: identical states (the exact AUROC's
-   list states included), binned counts equal to numpy's, exact AUROC
-   against a float64 rank statistic, the new values against a float64
-   numpy oracle, one steady update run with host syncs made errors, and the
-   kernel's launches counted;
+   ``HammingDistance``, ``ExactMatch``, ``JaccardIndex``, binned ``AUROC``,
+   binned ``PrecisionAtFixedRecall`` and ``SpecificityAtSensitivity`` with
+   ``task="multilabel"``, and the coverage error, label ranking average
+   precision and label ranking loss. Each runs on the card and on the CPU:
+   identical states (the list states included), binned counts equal to
+   numpy's, exact AUROC against a float64 rank statistic, the new values
+   against a float64 numpy oracle, one steady update run with host syncs
+   made errors, and the kernel's launches counted. Beside the binary
+   stream, a fairness audit of the same 1M samples in five groups of
+   unequal shares (``BinaryFairness`` and ``BinaryGroupStatRates``, updated
+   with ``(preds, target, groups)``): per-group counts equal to numpy's and
+   the CPU's, and the histogram's device time;
+5b. segmentation phase, at Cityscapes val geometry (19 classes, 2 x 1024 x
+   2048 logits per batch, about 10% void pixels labelled 255, 50 batches
+   made on the card from the seed one at a time: 100 of the 500 val
+   images): mIoU (``MulticlassJaccardIndex``), pixel accuracy and macro
+   ``Dice``; the first 4 batches held against the CPU (identical states),
+   the whole stream against numpy (the int64 confusion matrix, Dice's
+   counts accumulated in float32 per batch);
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -54,7 +70,7 @@ Phases, each of which passes or exits non-zero:
    leaders' states, two gathers per list state) counted by a wrapper around
    the backend and in ``torch.profiler``, the binned update free of host
    syncs, and the sync's host-clock time per ``compute()``;
-7. fused phase, at the end of each of the five streams above: the stream's
+7. fused phase, at the end of each of the seven streams above: the stream's
    collection twice, ``fused_update=False`` and ``True`` (CUDA graphs), fed
    update by update in turns: states bit for bit and ``compute()`` values
    equal after every update, the updates of each mode counted (a key's
@@ -287,9 +303,11 @@ def numpy_reference(batches, c: int, thresholds: np.ndarray) -> dict:
 def multiclass_members(c: int, t: int, device, extra: bool) -> dict:
     """Micro accuracy, macro F1 and binned AUROC (BASELINE config #2's set);
     with ``extra``, a whole classification report: macro precision, recall
-    and specificity (in F1's compute group), binned AP and recall at
-    precision 0.5 (in AUROC's), and the confusion matrix with the Jaccard
-    index, MCC and Cohen's kappa (in its group)."""
+    and specificity (in F1's compute group), binned AP, recall at precision
+    0.5 and specificity at sensitivity 0.5 (in AUROC's), the confusion matrix
+    with the Jaccard index, MCC and Cohen's kappa (in its group), and the
+    crammer-singer hinge loss and the 15-bin expected calibration error (the
+    ImageNet calibration report of Guo et al. 2017), each a leader."""
     from tpumetrics_torch import classification as cls
 
     kw = {"validate_args": False, "device": device}
@@ -309,22 +327,34 @@ def multiclass_members(c: int, t: int, device, extra: bool) -> dict:
             "mcc": cls.MulticlassMatthewsCorrCoef(c, **kw),
             "kappa": cls.MulticlassCohenKappa(c, **kw),
             "rafp": cls.MulticlassRecallAtFixedPrecision(c, min_precision=0.5, thresholds=t, **kw),
+            "sas": cls.MulticlassSpecificityAtSensitivity(c, min_sensitivity=0.5, thresholds=t, **kw),
+            "hinge": cls.MulticlassHingeLoss(c, **kw),
+            "ece": cls.MulticlassCalibrationError(c, n_bins=15, norm="l1", **kw),
         })
     return out
 
 
-# The compute groups of the ImageNet-size collection: three leaders (acc, ap,
-# confmat), as before the report's other members came, each with them inside.
+# The compute groups of the ImageNet-size collection: the three leaders of the
+# report (acc, ap, confmat) with its other members inside, and two more: the
+# calibration error (list states, eager beside the captured leaders) and the
+# hinge loss.
 IMAGENET_GROUPS = [
     ["acc", "f1", "precision", "recall", "specificity"],
-    ["ap", "auroc", "rafp"],
+    ["ap", "auroc", "rafp", "sas"],
     ["confmat", "jaccard", "kappa", "mcc"],
+    ["ece"],
+    ["hinge"],
 ]
 # float64 numpy oracle tolerances of the new values: absolute for the
 # float32 ratios and averages, relative (to max(1, |value|)) for MCC and
-# kappa, whose float32 sums of squared counts lose low bits at these sizes
+# kappa, whose float32 sums of squared counts lose low bits at these sizes,
+# and for the coverage error, a count of labels; absolute 1e-5 for the
+# calibration error, whose per-bin float32 sums run over up to a million
+# confidences in another order than float64's
 ORACLE_TOL = 1e-6
 ORACLE_RTOL_MCC_KAPPA = 1e-5
+ORACLE_TOL_ECE = 1e-5
+RELATIVE_KEYS = {"mcc": ORACLE_RTOL_MCC_KAPPA, "kappa": ORACLE_RTOL_MCC_KAPPA, "coverage": ORACLE_TOL}
 
 
 def sdiv(num, den):
@@ -392,8 +422,9 @@ def fixed_point_oracle(tp, predpos, npos, thresholds, min_value: float, primary:
 
 def check_oracle(label: str, values: dict, oracle: dict) -> float:
     """Every value with an oracle entry against it; returns the worst
-    difference (relative for MCC and kappa). A fixed-point value is checked
-    with its threshold, which must be equal."""
+    difference (relative for MCC, kappa and the coverage error). A
+    fixed-point value is checked with its threshold, which must be equal.
+    The calibration error's difference is kept apart (``ece_err``)."""
     worst = 0.0
     for key, want in oracle.items():
         got = values[key]
@@ -404,12 +435,100 @@ def check_oracle(label: str, values: dict, oracle: dict) -> float:
             diff = float(np.max(np.abs(val - np.asarray(want[0]).reshape(-1))))
             tol = ORACLE_TOL
         else:
-            scale = max(1.0, abs(want)) if key in ("mcc", "kappa") else 1.0
+            scale = max(1.0, abs(want)) if key in RELATIVE_KEYS else 1.0
             diff = abs(float(got) - want) / scale
-            tol = ORACLE_RTOL_MCC_KAPPA if key in ("mcc", "kappa") else ORACLE_TOL
+            tol = RELATIVE_KEYS.get(key, ORACLE_TOL_ECE if key == "ece" else ORACLE_TOL)
         check(diff <= tol, f"{label}: {key} = {got} vs float64 oracle {want} (diff {diff}, tolerance {tol})")
-        worst = max(worst, diff)
+        if key == "ece":
+            ECE_ERR[label] = diff
+        else:
+            worst = max(worst, diff)
     return worst
+
+
+# the calibration error's worst difference from its float64 oracle, by stream
+ECE_ERR: dict = {}
+
+
+def hinge_oracle(probs: np.ndarray, target: np.ndarray) -> float:
+    """Mean hinge loss in float64: binary (``probs`` 1-D: the margin is the
+    pred, negated for negatives) or crammer-singer (the true class's score
+    less the best other one)."""
+    p = probs.astype(np.float64)
+    if p.ndim == 1:
+        margin = np.where(target == 1, p, -p)
+    else:
+        rows = np.arange(p.shape[0])
+        true = p[rows, target]
+        p[rows, target] = -np.inf
+        margin = true - p.max(axis=1)
+    return float(np.mean(np.maximum(1.0 - margin, 0.0)))
+
+
+def ece_oracle(conf: np.ndarray, acc: np.ndarray, n_bins: int = 15) -> float:
+    """Expected calibration error (l1) in float64 over float32 confidences:
+    the edges are the float32 grid ``arange(n_bins + 1) * (1 / n_bins)`` with
+    the last set to 1 (``jnp.linspace``'s rounding), a confidence falls in
+    the bin of the inner edges at or below it."""
+    edges = np.arange(n_bins + 1, dtype=np.float32) * (np.float32(1) / np.float32(n_bins))
+    edges[-1] = 1.0
+    idx = np.clip(np.searchsorted(edges[1:-1], conf.astype(np.float32), side="right"), 0, n_bins - 1)
+    count = np.bincount(idx, minlength=n_bins).astype(np.float64)
+    conf_bin = sdiv(np.bincount(idx, weights=conf.astype(np.float64), minlength=n_bins), count)
+    acc_bin = sdiv(np.bincount(idx, weights=acc.astype(np.float64), minlength=n_bins), count)
+    return float(np.sum(np.abs(acc_bin - conf_bin) * count / count.sum()))
+
+
+def sas_oracle(tp, predpos, npos, nneg, thresholds, min_sensitivity: float):
+    """Per class, the largest specificity with sensitivity >= the minimum,
+    the first of ties in decreasing threshold order, and its threshold; (0,
+    1e6) where no point qualifies. From the numpy binned counts ``(T, C)``
+    of increasing ``thresholds``, in float64."""
+    tp, predpos = tp[::-1].astype(np.float64), predpos[::-1].astype(np.float64)
+    tpr = sdiv(tp, np.asarray(npos)[None, :])
+    spec = 1.0 - sdiv(predpos - tp, np.asarray(nneg)[None, :])
+    thr = thresholds[::-1]
+    values, best = [], []
+    for col in range(tp.shape[1]):
+        ok = tpr[:, col] >= min_sensitivity
+        if not ok.any():
+            values.append(0.0)
+            best.append(1e6)
+            continue
+        idx = int(np.argmax(np.where(ok, spec[:, col], -np.inf)))
+        values.append(float(spec[idx, col]))
+        best.append(float(thr[idx]))
+    return np.asarray(values), np.asarray(best)
+
+
+def ranking_oracle(probs: np.ndarray, target: np.ndarray, valid: np.ndarray) -> dict:
+    """Coverage error, label ranking average precision and label ranking
+    loss in float64, by their definitions, with an ignored entry ranked below
+    every pred and never relevant: coverage is how many labels score at least
+    the lowest of the relevant and ignored ones; a relevant label's precision
+    is its rank among the relevant over its rank among all ('max' ranks for
+    ties; rows with no or every label relevant score 1); the loss is the
+    share of (relevant, other) pairs where the other label comes later in a
+    stable ascending sort (higher pred, or a tie at a higher index)."""
+    n, labels = probs.shape
+    p = np.where(valid, probs.astype(np.float64), -4.0 * labels)
+    rel = (target == 1) & valid
+    cov = lrap = lrl = 0.0
+    idx = np.arange(labels)
+    for lo in range(0, n, 4096):
+        pc, rc, zc = p[lo : lo + 4096], rel[lo : lo + 4096], ((target == 0) & valid)[lo : lo + 4096]
+        depth = np.where(zc, pc + 10.0 * labels, pc).min(axis=1)
+        cov += float((pc >= depth[:, None]).sum())
+        ge = pc[:, None, :] >= pc[:, :, None]  # [n, i, j]: p_j >= p_i
+        nrel = rc.sum(axis=1)
+        ratio = (ge & rc[:, None, :]).sum(-1) / ge.sum(-1)
+        per = np.where(rc, ratio, 0.0).sum(axis=1) / np.maximum(nrel, 1)
+        some = (nrel > 0) & (nrel < labels)
+        lrap += float(np.where(some, per, 1.0).sum())
+        later = (pc[:, None, :] > pc[:, :, None]) | ((pc[:, None, :] == pc[:, :, None]) & (idx[None, :] > idx[:, None]))
+        wrong = (later & rc[:, :, None] & ~rc[:, None, :]).sum(axis=(1, 2))
+        lrl += float(np.where(some, wrong / np.maximum(nrel * (labels - nrel), 1), 0.0).sum())
+    return {"coverage": cov / n, "lrap": lrap / n, "lrl": lrl / n}
 
 
 def flat_values(values: dict) -> dict:
@@ -463,10 +582,10 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
     want = IMAGENET_GROUPS if extra else [["acc", "f1"], ["auroc"]]
     check(groups == want, f"{label}: compute groups {groups}")
     leaders = [g[0] for g in groups]
-    check(leaders == (["acc", "ap", "confmat"] if extra else ["acc", "auroc"]), f"{label}: leaders {leaders}")
-    # the first update runs every member: AP's and recall-at-precision's own launches beside AUROC's;
-    # both then share AUROC's group, so a steady update launches the kernel once, as before
-    first = 3 if extra else 1
+    check(leaders == (["acc", "ap", "confmat", "ece", "hinge"] if extra else ["acc", "auroc"]), f"{label}: leaders {leaders}")
+    # the first update runs every member: AP's, recall-at-precision's and specificity-at-sensitivity's own
+    # launches beside AUROC's; all share AUROC's group, so a steady update launches the kernel once, as before
+    first = 4 if extra else 1
     want_per_update = [first] + [1] * (len(batches) - 1)
     check(per_update == want_per_update, f"{label}: kernel launches per update {per_update}, expected {want_per_update}")
 
@@ -497,13 +616,21 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
         del oracle["hamming"]
         thresholds = col["auroc"].thresholds.cpu().numpy()
         oracle["rafp"] = fixed_point_oracle(ref["tp"], ref["predpos"], cm.sum(1), thresholds, 0.5, "recall")
+        oracle["sas"] = sas_oracle(ref["tp"], ref["predpos"], cm.sum(1), cm.sum() - cm.sum(1), thresholds, 0.5)
+        probs = np.concatenate([b[0] for b in batches])
+        target = np.concatenate([b[1] for b in batches])
+        oracle["hinge"] = hinge_oracle(probs, target)
+        oracle["ece"] = ece_oracle(probs.max(axis=1), np.argmax(probs, axis=1) == target)
         worst = check_oracle(label, values, oracle)
         report = (
             f" precision {float(values['precision']):.6f} recall {float(values['recall']):.6f}"
             f" specificity {float(values['specificity']):.6f} jaccard {float(values['jaccard']):.6f}"
             f" mcc {float(values['mcc']):.6f} kappa {float(values['kappa']):.6f}"
-            f" recall@precision0.5 mean {float(values['rafp'][0].mean()):.6f};"
+            f" recall@precision0.5 mean {float(values['rafp'][0].mean()):.6f}"
+            f" specificity@sensitivity0.5 mean {float(values['sas'][0].mean()):.6f}"
+            f" hinge {float(values['hinge']):.6f} ece {float(values['ece']):.7f};"
             f" new values against a float64 numpy oracle: worst difference {worst:.3e}"
+            f" (ece {ECE_ERR[label]:.3e}, tolerance {ORACLE_TOL_ECE})"
         )
     # the first update runs every metric and compares states: report it apart
     steady = update_ms[1:]
@@ -521,12 +648,22 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
     fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
     if extra:
         check(fused["groups"] == want, f"{label}: fused compute groups {fused['groups']}")
+        check(fused["eager_leaders"] == ["ece"], f"{label}: eager leaders {fused['eager_leaders']}, expected ['ece']")
     return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms, "fused": fused}
 
 
+# float32 states that hold sums of integer counts (Dice's): bit for bit card vs CPU;
+# other float32 states are sums of floats, which the card adds in another order
+COUNT_STATES = ("tp", "fp", "fn")
+STATE_RTOL = 1e-6
+
+
 def check_same_states(label: str, gpu_state: dict, cpu_state: dict) -> None:
-    """The card's states equal the CPU's: int32 tensor states, and list states
-    (the exact curve's float32 preds and int32 targets) entry by entry."""
+    """The card's states equal the CPU's: int32 tensor states and float32
+    count states bit for bit, float32 sums (hinge, ranking) within 1e-6
+    relative, and list states (the exact curve's float32 preds and int32
+    targets, the calibration error's confidences and accuracies) entry by
+    entry."""
     for leader, states in cpu_state.items():
         for name, arr in states.items():
             got = gpu_state[leader][name]
@@ -536,20 +673,26 @@ def check_same_states(label: str, gpu_state: dict, cpu_state: dict) -> None:
                 )
                 check(same, f"{label}: list state {leader}.{name} differs card vs CPU")
                 continue
-            check(arr.dtype == np.int32, f"{label}: {leader}.{name} is {arr.dtype}, not int32")
+            check(arr.dtype in (np.int32, np.float32) and got.dtype == arr.dtype,
+                  f"{label}: {leader}.{name} is {got.dtype} on the card, {arr.dtype} on the CPU")
+            if arr.dtype == np.float32 and name not in COUNT_STATES:
+                check(np.allclose(got, arr, rtol=STATE_RTOL, atol=0), f"{label}: {leader}.{name} card {got} vs CPU {arr}")
+                continue
             check(np.array_equal(got, arr), f"{label}: {leader}.{name} differs card vs CPU")
 
 
 def check_same_values(torch, label: str, values: dict, cpu_values: dict) -> None:
-    """Finite values of the CPU run's shapes, within 1e-6 of them (MCC and
-    kappa: 1e-5 of max(1, |value|), float32 sums of squared counts taken in
+    """Finite values of the CPU run's shapes, within 1e-6 of max(1, |value|)
+    of them (MCC and kappa: 1e-5, float32 sums of squared counts taken in
     another order on the card)."""
     values, cpu_values = flat_values(values), flat_values(cpu_values)
+    check(values.keys() == cpu_values.keys(), f"{label}: keys {sorted(values)} vs CPU {sorted(cpu_values)}")
     for key, val in values.items():
         val, ref = val.cpu(), cpu_values[key]
         check(bool(torch.isfinite(val).all()) and val.shape == ref.shape, f"{label}: {key} = {val}")
-        diff = float((val - ref).abs().max())
-        tol = ORACLE_RTOL_MCC_KAPPA * max(1.0, float(ref.abs().max())) if key in ("mcc", "kappa") else 1e-6
+        diff = float((val.double() - ref.double()).abs().max())
+        scale = max(1.0, float(ref.double().abs().max()))
+        tol = (ORACLE_RTOL_MCC_KAPPA if key in ("mcc", "kappa") else 1e-6) * scale
         check(diff <= tol, f"{label}: {key} card {val} vs CPU {ref} (diff {diff})")
 
 
@@ -786,10 +929,14 @@ def task_phase(torch, bc, task: str) -> dict:
             "mcc": lambda **d: tm.MatthewsCorrCoef(**kw, **d),
             "kappa": lambda **d: tm.CohenKappa(**kw, **d),
             "rafp": lambda **d: tm.RecallAtFixedPrecision(min_precision=0.5, thresholds=t, **kw, **d),
+            "sas": lambda **d: tm.SpecificityAtSensitivity(min_sensitivity=0.9, thresholds=t, **kw, **d),
+            "hinge": lambda **d: tm.HingeLoss(**kw, **d),
+            "ece": lambda **d: tm.CalibrationError(n_bins=15, **kw, **d),
         }
-        # one new leader: MCC and kappa share a 2x2 confusion matrix
-        groups = [["acc", "f1", "precision", "recall", "specificity"], ["auroc", "rafp"], ["auroc_exact"],
-                  ["kappa", "mcc"]]
+        # MCC and kappa share a 2x2 confusion matrix, specificity at sensitivity the binned AUROC's state;
+        # the calibration error (list states, eager) and the hinge loss lead their own groups
+        groups = [["acc", "f1", "precision", "recall", "specificity"], ["auroc", "rafp", "sas"], ["auroc_exact"],
+                  ["ece"], ["hinge"], ["kappa", "mcc"]]
     else:
         label = "multilabel stream COCO-80 40504x80 T=200"
         batches = make_multilabel_stream(40504, 80, 4096, SEED)
@@ -804,9 +951,15 @@ def task_phase(torch, bc, task: str) -> dict:
             "exact": lambda **d: tm.ExactMatch(**kw, **d),
             "jaccard": lambda **d: tm.JaccardIndex(**kw, **d),
             "pafr": lambda **d: tm.PrecisionAtFixedRecall(min_recall=0.5, thresholds=t, **kw, **d),
+            "sas": lambda **d: tm.SpecificityAtSensitivity(min_sensitivity=0.5, thresholds=t, **kw, **d),
+            "coverage": lambda **d: tm.MultilabelCoverageError(80, ignore_index=-1, validate_args=False, **d),
+            "lrap": lambda **d: tm.MultilabelRankingAveragePrecision(80, ignore_index=-1, validate_args=False, **d),
+            "lrl": lambda **d: tm.MultilabelRankingLoss(80, ignore_index=-1, validate_args=False, **d),
         }
-        # two new leaders: exact match's correct/total and the per-label confusion matrices
-        groups = [["acc", "f1", "hamming", "precision", "recall"], ["auroc", "pafr"], ["exact"], ["jaccard"]]
+        # exact match's correct/total, the per-label confusion matrices and each ranking metric's
+        # score/total lead their own groups; specificity at sensitivity joins the binned AUROC's
+        groups = [["acc", "f1", "hamming", "precision", "recall"], ["auroc", "pafr", "sas"], ["coverage"], ["exact"],
+                  ["jaccard"], ["lrap"], ["lrl"]]
 
     def collection(device, fused=False):
         return MetricCollection({k: m(device=device) for k, m in members.items()}, fused_update=fused, device=device)
@@ -836,8 +989,8 @@ def task_phase(torch, bc, task: str) -> dict:
 
     found = [list(g) for g in col.compute_groups.values()]
     check(found == groups, f"{label}: compute groups {found}")
-    # the first update also runs the fixed-point metric's own binned update; later ones only AUROC's group leader
-    check(launches == len(batches) + 1, f"{label}: {launches} kernel launches for {len(batches)} updates")
+    # the first update also runs the fixed-point metrics' own binned updates; later ones only AUROC's group leader
+    check(launches == len(batches) + 2, f"{label}: {launches} kernel launches for {len(batches)} updates")
 
     cpu = collection("cpu")
     for preds, target in batches:
@@ -860,23 +1013,31 @@ def task_phase(torch, bc, task: str) -> dict:
     hit, pred = target == 1, probs > 0.5
     tp_, fp_, tn_, fn_ = ((m & valid).sum(axis=0) for m in (pred & hit, pred & ~hit, ~pred & ~hit, ~pred & hit))
     npos, thresholds = (hit & valid).sum(axis=0), col["auroc"].thresholds.cpu().numpy()
+    nneg = (~hit & valid).sum(axis=0)
     if task == "binary":
         oracle = stat_oracle(tp_[0], fp_[0], tn_[0], fn_[0])
         del oracle["hamming"]
         cm = confmat_oracle([[tn_[0], fp_[0]], [fn_[0], tp_[0]]])
         oracle.update(mcc=cm["mcc"], kappa=cm["kappa"])
         oracle["rafp"] = fixed_point_oracle(tp, predpos, npos, thresholds, 0.5, "recall")
+        oracle["sas"] = sas_oracle(tp, predpos, npos, nneg, thresholds, 0.9)
+        oracle["hinge"] = hinge_oracle(probs[:, 0], target[:, 0])
+        oracle["ece"] = ece_oracle(probs[:, 0], target[:, 0])
     else:
         oracle = stat_oracle(tp_, fp_, tn_, fn_, multilabel=True)
         del oracle["specificity"]
         oracle["exact"] = float(np.mean(np.all((pred == hit) | ~valid, axis=1)))
         oracle["jaccard"] = float(np.mean(sdiv(tp_, tp_ + fp_ + fn_)))
         oracle["pafr"] = fixed_point_oracle(tp, predpos, npos, thresholds, 0.5, "precision")
+        oracle["sas"] = sas_oracle(tp, predpos, npos, nneg, thresholds, 0.5)
+        # the ranking metrics reduce per update batch; their oracle sums per row, so any batching gives its value
+        oracle.update(ranking_oracle(probs, target, valid))
     worst = check_oracle(label, values, oracle)
     new_values = " ".join(
         f"{k} {float(values[k][0].float().mean() if isinstance(values[k], tuple) else values[k]):.6f}" for k in oracle
     )
-    extra = f" {new_values} (float64 numpy oracle: worst difference {worst:.3e});"
+    ece = f", ece {ECE_ERR[label]:.3e} of tolerance {ORACLE_TOL_ECE}" if label in ECE_ERR else ""
+    extra = f" {new_values} (float64 numpy oracle: worst difference {worst:.3e}{ece});"
     if task == "binary":
         ranked = rank_auroc(probs[:, 0], target[:, 0])
         exact = float(values["auroc_exact"])
@@ -894,9 +1055,265 @@ def task_phase(torch, bc, task: str) -> dict:
     profile_step(torch, col, dev_batches[1], label)
     del col
     fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
-    eager = ["auroc_exact"] if task == "binary" else []
+    eager = ["auroc_exact", "ece"] if task == "binary" else []
     check(fused["eager_leaders"] == eager, f"{label}: eager leaders {fused['eager_leaders']}, expected {eager}")
     return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms, "fused": fused}
+
+
+def make_groups(n: int, batch: int, seed: int):
+    """Group ids of five groups with unequal shares (40/25/15/12/8 %), in batches."""
+    groups = np.random.default_rng(seed).choice(5, size=n, p=[0.40, 0.25, 0.15, 0.12, 0.08])
+    return [groups[i : i + batch] for i in range(0, n, batch)]
+
+
+def fairness_oracle(probs: np.ndarray, target: np.ndarray, groups: np.ndarray, num_groups: int):
+    """Per-group tp/fp/tn/fn (int64, numpy) and, in float64, each group's rates
+    and the demographic-parity and equal-opportunity ratios under their keys."""
+    pred, hit = probs > 0.5, target == 1
+    stats = np.stack(
+        [np.bincount(groups[m], minlength=num_groups) for m in (pred & hit, pred & ~hit, ~pred & ~hit, ~pred & hit)],
+        axis=1,
+    )
+    values = {f"group_{g}": stats[g] / stats[g].sum() for g in range(num_groups)}
+    tp, fp, tn, fn = stats.T.astype(np.float64)
+    for prefix, rates in (("DP", sdiv(tp + fp, tp + fp + tn + fn)), ("EO", sdiv(tp, tp + fn))):
+        lo, hi = int(np.argmin(rates)), int(np.argmax(rates))
+        values[f"{prefix}_{lo}_{hi}"] = float(sdiv(rates[lo], rates[hi]))
+    return stats, values
+
+
+def fairness_phase(torch, bc) -> dict:
+    """A fairness audit of the binary stream: ``BinaryFairness`` and
+    ``BinaryGroupStatRates`` (one compute group) updated with ``(preds,
+    target, groups)`` on the card and on the CPU; the per-group counts
+    against numpy and the values against a float64 oracle; the histogram's
+    device time; then the fused phase."""
+    import tpumetrics_torch as tm
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.classification.group_fairness import _binary_groups_stat_scores
+    from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.utils.data import _bincount
+
+    label, num_groups = "binary fairness audit 1000000 in 5 groups", 5
+    batches = [(p, y, g) for (p, y), g in zip(make_binary_stream(1_000_000, 65536, SEED), make_groups(1_000_000, 65536, SEED + 1))]
+
+    def collection(device, fused=False):
+        kw = {"num_groups": num_groups, "validate_args": False, "device": device}
+        return MetricCollection(
+            {"fair": tm.BinaryFairness(**kw), "rates": tm.BinaryGroupStatRates(**kw)}, fused_update=fused, device=device
+        )
+
+    dev_batches = [tuple(torch.from_numpy(x).cuda() for x in b) for b in batches]
+    col = collection("cuda")
+    torch.cuda.synchronize()
+    bc.launches = 0
+    update_ms = []
+    for i, batch in enumerate(dev_batches):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update: the group check is off (validate_args=False), so nothing may sync
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                col.update(*batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            col.update(*batch)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    values = col.compute()
+    found = [list(g) for g in col.compute_groups.values()]
+    check(found == [["fair", "rates"]], f"{label}: compute groups {found}")
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+
+    cpu = collection("cpu")
+    for batch in batches:
+        cpu.update(*(torch.from_numpy(x) for x in batch))
+    gpu_state = export_state(col)
+    check_same_states(label, gpu_state, export_state(cpu))
+    check_same_values(torch, label, values, cpu.compute())
+    stats, oracle = fairness_oracle(*(np.concatenate([b[k] for b in batches]) for k in range(3)), num_groups)
+    got = np.stack([gpu_state["fair"][k] for k in ("tp", "fp", "tn", "fn")], axis=1)
+    check(np.array_equal(got, stats), f"{label}: per-group counts {got.tolist()} vs numpy {stats.tolist()}")
+    check(sorted(values) == sorted(oracle), f"{label}: keys {sorted(values)} vs oracle {sorted(oracle)}")
+    worst = max(float(np.max(np.abs(values[k].cpu().double().numpy() - oracle[k]))) for k in oracle)
+    check(worst <= ORACLE_TOL, f"{label}: values vs float64 oracle, worst difference {worst}")
+
+    # the count's device time at one batch: the whole per-group count, and its 4*G+1-bucket histogram alone.
+    # The count is some 20 small ops whose queueing outlasts one L2 flush, so four flushes run ahead of it
+    preds, target, groups = dev_batches[0]
+    flush = l2_flush(torch)
+    count_ms, count_host_ms = cuda_ms(
+        torch, lambda: _binary_groups_stat_scores(preds, target, groups, num_groups, validate_args=False), 30,
+        lambda: [flush() for _ in range(4)],
+    )
+    key = (4 * groups + (preds > 0.5).long() * 2 + target).contiguous()
+    hist_ms, _ = cuda_ms(torch, lambda: _bincount(key, minlength=4 * num_groups), 30, flush)
+    del flush
+    dp = [k for k in values if k.startswith("DP_")][0]
+    eo = [k for k in values if k.startswith("EO_")][0]
+    steady = update_ms[1:]
+    print(
+        f"fairness phase: {label}: {len(batches)} batches, per-group int32 counts identical to the CPU run and to"
+        f" numpy's, values against a float64 oracle (worst difference {worst:.3e}); {dp} {float(values[dp]):.6f}"
+        f" {eo} {float(values[eo]):.6f}; update 1 free of host syncs; first update {update_ms[0]:.3f} ms, later"
+        f" updates median {np.median(steady):.3f} ms; per-group count of a 65536 batch {count_ms:.4f} ms on the"
+        f" device ({count_host_ms:.4f} ms of host time), its {4 * num_groups + 1}-bucket index_add_ histogram alone"
+        f" {hist_ms:.4f} ms",
+        flush=True,
+    )
+    profile_step(torch, col, dev_batches[1], label)
+    del col
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    check(fused["eager_leaders"] == [], f"{label}: eager leaders {fused['eager_leaders']}")
+    return {"launches": 0, "update_ms": update_ms, "count_ms": count_ms, "hist_ms": hist_ms, "fused": fused}
+
+
+# Cityscapes (Cordts et al. 2016) val geometry: 19 evaluation classes, 1024 x 2048 pixels, void label 255;
+# the shares of the classes' pixels, roughly those of the val set (road, sidewalk, building, wall, fence,
+# pole, traffic light, traffic sign, vegetation, terrain, sky, person, rider, car, truck, bus, train,
+# motorcycle, bicycle)
+SEG_CLASSES, SEG_VOID, SEG_BATCH, SEG_HW = 19, 255, 2, (1024, 2048)
+SEG_SHARES = [0.33, 0.055, 0.2, 0.006, 0.008, 0.011, 0.002, 0.005, 0.15, 0.01, 0.035, 0.011, 0.002, 0.06,
+              0.002, 0.002, 0.002, 0.001, 0.004]
+SEG_BATCHES = 50  # 100 of the 500 val images, so the run stays within its time
+
+
+def make_seg_batch(torch, index: int):
+    """One batch made on the card from the seed: a label map of 32 x 32-pixel
+    blocks drawn with the class shares, about 10% of the pixels void; logits
+    ``(2, 19, 1024, 2048)`` of unit noise with 2.75 added at the true class
+    (about 80% pixel accuracy), on a grid of 1/8 so that the argmax of the
+    logits and of their softmax agree (ties go to the first class in both)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED * 1_000_003 + index)
+    h, w = SEG_HW
+    shares = torch.tensor(SEG_SHARES, device="cuda")
+    blocks = torch.multinomial(shares, SEG_BATCH * (h // 32) * (w // 32), replacement=True, generator=gen)
+    target = blocks.reshape(SEG_BATCH, h // 32, w // 32).repeat_interleave(32, 1).repeat_interleave(32, 2)
+    logits = torch.randn((SEG_BATCH, SEG_CLASSES, h, w), generator=gen, device="cuda")
+    logits.scatter_add_(1, target[:, None], torch.full((SEG_BATCH, 1, h, w), 2.75, device="cuda"))
+    logits = torch.round(logits * 8) / 8
+    void = torch.rand((SEG_BATCH, h, w), generator=gen, device="cuda") < 0.1
+    return logits, target.masked_fill(void, SEG_VOID)
+
+
+class SegStream:
+    """The segmentation batches, made one at a time as they are read (only
+    the first is kept, as the fused phase's steady batch)."""
+
+    def __init__(self, torch, n: int):
+        self.torch, self.n, self.first = torch, n, None
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        return (self[i] for i in range(self.n))
+
+    def __getitem__(self, i: int):
+        if i != 0:
+            return make_seg_batch(self.torch, i)
+        if self.first is None:
+            self.first = make_seg_batch(self.torch, 0)
+        return self.first
+
+
+def dice_macro(tp, fp, fn) -> float:
+    """Macro Dice in float64 over the classes present in preds or target."""
+    tp, fp, fn = (np.asarray(x, np.float64) for x in (tp, fp, fn))
+    present = (tp + fp + fn) > 0
+    return float(sdiv(2 * tp, 2 * tp + fp + fn)[present].mean())
+
+
+def segmentation_phase(torch, bc) -> dict:
+    """Semantic segmentation at Cityscapes val geometry (see the module
+    note): mIoU, pixel accuracy and macro Dice on the card; the first 4
+    batches against the CPU, the whole stream against numpy; then the fused
+    phase."""
+    import tpumetrics_torch as tm
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.interop import export_state
+
+    c = SEG_CLASSES
+    label = f"segmentation Cityscapes val geometry {SEG_BATCHES * SEG_BATCH} images {c} classes 1024x2048"
+
+    def collection(device, fused=False):
+        kw = {"validate_args": False, "device": device}
+        # Dice refuses ignore_index=255 with 19 classes: the void pixels reach it as zero target rows
+        members = {
+            "miou": tm.MulticlassJaccardIndex(c, ignore_index=SEG_VOID, **kw),
+            "pixel_acc": tm.MulticlassAccuracy(c, average="micro", ignore_index=SEG_VOID, **kw),
+            "dice": tm.Dice(num_classes=c, average="macro", mdmc_average="global", device=device),
+        }
+        return MetricCollection(members, fused_update=fused, device=device)
+
+    stream = SegStream(torch, SEG_BATCHES)
+    col, cpu = collection("cuda"), collection("cpu")
+    bc.launches = 0
+    cm = np.zeros((c, c), np.int64)
+    dice_counts = np.zeros((3, c), np.float32)  # tp, fp, fn, accumulated in float32 per batch as the state is
+    update_ms, cpu_ms, void_px, all_px = [], [], 0, 0
+    for i, (logits, target) in enumerate(stream):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update: a host sync in it raises
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                col.update(logits, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            col.update(logits, target)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        pred = logits.argmax(dim=1).to(torch.uint8).cpu().numpy().reshape(-1).astype(np.int64)
+        tgt = target.cpu().numpy().reshape(-1)
+        valid = tgt != SEG_VOID
+        batch_cm = np.bincount(tgt[valid] * c + pred[valid], minlength=c * c).reshape(c, c)
+        cm += batch_cm
+        tp = np.diag(batch_cm)
+        counts = np.stack([tp, np.bincount(pred, minlength=c) - tp, batch_cm.sum(1) - tp]).astype(np.float32)
+        dice_counts = (dice_counts + counts).astype(np.float32)
+        void_px, all_px = void_px + int((~valid).sum()), all_px + tgt.size
+        if i < 4:
+            t0 = time.perf_counter()
+            cpu.update(logits.cpu(), target.cpu())
+            cpu_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 3:
+            check_same_states(f"{label} after 4 updates", export_state(col), export_state(cpu))
+            check_same_values(torch, f"{label} after 4 updates", col.compute(), cpu.compute())
+        del logits, target
+    values = col.compute()
+    torch.cuda.synchronize()
+    groups = [list(g) for g in col.compute_groups.values()]
+    check(groups == [["dice"], ["miou"], ["pixel_acc"]], f"{label}: compute groups {groups}")
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+    state = export_state(col)
+    check(np.array_equal(state["miou"]["confmat"], cm), f"{label}: confusion matrix differs from numpy's int64")
+    for k, name in enumerate(("tp", "fp", "fn")):
+        got = state["dice"][name]
+        check(got.dtype == np.float32 and np.array_equal(got, dice_counts[k]), f"{label}: Dice {name} differs from numpy")
+    oracle = {
+        "pixel_acc": float(np.trace(cm) / cm.sum()),
+        "miou": confmat_oracle(cm)["jaccard"],
+        "dice": dice_macro(*dice_counts),
+    }
+    worst = check_oracle(label, values, oracle)
+    steady = update_ms[1:]
+    print(
+        f"segmentation phase: {label}: {SEG_BATCHES} batches of {SEG_BATCH}x{c}x1024x2048 logits made on the card,"
+        f" void {100 * void_px / all_px:.2f}% of {all_px} pixels; first 4 batches identical to the CPU run"
+        f" (CPU updates median {np.median(cpu_ms):.1f} ms); confusion matrix equal to numpy's int64 and Dice's"
+        f" float32 counts to numpy's; mIoU {float(values['miou']):.6f} pixel accuracy"
+        f" {float(values['pixel_acc']):.6f} Dice {float(values['dice']):.6f} (float64 oracle: worst difference"
+        f" {worst:.3e}); update 1 free of host syncs; first update {update_ms[0]:.3f} ms, later updates median"
+        f" {np.median(steady):.3f} ms (min {min(steady):.3f}, max {max(steady):.3f})",
+        flush=True,
+    )
+    profile_step(torch, col, stream[0], label)
+    del col, cpu
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), stream)
+    check(fused["eager_leaders"] == [], f"{label}: eager leaders {fused['eager_leaders']}")
+    return {"launches": 0, "update_ms": update_ms, "fused": fused}
 
 
 def sync_phase(torch, bc, smi: str) -> dict:
@@ -1227,7 +1644,9 @@ def main() -> None:
         ),
         "headline": slice_phase(torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192),
         "binary": task_phase(torch, bc, "binary"),
+        "fairness": fairness_phase(torch, bc),
         "multilabel": task_phase(torch, bc, "multilabel"),
+        "segmentation": segmentation_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
     clocks = subprocess.run(
@@ -1274,6 +1693,8 @@ def main() -> None:
             }
         ],
         "fused_update": fused_report,
+        "ece_err": ECE_ERR,
+        "fairness_count_ms": {"per_group_count": paths["fairness"]["count_ms"], "histogram": paths["fairness"]["hist_ms"]},
     }
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

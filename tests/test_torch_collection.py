@@ -85,8 +85,10 @@ def _assert_values(port, ref):
 
 
 def _assert_states(port_state, ref_state):
-    """Tensor states int32 and equal; list states (the exact curve's preds
-    and targets) of equal length, with equal entries of equal dtypes."""
+    """Integer tensor states int32 and equal, float ones (the sums of the
+    hinge, ranking and Dice states) float32 within 1e-6 relative; list states
+    (the exact curve's preds and targets, the calibration error's confidences
+    and accuracies) of equal length, with equal entries of equal dtypes."""
     assert sorted(port_state) == sorted(ref_state)
     for leader in ref_state:
         assert sorted(port_state[leader]) == sorted(ref_state[leader])
@@ -100,6 +102,10 @@ def _assert_states(port_state, ref_state):
                     np.testing.assert_array_equal(g, np.asarray(r))
                 continue
             got = got.numpy() if isinstance(got, torch.Tensor) else got
+            if np.issubdtype(np.asarray(ref).dtype, np.floating):  # float sums: float32, within 1e-6 relative
+                assert got.dtype == np.float32
+                np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-6, atol=0)
+                continue
             assert got.dtype == np.int32
             np.testing.assert_array_equal(got, np.asarray(ref))
 
@@ -277,32 +283,72 @@ def _report_collections():
     return out
 
 
+def _new_family_collections():
+    """The families of the last classification slice: a multiclass
+    collection of the hinge loss (both modes), the calibration error (list
+    states), a binned specificity at sensitivity and Dice; a multilabel one
+    of the three ranking metrics; and a fairness one, updated with
+    ``(preds, target, groups)``."""
+    rng = np.random.default_rng(12)
+    mc = {
+        "hinge": lambda pkg, **d: pkg.MulticlassHingeLoss(C, **d),
+        "hinge_ova": lambda pkg, **d: pkg.MulticlassHingeLoss(C, multiclass_mode="one-vs-all", **d),
+        "ece": lambda pkg, **d: pkg.MulticlassCalibrationError(C, n_bins=15, **d),
+        "sas": lambda pkg, **d: pkg.MulticlassSpecificityAtSensitivity(C, min_sensitivity=0.5, thresholds=T, **d),
+        "dice": lambda pkg, **d: pkg.Dice(num_classes=C, average="macro", **d),
+    }
+    ml = {
+        "coverage": lambda pkg, **d: pkg.MultilabelCoverageError(5, ignore_index=-1, **d),
+        "lrap": lambda pkg, **d: pkg.MultilabelRankingAveragePrecision(5, ignore_index=-1, **d),
+        "lrl": lambda pkg, **d: pkg.MultilabelRankingLoss(5, ignore_index=-1, **d),
+    }
+    fair = {
+        "fair": lambda pkg, **d: pkg.BinaryFairness(3, **d),
+        "rates": lambda pkg, **d: pkg.BinaryGroupStatRates(3, **d),
+    }
+    ml_batches, fair_batches = [], []
+    for _ in range(6):
+        target = rng.integers(0, 2, (64, 5))
+        target[rng.random((64, 5)) < 0.1] = -1
+        ml_batches.append(((rng.integers(0, 9, (64, 5)) / 8).astype(np.float32), target))
+        fair_batches.append((rng.random(64).astype(np.float32), rng.integers(0, 2, 64), rng.integers(0, 3, 64)))
+    out = []
+    for members, batches in ((mc, _batches(13, 6)), (ml, ml_batches), (fair, fair_batches)):
+        groups = [[k] for k in members] if members is not fair else [list(members)]
+        port = MetricCollection({k: m(cls, device="cpu") for k, m in members.items()}, compute_groups=groups,
+                                device="cpu")
+        ref = tpumetrics.MetricCollection({k: m(jax_cls) for k, m in members.items()}, compute_groups=groups)
+        out.append((port, ref, batches))
+    return out
+
+
 @pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
 def test_state_round_trip_between_packages(direction):
     """Accumulate 3 batches in one package, carry the state over, run 3 more
     batches in both and compare: the main-path collection, binary and
-    multilabel collections with binned and exact (list state) AUROC, and the
+    multilabel collections with binned and exact (list state) AUROC, the
     report collections of the precision/recall, confusion-matrix, exact-match
-    and fixed-point families."""
+    and fixed-point families, and the collections of the hinge, calibration,
+    specificity-at-sensitivity, Dice, ranking and fairness families."""
     groups = [["acc", "f1"], ["auroc"]]
     cases = [(_port_collection(compute_groups=groups), _jax_collection(compute_groups=groups), _batches(5, 3) + _batches(6, 3))]
-    for port, ref, batches in cases + _binary_multilabel_collections() + _report_collections():
+    for port, ref, batches in cases + _binary_multilabel_collections() + _report_collections() + _new_family_collections():
         first, second = batches[:3], batches[3:]
         if direction == "jax-to-port":
             rstate = ref.init_state()
-            for preds, target in first:
-                rstate = ref.functional_update(rstate, jnp.asarray(preds), jnp.asarray(target))
+            for batch in first:
+                rstate = ref.functional_update(rstate, *map(jnp.asarray, batch))
             load_state(port, _host_state(rstate))
         else:
             pstate = port.init_state()
-            for preds, target in first:
-                pstate = port.functional_update(pstate, torch.from_numpy(preds), torch.from_numpy(target))
+            for batch in first:
+                pstate = port.functional_update(pstate, *map(torch.from_numpy, batch))
             load_state(port, _host_state({k: {s: v.numpy() if isinstance(v, torch.Tensor) else [x.numpy() for x in v]
                                                  for s, v in st.items()} for k, st in pstate.items()}))
             rstate = _jax_state(export_state(port))
-        for preds, target in second:
-            port.update(torch.from_numpy(preds), torch.from_numpy(target))
-            rstate = ref.functional_update(rstate, jnp.asarray(preds), jnp.asarray(target))
+        for batch in second:
+            port.update(*map(torch.from_numpy, batch))
+            rstate = ref.functional_update(rstate, *map(jnp.asarray, batch))
         _assert_states(export_state(port), rstate)
         _assert_values(port.compute(), ref.functional_compute(rstate))
 

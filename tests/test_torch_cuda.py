@@ -572,3 +572,132 @@ def test_report_collection_on_the_card_fused_and_against_the_cpu(cuda, task):
         for g, w in zip(*(v if isinstance(v, tuple) else (v,) for v in (fused[key], plain[key]))):
             assert torch.equal(g, w), key
     _values_close(plain, cpu)
+
+
+def test_fairness_counts_on_the_card_equal_the_cpu(cuda):
+    """The per-group counts are an int32 index_add_ histogram (torch has no
+    CUDA int32 matmul, the JAX package's form): on the card they equal the
+    CPU's, out-of-range group ids and ignored targets counted nowhere."""
+    from tpumetrics_torch.functional.classification.group_fairness import _binary_groups_stat_scores
+
+    rng = np.random.default_rng(13)
+    n = 300_000
+    preds = rng.random(n).astype(np.float32)
+    target = rng.integers(0, 2, n)
+    target[rng.random(n) < 0.05] = -1
+    groups = rng.integers(-2, 7, n)
+    args = [torch.from_numpy(a) for a in (preds, target, groups)]
+    cpu = _binary_groups_stat_scores(*args, 5, 0.5, -1, validate_args=False)
+    gpu = _binary_groups_stat_scores(*(a.to(cuda) for a in args), 5, 0.5, -1, validate_args=False)
+    assert gpu.dtype == torch.int32 and gpu.device.type == cuda.type
+    assert torch.equal(gpu.cpu(), cpu)
+    in_range = (groups >= 0) & (groups < 5) & (target != -1)
+    assert int(cpu.sum()) == int(in_range.sum())
+
+
+def test_ranking_loss_with_tied_preds_on_the_card_equals_the_cpu(cuda):
+    """Preds on a grid of eighths (many ties): the stable argsorts rank the
+    ties the same way on the card as on the CPU, so the ranking loss and the
+    other ranking states are equal."""
+    rng = np.random.default_rng(14)
+    preds = (rng.integers(0, 9, (4096, 80)) / 8).astype(np.float32)
+    target = (rng.random((4096, 80)) < 0.1).astype(np.int64)
+    target[rng.random((4096, 80)) < 0.01] = -1
+    for name in ("MultilabelRankingLoss", "MultilabelRankingAveragePrecision", "MultilabelCoverageError"):
+        metrics = [getattr(cls, name)(80, ignore_index=-1, validate_args=False, device=d) for d in (cuda, "cpu")]
+        for m, d in zip(metrics, (cuda, "cpu")):
+            m.update(torch.from_numpy(preds).to(d), torch.from_numpy(target).to(d))
+        gpu, cpu = metrics
+        assert int(gpu.total) == int(cpu.total) == 4096
+        np.testing.assert_allclose(float(gpu.score), float(cpu.score), rtol=1e-6, err_msg=name)
+        np.testing.assert_allclose(float(gpu.compute()), float(cpu.compute()), rtol=1e-6, err_msg=name)
+
+
+def test_calibration_error_on_the_card_matches_the_cpu(cuda):
+    """List states equal element for element; the value (per-bin sums as
+    masked reductions, the same on every compute) within 1e-6 of the CPU's,
+    and two computes of one state bit for bit equal."""
+    rng = np.random.default_rng(15)
+    z = rng.standard_normal((20_000, 100)).astype(np.float32) * 3
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    probs = (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
+    target = rng.integers(0, 100, 20_000)
+    for norm in ("l1", "l2", "max"):
+        metrics = [cls.MulticlassCalibrationError(100, n_bins=15, norm=norm, device=d) for d in (cuda, "cpu")]
+        for m, d in zip(metrics, (cuda, "cpu")):
+            for lo in range(0, 20_000, 5000):
+                m.update(torch.from_numpy(probs[lo : lo + 5000]).to(d), torch.from_numpy(target[lo : lo + 5000]).to(d))
+        gpu, cpu = metrics
+        for name in ("confidences", "accuracies"):
+            for g, c in zip(getattr(gpu, name), getattr(cpu, name)):
+                assert torch.equal(g.cpu(), c)
+        first = gpu.compute()
+        gpu._computed = None
+        assert torch.equal(gpu.compute(), first)
+        np.testing.assert_allclose(float(first), float(cpu.compute()), rtol=0, atol=1e-6, err_msg=norm)
+
+
+def test_new_capturable_members_replay_with_host_syncs_made_errors(cuda):
+    """Hinge, the ranking metrics, binned specificity at sensitivity beside
+    AUROC, fairness and Dice: captured and replayed by the fused collection
+    update, a replay raising nothing with host syncs made errors, states bit
+    for bit the unfused ones and the CPU's (float sums within 1e-6)."""
+    rng = np.random.default_rng(16)
+
+    def mc(d):
+        return {
+            "auroc": cls.MulticlassAUROC(10, thresholds=32, validate_args=False, device=d),
+            "sas": cls.MulticlassSpecificityAtSensitivity(10, 0.5, thresholds=32, validate_args=False, device=d),
+            "hinge": cls.MulticlassHingeLoss(10, validate_args=False, device=d),
+            "dice": cls.Dice(num_classes=10, average="macro", device=d),
+        }
+
+    def ml(d):
+        kw = {"ignore_index": -1, "validate_args": False, "device": d}
+        return {"lrl": cls.MultilabelRankingLoss(6, **kw), "lrap": cls.MultilabelRankingAveragePrecision(6, **kw),
+                "coverage": cls.MultilabelCoverageError(6, **kw), "hinge": cls.BinaryHingeLoss(validate_args=False, device=d)}
+
+    def fair(d):
+        return {"fair": cls.BinaryFairness(4, validate_args=False, device=d),
+                "rates": cls.BinaryGroupStatRates(4, validate_args=False, device=d)}
+
+    def batches(kind):
+        out = []
+        for _ in range(5):
+            if kind == "mc":
+                out.append(((rng.standard_normal((512, 10)) * 2).astype(np.float32), rng.integers(0, 10, 512)))
+            elif kind == "ml":
+                target = rng.integers(0, 2, (256, 6))
+                target[rng.random((256, 6)) < 0.05] = -1
+                out.append(((rng.integers(0, 9, (256, 6)) / 8).astype(np.float32), target))
+            else:
+                out.append((rng.random(1024).astype(np.float32), rng.integers(0, 2, 1024), rng.integers(0, 4, 1024)))
+        return out
+
+    for kind, members in (("mc", mc), ("ml", ml), ("fair", fair)):
+        cols = {name: MetricCollection(members(dev), fused_update=f, device=dev)
+                for name, dev, f in (("plain", cuda, False), ("fused", cuda, True), ("cpu", "cpu", False))}
+        for i, batch in enumerate(batches(kind)):
+            for name, col in cols.items():
+                args = [torch.from_numpy(x).to(cuda if name != "cpu" else "cpu") for x in batch]
+                if name == "fused" and i >= 3:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        col.update(*args)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                else:
+                    col.update(*args)
+            fused, plain = export_state(cols["fused"]), export_state(cols["plain"])
+            for leader, states in plain.items():
+                for name, ref in states.items():
+                    assert fused[leader][name].dtype == ref.dtype and np.array_equal(fused[leader][name], ref), (kind, name)
+        step = cols["fused"]._fused_oo_step
+        assert step.counts["replayed"] >= 2 and len(step.leaders) == len(cols["fused"].compute_groups), kind
+        gpu, cpu = export_state(cols["plain"]), export_state(cols["cpu"])
+        for leader, states in cpu.items():
+            for name, ref in states.items():
+                if ref.dtype == np.float32 and name not in ("tp", "fp", "fn"):
+                    np.testing.assert_allclose(gpu[leader][name], ref, rtol=1e-6, err_msg=f"{kind} {leader}.{name}")
+                else:
+                    assert gpu[leader][name].dtype == ref.dtype and np.array_equal(gpu[leader][name], ref), (kind, name)

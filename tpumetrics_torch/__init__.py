@@ -2,12 +2,14 @@
 
 States are ``torch.Tensor``s on one device, CUDA unless ``device=`` says
 otherwise; the port imports neither JAX nor the JAX package. It holds the
-classification families stat scores, accuracy, F-beta/F1, precision,
-recall, specificity, Hamming distance, exact match, confusion matrix,
-Jaccard index, Matthews correlation, Cohen's kappa, precision-recall curve,
-ROC, AUROC, average precision and recall or precision at a fixed point of
-the curve (binary, multiclass and multilabel, binned or exact curves, and
-the task-string wrappers such as ``Accuracy(task=...)``), the
+classification domain of the JAX package: stat scores, accuracy,
+F-beta/F1, precision, recall, specificity, Hamming distance, exact match,
+confusion matrix, Jaccard index, Matthews correlation, Cohen's kappa,
+precision-recall curve, ROC, AUROC, average precision, recall, precision or
+specificity at a fixed point of the curve, hinge loss, calibration error,
+the multilabel ranking metrics, group fairness and Dice (binary, multiclass
+and multilabel, binned or exact curves, and the task-string wrappers such
+as ``Accuracy(task=...)``), the
 aggregation metrics (``SumMetric``, ``MeanMetric``, ...), metric arithmetic
 (``CompositionalMetric``), the ``MetricCollection``, cross-rank sync over
 ``torch.distributed`` (``parallel``), fixed-capacity list states

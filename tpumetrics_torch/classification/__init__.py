@@ -9,6 +9,11 @@ from tpumetrics_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from tpumetrics_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
 from tpumetrics_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from tpumetrics_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
@@ -16,6 +21,7 @@ from tpumetrics_torch.classification.confusion_matrix import (
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from tpumetrics_torch.classification.dice import Dice
 from tpumetrics_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from tpumetrics_torch.classification.f_beta import (
     BinaryF1Score,
@@ -27,12 +33,14 @@ from tpumetrics_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from tpumetrics_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
 from tpumetrics_torch.classification.hamming import (
     BinaryHammingDistance,
     HammingDistance,
     MulticlassHammingDistance,
     MultilabelHammingDistance,
 )
+from tpumetrics_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
 from tpumetrics_torch.classification.jaccard import (
     BinaryJaccardIndex,
     JaccardIndex,
@@ -67,6 +75,11 @@ from tpumetrics_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
+from tpumetrics_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
 from tpumetrics_torch.classification.recall_fixed_precision import (
     BinaryRecallAtFixedPrecision,
     MulticlassRecallAtFixedPrecision,
@@ -79,6 +92,12 @@ from tpumetrics_torch.classification.specificity import (
     MulticlassSpecificity,
     MultilabelSpecificity,
     Specificity,
+)
+from tpumetrics_torch.classification.specificity_sensitivity import (
+    BinarySpecificityAtSensitivity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelSpecificityAtSensitivity,
+    SpecificityAtSensitivity,
 )
 from tpumetrics_torch.classification.stat_scores import (
     BinaryStatScores,
@@ -94,11 +113,15 @@ __all__ = [
     "BinaryAUROC",
     "BinaryAccuracy",
     "BinaryAveragePrecision",
+    "BinaryCalibrationError",
     "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryFairness",
+    "BinaryGroupStatRates",
     "BinaryHammingDistance",
+    "BinaryHingeLoss",
     "BinaryJaccardIndex",
     "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
@@ -108,24 +131,30 @@ __all__ = [
     "BinaryRecall",
     "BinaryRecallAtFixedPrecision",
     "BinarySpecificity",
+    "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
     "ExactMatch",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
     "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
     "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
     "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassHammingDistance",
+    "MulticlassHingeLoss",
     "MulticlassJaccardIndex",
     "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
@@ -135,11 +164,13 @@ __all__ = [
     "MulticlassRecall",
     "MulticlassRecallAtFixedPrecision",
     "MulticlassSpecificity",
+    "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelCoverageError",
     "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
@@ -150,9 +181,12 @@ __all__ = [
     "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultilabelRecall",
     "MultilabelRecallAtFixedPrecision",
     "MultilabelSpecificity",
+    "MultilabelSpecificityAtSensitivity",
     "MultilabelStatScores",
     "Precision",
     "PrecisionAtFixedRecall",
@@ -161,5 +195,6 @@ __all__ = [
     "Recall",
     "RecallAtFixedPrecision",
     "Specificity",
+    "SpecificityAtSensitivity",
     "StatScores",
 ]

@@ -6,11 +6,14 @@ from tpumetrics_torch.functional.classification import __all__ as _classificatio
 from tpumetrics_torch.functional.classification.accuracy import accuracy
 from tpumetrics_torch.functional.classification.auroc import auroc
 from tpumetrics_torch.functional.classification.average_precision import average_precision
+from tpumetrics_torch.functional.classification.calibration_error import calibration_error
 from tpumetrics_torch.functional.classification.cohen_kappa import cohen_kappa
 from tpumetrics_torch.functional.classification.confusion_matrix import confusion_matrix
+from tpumetrics_torch.functional.classification.dice import dice
 from tpumetrics_torch.functional.classification.exact_match import exact_match
 from tpumetrics_torch.functional.classification.f_beta import f1_score, fbeta_score
 from tpumetrics_torch.functional.classification.hamming import hamming_distance
+from tpumetrics_torch.functional.classification.hinge import hinge_loss
 from tpumetrics_torch.functional.classification.jaccard import jaccard_index
 from tpumetrics_torch.functional.classification.matthews_corrcoef import matthews_corrcoef
 from tpumetrics_torch.functional.classification.precision_recall import precision, recall
@@ -24,12 +27,15 @@ __all__ = [
     "accuracy",
     "auroc",
     "average_precision",
+    "calibration_error",
     "cohen_kappa",
     "confusion_matrix",
+    "dice",
     "exact_match",
     "f1_score",
     "fbeta_score",
     "hamming_distance",
+    "hinge_loss",
     "jaccard_index",
     "matthews_corrcoef",
     "precision",

@@ -14,6 +14,10 @@ from tpumetrics_torch.functional.classification.average_precision import (
     multiclass_average_precision,
     multilabel_average_precision,
 )
+from tpumetrics_torch.functional.classification.calibration_error import (
+    binary_calibration_error,
+    multiclass_calibration_error,
+)
 from tpumetrics_torch.functional.classification.cohen_kappa import binary_cohen_kappa, multiclass_cohen_kappa
 from tpumetrics_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
@@ -29,11 +33,18 @@ from tpumetrics_torch.functional.classification.f_beta import (
     multilabel_f1_score,
     multilabel_fbeta_score,
 )
+from tpumetrics_torch.functional.classification.group_fairness import (
+    binary_fairness,
+    binary_groups_stat_rates,
+    demographic_parity,
+    equal_opportunity,
+)
 from tpumetrics_torch.functional.classification.hamming import (
     binary_hamming_distance,
     multiclass_hamming_distance,
     multilabel_hamming_distance,
 )
+from tpumetrics_torch.functional.classification.hinge import binary_hinge_loss, multiclass_hinge_loss
 from tpumetrics_torch.functional.classification.jaccard import (
     binary_jaccard_index,
     multiclass_jaccard_index,
@@ -62,6 +73,11 @@ from tpumetrics_torch.functional.classification.precision_recall_curve import (
     multiclass_precision_recall_curve,
     multilabel_precision_recall_curve,
 )
+from tpumetrics_torch.functional.classification.ranking import (
+    multilabel_coverage_error,
+    multilabel_ranking_average_precision,
+    multilabel_ranking_loss,
+)
 from tpumetrics_torch.functional.classification.recall_fixed_precision import (
     binary_recall_at_fixed_precision,
     multiclass_recall_at_fixed_precision,
@@ -73,6 +89,11 @@ from tpumetrics_torch.functional.classification.specificity import (
     multiclass_specificity,
     multilabel_specificity,
 )
+from tpumetrics_torch.functional.classification.specificity_sensitivity import (
+    binary_specificity_at_sensitivity,
+    multiclass_specificity_at_sensitivity,
+    multilabel_specificity_at_sensitivity,
+)
 from tpumetrics_torch.functional.classification.stat_scores import (
     binary_stat_scores,
     multiclass_stat_scores,
@@ -83,11 +104,15 @@ __all__ = [
     "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
+    "binary_calibration_error",
     "binary_cohen_kappa",
     "binary_confusion_matrix",
     "binary_f1_score",
+    "binary_fairness",
     "binary_fbeta_score",
+    "binary_groups_stat_rates",
     "binary_hamming_distance",
+    "binary_hinge_loss",
     "binary_jaccard_index",
     "binary_matthews_corrcoef",
     "binary_precision",
@@ -97,16 +122,21 @@ __all__ = [
     "binary_recall_at_fixed_precision",
     "binary_roc",
     "binary_specificity",
+    "binary_specificity_at_sensitivity",
     "binary_stat_scores",
+    "demographic_parity",
+    "equal_opportunity",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
+    "multiclass_calibration_error",
     "multiclass_cohen_kappa",
     "multiclass_confusion_matrix",
     "multiclass_exact_match",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
     "multiclass_hamming_distance",
+    "multiclass_hinge_loss",
     "multiclass_jaccard_index",
     "multiclass_matthews_corrcoef",
     "multiclass_precision",
@@ -116,11 +146,13 @@ __all__ = [
     "multiclass_recall_at_fixed_precision",
     "multiclass_roc",
     "multiclass_specificity",
+    "multiclass_specificity_at_sensitivity",
     "multiclass_stat_scores",
     "multilabel_accuracy",
     "multilabel_auroc",
     "multilabel_average_precision",
     "multilabel_confusion_matrix",
+    "multilabel_coverage_error",
     "multilabel_exact_match",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
@@ -130,9 +162,12 @@ __all__ = [
     "multilabel_precision",
     "multilabel_precision_at_fixed_recall",
     "multilabel_precision_recall_curve",
+    "multilabel_ranking_average_precision",
+    "multilabel_ranking_loss",
     "multilabel_recall",
     "multilabel_recall_at_fixed_precision",
     "multilabel_roc",
     "multilabel_specificity",
+    "multilabel_specificity_at_sensitivity",
     "multilabel_stat_scores",
 ]

@@ -100,8 +100,8 @@ def _binary_recall_at_fixed_precision_compute(
 
 
 def _per_class(curves, num_classes: int, min_value: float, reduce_fn: Reduce) -> Tuple[Tensor, Tensor]:
-    """Per-class (value, threshold): binned ``(C, T + 1)`` curves in one
-    batched reduction; exact per-class lists one class at a time."""
+    """Per-class (value, threshold): binned curves (one row per class) in
+    one batched reduction; exact per-class lists one class at a time."""
     precision, recall, thresholds = curves
     if isinstance(precision, Tensor):
         return reduce_fn(precision, recall, thresholds, min_value)
