@@ -60,6 +60,30 @@ Phases, each of which passes or exits non-zero:
    ``Dice``; the first 4 batches held against the CPU (identical states),
    the whole stream against numpy (the int64 confusion matrix, Dice's
    counts accumulated in float32 per batch);
+5c. regression streams, each on the card and on the CPU (states equal:
+   int32 identical, float32 sums within 1e-6 relative), its values against
+   float64 numpy/scipy oracles (sums and errors 1e-5 relative; Pearson,
+   concordance, Spearman, Kendall's tau and cosine similarity 1e-5; Kendall's
+   p-value 1e-6; the R2, RSE and explained-variance terms that divide by a
+   variance taken as ``Σt² - (Σt)²/n`` also 1e-6 times its condition, and
+   log-cosh one float32 step of its terms), one steady update with host syncs
+   made errors but in the members named as reading the host (printed with
+   their syncs and reasons), and the compute time:
+   - ratings, at MovieLens-20M test-split size (2,000,026 ratings on the
+     half-star grid, batches of 65,536 and a ragged 33,946): MSE, RMSE, MAE,
+     MAPE, SMAPE, WMAPE, MSLE, log-cosh, Minkowski (p=3), Tweedie (power
+     1.5), R2, explained variance, RSE, Pearson, concordance, Spearman,
+     ``MinMaxMetric(MeanAbsoluteError())`` and ``BootStrapper(MeanSquaredError(),
+     num_bootstraps=20)`` (its mean and std against a numpy replay of its
+     draws); Spearman's 2M-element average-rank pass timed apart;
+   - multi-output, at QM9 test-split size (10,831 molecules x 12 targets of
+     unlike scales, batches of 1,024 and a ragged 591): a ``MetricTracker``
+     over three epochs of shrinking error (its best step must be the last),
+     then per-target MAE (``MultioutputWrapper``, ``remove_nans=False``), MSE,
+     log-cosh, RSE, R2 in a ``ClasswiseWrapper``, explained variance,
+     Pearson, Spearman, Kendall's tau-b with its p-value, cosine similarity,
+     and a ``MultitaskWrapper`` beside them; Kendall's 12 x 22-chunk pass
+     timed apart, and the host syncs of ``remove_nans=True`` printed;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -70,14 +94,16 @@ Phases, each of which passes or exits non-zero:
    leaders' states, two gathers per list state) counted by a wrapper around
    the backend and in ``torch.profiler``, the binned update free of host
    syncs, and the sync's host-clock time per ``compute()``;
-7. fused phase, at the end of each of the seven streams above: the stream's
+7. fused phase, at the end of each of the nine streams above: the stream's
    collection twice, ``fused_update=False`` and ``True`` (CUDA graphs), fed
    update by update in turns: states bit for bit and ``compute()`` values
    equal after every update, the updates of each mode counted (a key's
    first sighting eager, its capture, its replays; the synced stream's
    tensor kwarg keeps every update eager), one replay with host syncs made
-   errors, 15 steady updates of each timed on the host clock in turns, one
-   of each under ``torch.profiler`` (device union), the capture time, and
+   errors (the ratings stream's ``BootStrapper``, an eager member that reads
+   the host in every update, let through by name), 15 steady updates of
+   each timed on the host clock in turns, one of each under
+   ``torch.profiler`` (device union), the capture time, and
    the kernel's launches (eager calls plus each graph's replays times the
    calls it captured) equal to the unfused run's.
 
@@ -658,27 +684,39 @@ COUNT_STATES = ("tp", "fp", "fn")
 STATE_RTOL = 1e-6
 
 
-def check_same_states(label: str, gpu_state: dict, cpu_state: dict) -> None:
-    """The card's states equal the CPU's: int32 tensor states and float32
-    count states bit for bit, float32 sums (hinge, ranking) within 1e-6
-    relative, and list states (the exact curve's float32 preds and int32
-    targets, the calibration error's confidences and accuracies) entry by
-    entry."""
-    for leader, states in cpu_state.items():
-        for name, arr in states.items():
-            got = gpu_state[leader][name]
-            if isinstance(arr, list):
-                same = len(got) == len(arr) and all(
-                    g.dtype == a.dtype and np.array_equal(g, a, equal_nan=True) for g, a in zip(got, arr)
-                )
-                check(same, f"{label}: list state {leader}.{name} differs card vs CPU")
-                continue
-            check(arr.dtype in (np.int32, np.float32) and got.dtype == arr.dtype,
-                  f"{label}: {leader}.{name} is {got.dtype} on the card, {arr.dtype} on the CPU")
-            if arr.dtype == np.float32 and name not in COUNT_STATES:
-                check(np.allclose(got, arr, rtol=STATE_RTOL, atol=0), f"{label}: {leader}.{name} card {got} vs CPU {arr}")
-                continue
-            check(np.array_equal(got, arr), f"{label}: {leader}.{name} differs card vs CPU")
+def check_same_states(label: str, got, want, scales: dict = None, path: str = "") -> float:
+    """The card's states equal the CPU's, through a wrapper's nested states
+    (a dict, or a list of per-output states): int32 tensor states and float32
+    count states (Dice's) bit for bit, list states (the exact curve's preds
+    and targets, the calibration error's confidences and accuracies, the
+    regression metrics' appended inputs) entry by entry, and float32 sums of
+    floats (hinge, ranking, regression) within 1e-6 relative, with a floor of
+    1e-6 times the sum of the absolute terms (``scales[path]``, see
+    ``cancel_scales``) for a sum whose terms cancel. Returns the worst
+    relative difference of the float sums."""
+    scales = scales or {}
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and got.keys() == want.keys(), f"{label}: {path} keys {sorted(got)} vs {sorted(want)}")
+        return max([check_same_states(label, got[k], v, scales, f"{path}.{k}" if path else k) for k, v in want.items()] or [0.0])
+    if isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want), f"{label}: {path} has {len(got)} entries, not {len(want)}")
+        if all(isinstance(w, np.ndarray) for w in want):  # a list state
+            same = all(g.dtype == w.dtype and np.array_equal(g, w, equal_nan=True) for g, w in zip(got, want))
+            check(same, f"{label}: list state {path} differs card vs CPU")
+            return 0.0
+        # a wrapper's list of per-output states
+        return max([check_same_states(label, g, w, scales, f"{path}[{i}]") for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    check(want.dtype in (np.int32, np.float32) and got.dtype == want.dtype,
+          f"{label}: {path} is {got.dtype} on the card, {want.dtype} on the CPU")
+    if want.dtype == np.int32 or path.rsplit(".", 1)[-1] in COUNT_STATES:
+        check(np.array_equal(got, want), f"{label}: {path} differs card vs CPU")
+        return 0.0
+    check(bool(np.all(np.isfinite(want))), f"{label}: {path} = {want} on the CPU")
+    ref = want.astype(np.float64)
+    diff = np.abs(got.astype(np.float64) - ref)
+    floor = STATE_RTOL * np.asarray(scales.get(path, 0.0))
+    check(bool(np.all(diff <= STATE_RTOL * np.abs(ref) + floor)), f"{label}: {path} card {got} vs CPU {want}")
+    return float(np.max(diff / np.maximum(np.abs(ref), floor / STATE_RTOL + 1e-300)))
 
 
 def check_same_values(torch, label: str, values: dict, cpu_values: dict) -> None:
@@ -696,20 +734,22 @@ def check_same_values(torch, label: str, values: dict, cpu_values: dict) -> None
         check(diff <= tol, f"{label}: {key} card {val} vs CPU {ref} (diff {diff})")
 
 
-def check_identical_states(label: str, got: dict, want: dict) -> None:
+def check_identical_states(label: str, got, want, path: str = "") -> None:
     """Two collections' exported states bit for bit: every tensor state of
-    one dtype and equal, list states entry by entry."""
-    check(got.keys() == want.keys(), f"{label}: leaders {sorted(got)} vs {sorted(want)}")
-    for leader, states in want.items():
-        for name, ref in states.items():
-            val = got[leader][name]
-            if isinstance(ref, list):
-                same = len(val) == len(ref) and all(
-                    v.dtype == r.dtype and np.array_equal(v, r, equal_nan=True) for v, r in zip(val, ref)
-                )
-            else:
-                same = val.dtype == ref.dtype and np.array_equal(val, ref, equal_nan=True)
-            check(same, f"{label}: {leader}.{name} differs fused vs unfused")
+    one dtype and equal, list states entry by entry, and a wrapper's nested
+    state (a dict or a list of its children's) all the way down."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and got.keys() == want.keys(), f"{label}: {path or 'leaders'} {sorted(got)} vs {sorted(want)}")
+        for key, ref in want.items():
+            check_identical_states(label, got[key], ref, f"{path}.{key}" if path else key)
+        return
+    if isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want), f"{label}: {path} has {len(got)} entries, not {len(want)}")
+        for i, (val, ref) in enumerate(zip(got, want)):
+            check_identical_states(label, val, ref, f"{path}[{i}]")
+        return
+    same = got.dtype == want.dtype and np.array_equal(got, want, equal_nan=True)
+    check(same, f"{label}: {path} differs fused vs unfused")
 
 
 def update_mode(step, before: dict) -> str:
@@ -739,7 +779,39 @@ def profile_update(torch, fn) -> dict:
     return {"wall_ms": wall, "busy_ms": busy, "intervals": len(device), "share": busy / wall if wall else 0.0}
 
 
-def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: int = 15) -> dict:
+class host_readers_exempt:
+    """Inside it, the named members of a collection update with host syncs
+    allowed, while ``torch.cuda.set_sync_debug_mode("error")`` holds for the
+    rest: the members documented to read the host in a steady update."""
+
+    def __init__(self, torch, col, names):
+        self.torch, self.members, self.saved = torch, [col._modules[n] for n in names], []
+
+    def __enter__(self):
+        torch = self.torch
+
+        def allowed(update):
+            def run(*args, **kwargs):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    return update(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            return run
+
+        self.saved = [m.update for m in self.members]
+        for m in self.members:
+            object.__setattr__(m, "update", allowed(m.update))
+        return self
+
+    def __exit__(self, *exc):
+        for m, update in zip(self.members, self.saved):
+            object.__setattr__(m, "update", update)
+        return False
+
+
+def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: int = 15, exempt=None) -> dict:
     """The fused phase of one stream: the same collection twice,
     ``fused_update=False`` and ``True``, fed the stream update by update in
     turns. After every update the states are identical bit for bit and the
@@ -750,7 +822,9 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
     states and values are compared again, and one update of each runs
     under the profiler.
     Kernel launches: the wrapper's count for eager calls, plus each graph's
-    replays times the kernel calls it captured."""
+    replays times the kernel calls it captured. ``exempt`` names the eager
+    members (with the reason) that read the host in every update; the
+    guarded replay lets them, and holds every other member to no host sync."""
     from tpumetrics_torch.interop import export_state
 
     update = update or (lambda col, batch: col.update(*batch))
@@ -768,7 +842,8 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
         if guard:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            update(col, batch)
+            with host_readers_exempt(torch, col, sorted(exempt or {}) if guard else []):
+                update(col, batch)
         finally:
             if guard:
                 torch.cuda.set_sync_debug_mode(0)
@@ -867,7 +942,8 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
         f" ({100 * prof['plain']['share']:.1f}%, {prof['plain']['intervals']} intervals); graphs {out['graphs']},"
         f" capture {[round(x, 4) for x in out['capture_s']]} s; eager leaders {out['eager_leaders']};"
         f" binned_confusion launches fused {out['launches_fused']} ({launches['fused']} eager + {replay_launches}"
-        f" replayed) vs unfused {out['launches_plain']}",
+        f" replayed) vs unfused {out['launches_plain']}"
+        + "".join(f"; host syncs allowed in the guarded replay for {name}: {why}" for name, why in (exempt or {}).items()),
         flush=True,
     )
     return out
@@ -1316,6 +1392,461 @@ def segmentation_phase(torch, bc) -> dict:
     return {"launches": 0, "update_ms": update_ms, "fused": fused}
 
 
+# ----------------------------------------------------------------- regression streams
+
+# MovieLens-20M (Harper & Konstan 2015): 20,000,263 ratings on a half-star grid 0.5-5.0; a 10 % test split.
+# The shares of the ten grid values are roughly those of the dataset's rating histogram.
+RATINGS_N, RATINGS_BATCH = 2_000_026, 65_536
+RATING_GRID = np.arange(1, 11) / 2
+RATING_SHARES = np.array([1.1, 3.4, 1.4, 7.2, 4.4, 21.3, 10.6, 27.8, 7.7, 14.5])
+RATING_NOISE = 0.85  # the predictions' error, about a good recommender's RMSE
+EPS32 = float(np.finfo(np.float32).eps)
+REG_RTOL = 1e-5  # sums and errors against float64 oracles
+CORR_ATOL = 1e-5  # Pearson, concordance, Spearman, Kendall's tau, cosine similarity
+PVALUE_ATOL = 1e-6  # Kendall's p-value
+
+
+def make_ratings(seed: int):
+    """The test split in batches: targets on the half-star grid, float32
+    predictions the target plus noise, clipped to [0.5, 5]."""
+    rng = np.random.default_rng(seed)
+    target = rng.choice(RATING_GRID, size=RATINGS_N, p=RATING_SHARES / RATING_SHARES.sum()).astype(np.float32)
+    preds = np.clip(target + RATING_NOISE * rng.standard_normal(RATINGS_N), 0.5, 5.0).astype(np.float32)
+    return [(preds[i : i + RATINGS_BATCH], target[i : i + RATINGS_BATCH]) for i in range(0, RATINGS_N, RATINGS_BATCH)]
+
+
+def count_host_syncs(torch, fn) -> int:
+    """Host syncs of one call of ``fn``, as ``set_sync_debug_mode("warn")`` reports them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def cancel_scales(p: np.ndarray, t: np.ndarray) -> dict:
+    """For the float32 sums whose terms cancel, the float64 sum of the
+    absolute values of the terms, per column, by state path: across
+    elements (``Σ(t - p)``), or inside each element's formula (Tweedie's
+    three powers, log-cosh's ``x + softplus(-2x) - log 2``, the log error's
+    ``log1p(p) - log1p(t)``), where the card's and the CPU's ``pow``,
+    ``exp`` and ``log`` differ in the last bits."""
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    e = p - t
+    out = {
+        "ev.sum_error": np.abs(e).sum(0),
+        "log_cosh.sum_log_cosh_error": (np.abs(e) + np.logaddexp(0.0, -2 * e) + np.log(2.0)).sum(0),
+    }
+    if (p > -1).all() and (t > -1).all():
+        a, b = np.log1p(p), np.log1p(t)
+        out["msle.sum_squared_log_error"] = (2 * np.abs(a - b) * (np.abs(a) + np.abs(b))).sum(0)
+    if (p > 0).all() and (t >= 0).all():
+        out["tweedie.sum_deviance_score"] = (2 * (4 * np.sqrt(t) + 2 * t / np.sqrt(p) + 2 * np.sqrt(p))).sum(0)
+    return out
+
+
+def check_values(label: str, values: dict, oracle: dict, tolerances: dict) -> dict:
+    """Each value against its float64 oracle within ``tolerances[key]`` =
+    ``(rtol, atol)`` (an atol may be per element); returns the worst
+    difference relative to the tolerance by key."""
+    worst = {}
+    for key, want in oracle.items():
+        got = np.asarray(values[key].cpu(), np.float64)
+        want = np.asarray(want, np.float64)
+        rtol, atol = tolerances[key]
+        check(got.shape == want.shape and bool(np.all(np.isfinite(got))), f"{label}: {key} = {got} (oracle shape {want.shape})")
+        allowed = rtol * np.abs(want) + atol
+        diff = np.abs(got - want)
+        check(bool(np.all(diff <= allowed)), f"{label}: {key} = {got} vs float64 oracle {want} (diff {diff}, tolerance {allowed})")
+        worst[key] = float(np.max(diff / allowed))
+    return worst
+
+
+def regression_oracle(p: np.ndarray, t: np.ndarray) -> dict:
+    """float64 values of the regression members over ``(N,)`` or ``(N, D)``
+    data, per column, and the quantities the tolerances need."""
+    import scipy.stats
+
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    e = p - t
+    n = t.shape[0]
+    rss = (e * e).sum(0)
+    tss = ((t - t.mean(0)) ** 2).sum(0)
+    cols = [(p, t)] if p.ndim == 1 else [(p[:, i], t[:, i]) for i in range(p.shape[1])]
+    squeeze = (lambda x: x[0]) if p.ndim == 1 else np.asarray
+    spearman = squeeze([np.corrcoef(scipy.stats.rankdata(a), scipy.stats.rankdata(b))[0, 1] for a, b in cols])
+    kendall = [scipy.stats.kendalltau(a, b) for a, b in cols]
+    vx, vy = p.var(0, ddof=1), t.var(0, ddof=1)
+    cov = ((p - p.mean(0)) * (t - t.mean(0))).sum(0) / (n - 1)
+    return {
+        "mse": (e * e).mean(0), "mae_all": np.abs(e).mean(), "mae_cols": np.abs(e).mean(0),
+        "mape": (np.abs(e) / np.maximum(np.abs(t), 1.17e-6)).mean(),
+        "smape": (2 * np.abs(e) / np.maximum(np.abs(t) + np.abs(p), 1.17e-6)).mean(),
+        "wmape": np.abs(e).sum() / max(np.abs(t).sum(), 1.17e-6),
+        "msle": ((np.log1p(p) - np.log1p(t)) ** 2).mean() if (p > -1).all() and (t > -1).all() else np.nan,
+        "log_cosh": (np.abs(e) + np.log1p(np.exp(-2 * np.abs(e))) - np.log(2.0)).mean(0),
+        "minkowski3": (np.abs(e) ** 3).sum() ** (1 / 3),
+        "tweedie15": (2 * (np.maximum(t, 0) ** 0.5 / (-0.25) - t * p ** -0.5 / -0.5 + p**0.5 / 0.5)).mean()
+        if (p > 0).all() else np.nan,
+        "rss_over_tss": rss / tss, "kappa": (t * t).sum(0) / tss,
+        "ev": 1 - e.var(0) / t.var(0), "ev_ratio": e.var(0) / t.var(0),
+        "pearson": cov / np.sqrt(vx * vy),
+        "ccc": 2 * cov / (vx + vy + (p.mean(0) - t.mean(0)) ** 2),
+        "spearman": spearman,
+        "kendall_tau": squeeze([k.statistic for k in kendall]), "kendall_p": squeeze([k.pvalue for k in kendall]),
+        "cosine": ((p * t).sum(-1) / (np.linalg.norm(p, axis=-1) * np.linalg.norm(t, axis=-1))).mean() if p.ndim == 2 else np.nan,
+    }
+
+
+def cancel_atol(o: dict, ratio: np.ndarray) -> np.ndarray:
+    """The float32 error of a value ``1 - ratio`` or ``ratio`` whose
+    denominator is a variance taken as ``Σt² - (Σt)²/n``, the JAX package's
+    formula: its two sums carry relative errors of a few 1e-7, so the
+    difference carries 1e-6 times its condition ``κ = Σt² / Σ(t - t̄)²``,
+    and the value that much times ``ratio``."""
+    return 1e-6 * o["kappa"] * ratio
+
+
+def log_cosh_atol(o: dict) -> np.ndarray:
+    """The float32 resolution of log-cosh in the JAX package's stable form
+    ``x + softplus(-2x) - log(2)``: every term is of size ``log(2) + |x|``
+    before the subtraction, so a mean below one float32 step of that size
+    (small errors, ``log cosh x ≈ x²/2``) is not resolved."""
+    return EPS32 * (np.log(2.0) + o["mae_cols"])
+
+
+def replay_bootstrap_mse(batches, num: int, seed: int) -> np.ndarray:
+    """The bootstrapped MSEs of ``BootStrapper(MeanSquaredError(),
+    num_bootstraps=num, seed=seed)`` in float64: the same draws from the
+    same numpy generator, in the same order."""
+    rng = np.random.default_rng(seed)
+    sse, count = np.zeros(num), np.zeros(num)
+    for p, t in batches:
+        for b in range(num):
+            idx = rng.integers(0, len(p), size=len(p))
+            d = p[idx].astype(np.float64) - t[idx]
+            sse[b] += d @ d
+            count[b] += idx.size
+    return sse / count
+
+
+BOOTSTRAPS = 20
+RATINGS_HOST_READERS = {
+    "tweedie": "an eager update checks the power's domain on the host (skipped under capture)",
+    "bootstrap_mse": "each copy's resample indices are copied to the card from pageable host memory",
+}
+
+
+def ratings_members(device) -> dict:
+    import tpumetrics_torch.regression as reg
+    from tpumetrics_torch.wrappers import BootStrapper, MinMaxMetric
+
+    kw = {"device": device}
+    return {
+        "mse": reg.MeanSquaredError(**kw), "rmse": reg.MeanSquaredError(squared=False, **kw),
+        "mae": reg.MeanAbsoluteError(**kw), "mape": reg.MeanAbsolutePercentageError(**kw),
+        "smape": reg.SymmetricMeanAbsolutePercentageError(**kw),
+        "wmape": reg.WeightedMeanAbsolutePercentageError(**kw), "msle": reg.MeanSquaredLogError(**kw),
+        "log_cosh": reg.LogCoshError(**kw), "minkowski": reg.MinkowskiDistance(p=3, **kw),
+        "tweedie": reg.TweedieDevianceScore(power=1.5, **kw), "r2": reg.R2Score(**kw),
+        "ev": reg.ExplainedVariance(**kw), "rse": reg.RelativeSquaredError(**kw),
+        "pearson": reg.PearsonCorrCoef(**kw), "ccc": reg.ConcordanceCorrCoef(**kw),
+        "spearman": reg.SpearmanCorrCoef(**kw),
+        "minmax_mae": MinMaxMetric(reg.MeanAbsoluteError(**kw)),
+        "bootstrap_mse": BootStrapper(reg.MeanSquaredError(**kw), num_bootstraps=BOOTSTRAPS, seed=SEED),
+    }
+
+
+def ratings_phase(torch, bc) -> dict:
+    """A recommender's rating-prediction eval at MovieLens-20M test-split size
+    (see the module note): 18 regression members on the card and on the CPU,
+    the states against each other, the values against float64 oracles, the
+    bootstrap against a replay of its draws, the host syncs of the members
+    that read the host, and the fused phase."""
+    import copy
+
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.regression.spearman import _rank_data
+    from tpumetrics_torch.interop import export_state
+
+    label = f"ratings MovieLens-20M test split {RATINGS_N} ratings"
+    batches = make_ratings(SEED + 7)
+
+    def collection(device, fused=False):
+        return MetricCollection(ratings_members(device), fused_update=fused, device=device)
+
+    dev_batches = [tuple(torch.from_numpy(x).cuda() for x in b) for b in batches]
+    col = collection("cuda")
+    torch.cuda.synchronize()
+    bc.launches = 0
+    update_ms = []
+    for i, batch in enumerate(dev_batches):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update: a host sync raises, but in the members named as reading the host
+            syncs = {name: count_host_syncs(torch, lambda m=copy.deepcopy(col._modules[name]): m.update(*batch))
+                     for name in RATINGS_HOST_READERS}
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with host_readers_exempt(torch, col, RATINGS_HOST_READERS):
+                    col.update(*batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            col.update(*batch)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    values = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    groups = sorted(sorted(g) for g in col.compute_groups.values())
+    check(["ccc", "pearson"] in groups and ["mse", "rmse"] in groups and len(groups) == 16, f"{label}: compute groups {groups}")
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+
+    cpu = collection("cpu")
+    for batch in batches:
+        cpu.update(*(torch.from_numpy(x) for x in batch))
+    cpu.compute()  # MinMax's extrema refresh in compute, as they did on the card
+    p_all = np.concatenate([b[0] for b in batches])
+    t_all = np.concatenate([b[1] for b in batches])
+    scales = cancel_scales(p_all, t_all)
+    state_err = check_same_states(label, export_state(col), export_state(cpu), scales)
+
+    o = regression_oracle(p_all, t_all)
+    oracle = {
+        "mse": o["mse"], "rmse": np.sqrt(o["mse"]), "mae": o["mae_all"], "mape": o["mape"], "smape": o["smape"],
+        "wmape": o["wmape"], "msle": o["msle"], "log_cosh": o["log_cosh"], "minkowski": o["minkowski3"],
+        "tweedie": o["tweedie15"], "r2": 1 - o["rss_over_tss"], "rse": o["rss_over_tss"], "ev": o["ev"],
+        "pearson": o["pearson"], "ccc": o["ccc"], "spearman": o["spearman"],
+        "raw": o["mae_all"], "max": o["mae_all"], "min": o["mae_all"],
+    }
+    tol = {k: (REG_RTOL, 0.0) for k in oracle}
+    tol.update({k: (0.0, CORR_ATOL) for k in ("pearson", "ccc", "spearman")})
+    tol["r2"] = tol["rse"] = (REG_RTOL, cancel_atol(o, o["rss_over_tss"]))
+    tol["ev"] = (REG_RTOL, cancel_atol(o, o["ev_ratio"]))
+    tol["log_cosh"] = (REG_RTOL, log_cosh_atol(o))
+    check(set(values) == set(oracle) | {"mean", "std"}, f"{label}: keys {sorted(values)}")
+    worst = check_values(label, values, oracle, tol)
+    boot = replay_bootstrap_mse(batches, BOOTSTRAPS, SEED)
+    check_values(f"{label} bootstrap", values, {"mean": boot.mean(), "std": boot.std(ddof=1)},
+                 {"mean": (REG_RTOL, 0.0), "std": (REG_RTOL, 0.0)})
+
+    # Spearman's compute is two sorts of the 2M ratings: one of them timed apart (device time, L2 flushed)
+    flush = l2_flush(torch)
+    all_preds = torch.from_numpy(p_all).cuda()
+    rank_ms, rank_host_ms = cuda_ms(torch, lambda: _rank_data(all_preds), 10, flush)
+    del flush, all_preds
+    steady = update_ms[2:]
+    print(
+        f"ratings phase: {label}: {len(batches)} batches of {RATINGS_BATCH} (the last {len(batches[-1][0])}),"
+        f" 18 members in {len(groups)} compute groups; states equal to the CPU run's (int32 identical, float32"
+        f" sums worst {state_err:.2e} relative); values against float64 oracles, worst share of the tolerance"
+        f" {max(worst.values()):.3f} ({max(worst, key=worst.get)}); RMSE {float(values['rmse']):.6f} R2"
+        f" {float(values['r2']):.6f} Pearson {float(values['pearson']):.6f} Spearman {float(values['spearman']):.6f};"
+        f" bootstrap mean {float(values['mean']):.6f} std {float(values['std']):.3e} equal to a numpy replay of"
+        f" its draws; update 2 with host syncs made errors but in {sorted(RATINGS_HOST_READERS)}, whose host"
+        f" syncs in one update are {syncs} ({'; '.join(f'{k}: {v}' for k, v in RATINGS_HOST_READERS.items())});"
+        f" first update {update_ms[0]:.3f} ms, steady median {np.median(steady):.3f} ms; compute() {compute_ms:.3f}"
+        f" ms, of it one 2M-element average-rank pass {rank_ms:.3f} ms on the device ({rank_host_ms:.3f} ms host)",
+        flush=True,
+    )
+    profile_step(torch, col, dev_batches[2], label)
+    del col, cpu
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches,
+                       exempt={"bootstrap_mse": RATINGS_HOST_READERS["bootstrap_mse"]})
+    check(fused["eager_leaders"] == ["bootstrap_mse", "minmax_mae", "spearman"], f"{label}: eager leaders {fused['eager_leaders']}")
+    return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "rank_2m_ms": rank_ms,
+            "host_syncs": syncs, "oracle_worst": worst, "fused": fused}
+
+
+# QM9 (Ramakrishnan et al. 2014; 130,831 molecules), DimeNet's split 110,000 / 10,000 / rest: the test set.
+# The 12 targets and, per target, a mean and standard deviation of the dataset's order (its units);
+# U, H and G follow U0 closely, as the four energies do.
+QM9_TARGETS = ["mu", "alpha", "homo", "lumo", "gap", "r2", "zpve", "U0", "U", "H", "G", "Cv"]
+QM9_MEAN = np.array([2.706, 75.19, -0.2400, 0.0112, 0.2511, 1189.5, 0.1485, -411.54, -411.53, -411.53, -411.57, 31.60])
+QM9_STD = np.array([1.530, 8.188, 0.0221, 0.0469, 0.0475, 279.8, 0.0333, 40.06, 40.06, 40.06, 40.06, 4.062])
+QM9_N, QM9_BATCH = 10_831, 1024
+QM9_EPOCH_NOISE = [0.3, 0.1, 0.03]  # prediction error per epoch, in target standard deviations
+
+
+def make_qm9(seed: int):
+    """The test molecules' 12 targets (float32) and, per epoch, predictions
+    with the epoch's error, in batches."""
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((QM9_N, 12))
+    z[:, 8:11] = z[:, 7:8] + 0.01 * rng.standard_normal((QM9_N, 3))
+    target = (QM9_MEAN + QM9_STD * z).astype(np.float32)
+    epochs = []
+    for noise in QM9_EPOCH_NOISE:
+        preds = (target + noise * QM9_STD * rng.standard_normal((QM9_N, 12))).astype(np.float32)
+        epochs.append([(preds[i : i + QM9_BATCH], target[i : i + QM9_BATCH]) for i in range(0, QM9_N, QM9_BATCH)])
+    return epochs
+
+
+def qm9_members(device) -> dict:
+    import tpumetrics_torch.regression as reg
+    from tpumetrics_torch.wrappers import ClasswiseWrapper, MultioutputWrapper
+
+    kw, d = {"device": device}, len(QM9_TARGETS)
+    return {
+        "mae_per_target": MultioutputWrapper(reg.MeanAbsoluteError(**kw), d, remove_nans=False),
+        "mse": reg.MeanSquaredError(num_outputs=d, **kw), "log_cosh": reg.LogCoshError(num_outputs=d, **kw),
+        "rse": reg.RelativeSquaredError(num_outputs=d, **kw),
+        "r2": ClasswiseWrapper(reg.R2Score(num_outputs=d, multioutput="raw_values", **kw), labels=QM9_TARGETS),
+        "ev": reg.ExplainedVariance(multioutput="raw_values", **kw),
+        "pearson": reg.PearsonCorrCoef(num_outputs=d, **kw), "spearman": reg.SpearmanCorrCoef(num_outputs=d, **kw),
+        "kendall": reg.KendallRankCorrCoef(num_outputs=d, variant="b", t_test=True, **kw),
+        "cosine": reg.CosineSimilarity(reduction="mean", **kw),
+    }
+
+
+def qm9_multitask(device):
+    import tpumetrics_torch.regression as reg
+    from tpumetrics_torch.wrappers import MultitaskWrapper
+
+    return MultitaskWrapper({"u0": reg.MeanAbsoluteError(device=device),
+                             "all": reg.MeanSquaredError(num_outputs=len(QM9_TARGETS), device=device)})
+
+
+def multitask_batch(p, t):
+    u0 = QM9_TARGETS.index("U0")
+    return {"u0": p[:, u0], "all": p}, {"u0": t[:, u0], "all": t}
+
+
+def multioutput_phase(torch, bc) -> dict:
+    """Molecular property regression at QM9 test size (see the module note):
+    a ``MetricTracker`` over three epochs of shrinking error, then the last
+    epoch through the stream's members and a ``MultitaskWrapper`` on the card
+    and on the CPU, the states against each other, the values against
+    float64 oracles, the host syncs, and the fused phase."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.regression import kendall_rank_corrcoef
+    from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.regression import MeanAbsoluteError, R2Score, RelativeSquaredError
+    from tpumetrics_torch.wrappers import MetricTracker, MultioutputWrapper
+
+    d = len(QM9_TARGETS)
+    label = f"multi-output QM9 test split {QM9_N} molecules x {d} targets"
+    epochs = make_qm9(SEED + 11)
+    dev_epochs = [[tuple(torch.from_numpy(x).cuda() for x in b) for b in e] for e in epochs]
+
+    tracker = MetricTracker(MetricCollection({"r2": R2Score(num_outputs=d, device="cuda"),
+                                              "rse": RelativeSquaredError(num_outputs=d, device="cuda")}, device="cuda"),
+                            maximize=[True, False])
+    for dev_batches in dev_epochs:
+        tracker.increment()
+        for batch in dev_batches:
+            tracker.update(*batch)
+    best, best_step = tracker.best_metric(return_step=True)
+    check(best_step == {"r2": 2, "rse": 2}, f"{label}: tracker's best steps {best_step}, expected the last epoch")
+
+    batches, dev_batches = epochs[-1], dev_epochs[-1]
+
+    def collection(device, fused=False):
+        return MetricCollection(qm9_members(device), fused_update=fused, device=device)
+
+    col, task = collection("cuda"), qm9_multitask("cuda")
+    torch.cuda.synchronize()
+    bc.launches = 0
+    update_ms = []
+    for i, (p, t) in enumerate(dev_batches):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update: no member may read the host
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            col.update(p, t)
+            task.update(*multitask_batch(p, t))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    values = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    task_values = task.compute()
+    groups = sorted(sorted(g) for g in col.compute_groups.values())
+    check(["cosine", "kendall", "spearman"] in groups and len(groups) == 8, f"{label}: compute groups {groups}")
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+    nan_rows = MultioutputWrapper(MeanAbsoluteError(device="cuda"), d)
+    nan_row_syncs = count_host_syncs(torch, lambda: nan_rows.update(*dev_batches[1]))
+
+    cpu, cpu_task = collection("cpu"), qm9_multitask("cpu")
+    for p, t in batches:
+        p, t = torch.from_numpy(p), torch.from_numpy(t)
+        cpu.update(p, t)
+        cpu_task.update(*multitask_batch(p, t))
+    cpu.compute()
+    p_all = np.concatenate([b[0] for b in batches])
+    t_all = np.concatenate([b[1] for b in batches])
+    p64, t64 = p_all.astype(np.float64), t_all.astype(np.float64)
+    dx, dy = p64 - p64.mean(0), t64 - t64.mean(0)
+    scales = {
+        **cancel_scales(p_all, t_all), "ev.sum_target": np.abs(t64).sum(0), "r2.sum_error": np.abs(t64).sum(0),
+        "rse.sum_obs": np.abs(t64).sum(0), "pearson.mean_x": np.abs(p64).mean(0), "pearson.mean_y": np.abs(t64).mean(0),
+        "pearson.corr_xy": np.abs(dx * dy).sum(0),
+    }
+    state_err = check_same_states(label, export_state(col), export_state(cpu), scales)
+    check_same_states(f"{label} multitask", export_state(task), export_state(cpu_task), {})
+
+    o = regression_oracle(p_all, t_all)
+    oracle = {
+        "mae_per_target": o["mae_cols"], "mse": o["mse"], "log_cosh": o["log_cosh"], "rse": o["rss_over_tss"].mean(),
+        "ev": o["ev"], "pearson": o["pearson"], "spearman": o["spearman"], "kendall[0]": o["kendall_tau"],
+        "kendall[1]": o["kendall_p"], "cosine": o["cosine"],
+        **{f"r2score_{name}": 1 - o["rss_over_tss"][i] for i, name in enumerate(QM9_TARGETS)},
+    }
+    tol = {k: (REG_RTOL, 0.0) for k in oracle}
+    tol.update({k: (0.0, CORR_ATOL) for k in ("pearson", "spearman", "kendall[0]", "cosine")})
+    tol["kendall[1]"] = (0.0, PVALUE_ATOL)
+    tol["rse"] = (REG_RTOL, cancel_atol(o, o["rss_over_tss"]).mean())
+    tol["ev"] = (REG_RTOL, cancel_atol(o, o["ev_ratio"]))
+    tol["log_cosh"] = (REG_RTOL, log_cosh_atol(o))
+    for i, name in enumerate(QM9_TARGETS):
+        tol[f"r2score_{name}"] = (REG_RTOL, cancel_atol(o, o["rss_over_tss"])[i])
+    check(set(flat_values(values)) == set(oracle), f"{label}: keys {sorted(flat_values(values))}")
+    worst = check_values(label, flat_values(values), oracle, tol)
+    u0 = QM9_TARGETS.index("U0")
+    check_values(f"{label} multitask", task_values, {"u0": o["mae_cols"][u0], "all": o["mse"]},
+                 {"u0": (REG_RTOL, 0.0), "all": (REG_RTOL, 0.0)})
+
+    # Kendall's compute apart: 12 columns, each 22 chunks of 512 rows against all 10,831 (host clock)
+    all_p, all_t = torch.from_numpy(p_all).cuda(), torch.from_numpy(t_all).cuda()
+    kendall_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kendall_rank_corrcoef(all_p, all_t, t_test=True)
+        torch.cuda.synchronize()
+        kendall_ms.append((time.perf_counter() - t0) * 1e3)
+    steady = update_ms[1:-1]
+    r2 = flat_values(values)
+    print(
+        f"multi-output phase: {label}: {len(batches)} batches of {QM9_BATCH} (the last {len(batches[-1][0])}),"
+        f" {len(qm9_members('cpu'))} members in {len(groups)} compute groups and a MultitaskWrapper (u0 MAE, per-target"
+        f" MSE); tracker over {len(epochs)} epochs of error {QM9_EPOCH_NOISE} std: best {best} at steps {best_step};"
+        f" states equal to the CPU run's (int32 identical, float32 sums worst {state_err:.2e} relative); values"
+        f" against float64 oracles, worst share of the tolerance {max(worst.values()):.3f} ({max(worst, key=worst.get)});"
+        f" R2 U0 {float(r2['r2score_U0']):.6f} homo {float(r2['r2score_homo']):.6f}; Kendall tau-b"
+        f" {[round(float(x), 4) for x in values['kendall'][0].cpu()]}; update 2 free of host syncs (with the"
+        f" MultitaskWrapper); MultioutputWrapper(remove_nans=True) reads the host {nan_row_syncs} times in one update"
+        f" (NaN-row removal by boolean indexing, twice per output); first update {update_ms[0]:.3f} ms, steady median"
+        f" {np.median(steady):.3f} ms; compute() {compute_ms:.3f} ms, of it Kendall's 12 x 22-chunk pass"
+        f" {np.median(kendall_ms):.3f} ms (host clock, median of 3)",
+        flush=True,
+    )
+    profile_step(torch, col, dev_batches[1], label)
+    del col, cpu
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    check(fused["eager_leaders"] == ["cosine", "mae_per_target", "r2"], f"{label}: eager leaders {fused['eager_leaders']}")
+    return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "kendall_ms": float(np.median(kendall_ms)),
+            "nan_row_syncs": nan_row_syncs, "tracker_steps": best_step, "oracle_worst": worst, "fused": fused}
+
+
 def sync_phase(torch, bc, smi: str) -> dict:
     """The ImageNet-size collection synced over NCCL at world size 1 (see the module note)."""
     import tempfile
@@ -1608,6 +2139,7 @@ def profile_step(torch, col, batch, label: str) -> None:
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1647,6 +2179,8 @@ def main() -> None:
         "fairness": fairness_phase(torch, bc),
         "multilabel": task_phase(torch, bc, "multilabel"),
         "segmentation": segmentation_phase(torch, bc),
+        "ratings": ratings_phase(torch, bc),
+        "multioutput": multioutput_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
     clocks = subprocess.run(
@@ -1695,7 +2229,13 @@ def main() -> None:
         "fused_update": fused_report,
         "ece_err": ECE_ERR,
         "fairness_count_ms": {"per_group_count": paths["fairness"]["count_ms"], "histogram": paths["fairness"]["hist_ms"]},
+        "regression": {
+            "ratings": {k: paths["ratings"][k] for k in ("compute_ms", "rank_2m_ms", "host_syncs", "oracle_worst")},
+            "multioutput": {k: paths["multioutput"][k] for k in (
+                "compute_ms", "kendall_ms", "nan_row_syncs", "tracker_steps", "oracle_worst")},
+        },
     }
+    print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

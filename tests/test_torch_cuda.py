@@ -1,8 +1,11 @@
 """The port on a CUDA card: the kernel against its plain version, the
 multiclass, binary and multilabel collections on the card against the same
 streams on the CPU, a collection synced over a real NCCL group of one rank,
-a MaskedBuffer's dump row on the card, and the fused collection update
-(CUDA graphs) against the unfused one.
+a MaskedBuffer's dump row on the card, the fused collection update
+(CUDA graphs) against the unfused one, and the regression domain: Spearman's
+ranks and Kendall's pair count on the card against the CPU, the regression
+leaders captured in a graph, and a ``MultioutputWrapper`` free of host
+syncs.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -701,3 +704,115 @@ def test_new_capturable_members_replay_with_host_syncs_made_errors(cuda):
                     np.testing.assert_allclose(gpu[leader][name], ref, rtol=1e-6, err_msg=f"{kind} {leader}.{name}")
                 else:
                     assert gpu[leader][name].dtype == ref.dtype and np.array_equal(gpu[leader][name], ref), (kind, name)
+
+
+def test_spearman_closed_form_ranks_on_the_card_equal_the_cpu(cuda):
+    """A half-star rating scale over 2,000,026 ratings (tie groups of some
+    200,000 ranks) and a column without ties: the card's average ranks equal
+    the CPU's bit for bit (both exact), and the correlation the CPU's within 1e-5."""
+    from tpumetrics_torch.functional.regression import spearman_corrcoef
+    from tpumetrics_torch.functional.regression.spearman import _rank_data
+
+    rng = np.random.default_rng(17)
+    target = (rng.integers(1, 11, 2_000_026) / 2).astype(np.float32)
+    preds = np.clip(target + rng.normal(size=target.size), 0.5, 5.0).astype(np.float32)
+    for x in (target, preds):
+        got = _rank_data(torch.from_numpy(x).to(cuda)).cpu()
+        assert torch.equal(got, _rank_data(torch.from_numpy(x)))
+    rho = spearman_corrcoef(torch.from_numpy(preds).to(cuda), torch.from_numpy(target).to(cuda)).cpu()
+    np.testing.assert_allclose(rho.numpy(), spearman_corrcoef(torch.from_numpy(preds), torch.from_numpy(target)).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+def test_kendall_pair_count_on_the_card_equals_the_cpu(cuda):
+    """10,831 rows (a QM9 test split), two columns: the concordant-minus-
+    discordant count, whose running float32 total passes 2^24, and the tie
+    statistics equal the CPU's bit for bit; tau-b and its p-value too."""
+    from tpumetrics_torch.functional.regression import kendall
+
+    rng = np.random.default_rng(18)
+    target = rng.normal(size=(10_831, 2)).astype(np.float32)
+    target[:, 1] = np.round(target[:, 1] * 4) / 4  # ties
+    preds = (target + 0.1 * rng.normal(size=target.shape)).astype(np.float32)
+    for i in range(2):
+        x, y = torch.from_numpy(preds[:, i].copy()), torch.from_numpy(target[:, i].copy())
+        got = kendall._pair_stats(x.to(cuda), y.to(cuda)).cpu()
+        assert float(got) > 2**24 and torch.equal(got, kendall._pair_stats(x, y))
+        for g, c in zip(kendall._tie_stats(y.to(cuda)), kendall._tie_stats(y)):
+            assert torch.equal(g.cpu(), c)
+    tau, p = kendall.kendall_rank_corrcoef(torch.from_numpy(preds).to(cuda), torch.from_numpy(target).to(cuda), t_test=True)
+    cpu_tau, cpu_p = kendall.kendall_rank_corrcoef(torch.from_numpy(preds), torch.from_numpy(target), t_test=True)
+    assert torch.equal(tau.cpu(), cpu_tau)
+    np.testing.assert_allclose(p.cpu().numpy(), cpu_p.numpy(), rtol=0, atol=1e-6)
+
+
+def test_regression_leaders_captured_in_a_graph_equal_the_unfused_ones(cuda):
+    """The sum-state regression metrics and Pearson (with concordance in its
+    group) replay in a CUDA graph: states bit for bit the unfused
+    collection's after every update, the replays raising nothing with host
+    syncs made errors (Tweedie's domain checks run only eagerly), Spearman an
+    eager leader beside the graph."""
+    import tpumetrics_torch.regression as reg
+
+    def members(d):
+        return {
+            "mse": reg.MeanSquaredError(device=d), "rmse": reg.MeanSquaredError(squared=False, device=d),
+            "mae": reg.MeanAbsoluteError(device=d), "mape": reg.MeanAbsolutePercentageError(device=d),
+            "smape": reg.SymmetricMeanAbsolutePercentageError(device=d),
+            "wmape": reg.WeightedMeanAbsolutePercentageError(device=d), "msle": reg.MeanSquaredLogError(device=d),
+            "log_cosh": reg.LogCoshError(device=d), "minkowski": reg.MinkowskiDistance(p=3, device=d),
+            "tweedie": reg.TweedieDevianceScore(power=1.5, device=d), "r2": reg.R2Score(device=d),
+            "ev": reg.ExplainedVariance(device=d), "rse": reg.RelativeSquaredError(device=d),
+            "pearson": reg.PearsonCorrCoef(device=d), "ccc": reg.ConcordanceCorrCoef(device=d),
+            "spearman": reg.SpearmanCorrCoef(device=d),
+        }
+
+    rng = np.random.default_rng(19)
+    cols = {f: MetricCollection(members(cuda), fused_update=f, device=cuda) for f in (False, True)}
+    for i in range(6):
+        target = (rng.integers(1, 11, 4096) / 2).astype(np.float32)
+        preds = np.clip(target + rng.normal(size=4096), 0.5, 5.0).astype(np.float32)
+        args = [torch.from_numpy(x).to(cuda) for x in (preds, target)]
+        cols[False].update(*args)
+        if i >= 3:  # replays: the eager Spearman appends without a host read too
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            cols[True].update(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        fused, plain = export_state(cols[True]), export_state(cols[False])
+        for leader, states in plain.items():
+            for name, ref in states.items():
+                got = fused[leader][name]
+                if isinstance(ref, list):
+                    assert len(got) == len(ref) and all(np.array_equal(g, r) for g, r in zip(got, ref))
+                else:
+                    assert got.dtype == ref.dtype and np.array_equal(got, ref), (leader, name)
+    step = cols[True]._fused_oo_step
+    assert step.counts["replayed"] >= 3 and "spearman" not in step.leaders and len(step.leaders) == 13
+    for k, v in cols[False].compute().items():
+        assert torch.equal(cols[True].compute()[k], v), k
+
+
+def test_multioutput_without_nan_removal_syncs_nothing(cuda):
+    """``MultioutputWrapper(remove_nans=False)``: an update of 12 per-target
+    MAEs raises nothing with host syncs made errors; with ``remove_nans=True``
+    (the JAX package's default) the NaN-row removal reads the host."""
+    import tpumetrics_torch.regression as reg
+    from tpumetrics_torch.wrappers import MultioutputWrapper
+
+    rng = np.random.default_rng(20)
+    preds, target = (torch.from_numpy(rng.normal(size=(1024, 12)).astype(np.float32)).to(cuda) for _ in range(2))
+    clean = MultioutputWrapper(reg.MeanAbsoluteError(device=cuda), 12, remove_nans=False)
+    nan_rows = MultioutputWrapper(reg.MeanAbsoluteError(device=cuda), 12)
+    clean.update(preds, target)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        clean.update(preds, target)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            nan_rows.update(preds, target)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = (preds - target).abs().mean(0).cpu()
+    np.testing.assert_allclose(clean.compute().cpu().numpy(), want.numpy(), rtol=1e-6)

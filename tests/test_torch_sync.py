@@ -7,7 +7,9 @@ Two parts:
   every scenario of ``tests/torch_sync_worker.py``: the main-path
   collection, exact binary AUROC over list states with one rank empty,
   MaskedBuffer states, a ragged list, every aggregator under every
-  nan_strategy, and the backend's own edge cases. The children import
+  nan_strategy, a regression collection (Pearson's rank-stacked moments,
+  ``MinMaxMetric``, Spearman, MSE) with a MinMax's extrema merged by
+  "min"/"max", and the backend's own edge cases. The children import
   neither JAX nor the JAX package, rendezvous through a ``file://`` store
   under ``tmp_path``, and are joined within 120 s. Their synced
   ``compute()`` is held against the JAX package on the whole data, in this
@@ -60,6 +62,7 @@ from tpumetrics_torch.utils.exceptions import TPUMetricsUserError
 
 ATOL = 1e-6
 RTOL = 1e-6
+CORR_TOL = 1e-5  # Pearson and Spearman: float32 moments merged in another order than one pass
 WORLDS = (2, 3)
 JOIN_TIMEOUT_S = 120
 
@@ -285,6 +288,66 @@ def test_gloo_running_metrics_in_a_collection_sync_the_union_of_last_windows(glo
         assert sorted(got["values"]) == sorted(ref)
         for key, val in ref.items():
             np.testing.assert_allclose(got["values"][key], val, rtol=RTOL, atol=ATOL, err_msg=key)
+
+
+def _jax_regression_members():
+    import tpumetrics.regression as jax_reg
+    from tpumetrics.wrappers import MinMaxMetric as JaxMinMax
+
+    return {
+        "pearson": jax_reg.PearsonCorrCoef(),
+        "minmax": JaxMinMax(jax_reg.MeanAbsoluteError()),
+        "spearman": jax_reg.SpearmanCorrCoef(),
+        "mse": jax_reg.MeanSquaredError(),
+    }
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("path", ["values", "functional"])
+def test_gloo_regression_collection_matches_jax_on_the_whole_data(gloo, world, path):
+    """Pearson's rank-stacked moments merged rank by rank, MinMax's wrapped
+    MAE, Spearman's gathered lists and MSE's sums, synced over gloo (one rank
+    empty at world 3): every value that of the JAX collection on the whole
+    data (MSE and MAE within RTOL, the correlations within CORR_TOL)."""
+    ref = tpumetrics.MetricCollection(_jax_regression_members())
+    for p, t in w.regression_batches():
+        ref.update(jnp.asarray(p), jnp.asarray(t))
+    want = {k: np.asarray(v) for k, v in ref.compute().items()}
+    for res in gloo[world]:
+        got = res["regression_collection"][path]
+        assert sorted(got) == sorted(want) == ["max", "min", "mse", "pearson", "raw", "spearman"]
+        for k in want:
+            tol = CORR_TOL if k in ("pearson", "spearman") else RTOL
+            np.testing.assert_allclose(got[k], want[k], rtol=tol, atol=ATOL, err_msg=k)
+        assert sorted(map(sorted, res["regression_collection"]["groups"])) == [["minmax"], ["mse"], ["pearson"], ["spearman"]]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_gloo_minmax_extrema_merge_with_min_and_max_as_jax(gloo, world):
+    """Each rank's extrema, observed on its own batches, merge to the least
+    minimum and the largest maximum over the ranks (an empty rank's +-inf
+    drop out); the wrapped MSE syncs to the whole data's."""
+    from tpumetrics.regression import MeanSquaredError as JaxMSE
+    from tpumetrics.wrappers import MinMaxMetric as JaxMinMax
+
+    batches = w.regression_batches()
+    lows, highs = [], []
+    for sl in w.shards(len(batches), world):
+        m = JaxMinMax(JaxMSE())
+        state = m.init_state()
+        for p, t in batches[sl]:
+            state, _ = m.functional_forward(state, jnp.asarray(p), jnp.asarray(t))
+        lows.append(float(state["min_val"]))
+        highs.append(float(state["max_val"]))
+    whole = JaxMSE()
+    for p, t in batches:
+        whole.update(jnp.asarray(p), jnp.asarray(t))
+    for res in gloo[world]:
+        synced = res["regression_collection"]["minmax_synced"]
+        np.testing.assert_allclose(synced["min_val"], min(lows), rtol=RTOL)
+        np.testing.assert_allclose(synced["max_val"], max(highs), rtol=RTOL)
+        np.testing.assert_allclose(res["regression_collection"]["minmax_value"]["raw"], np.asarray(whole.compute()),
+                                   rtol=RTOL)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -22,6 +22,7 @@ import torch.distributed as dist
 C, T = 16, 64  # BASELINE config #2's classes and thresholds
 N_BATCHES, BATCH = 6, 1024  # config #2: B=1024
 AGG_BATCHES, AGG_SIZE = 6, 5
+REG_BATCHES, REG_SIZE = 6, 256
 WINDOW = 2
 NAN_STRATEGIES = ("warn", "ignore", 10.0, "disable")
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
@@ -65,6 +66,17 @@ def aggregator_batches(seed: int = 7) -> List[tuple]:
         if i in (1, 4):
             x[i % AGG_SIZE] = np.nan
         out.append((x, w))
+    return out
+
+
+def regression_batches(seed: int = 17) -> List[tuple]:
+    """REG_BATCHES batches of (preds, target), float32, targets on a grid of
+    halves (ties for Spearman), preds the target plus noise."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(REG_BATCHES):
+        target = (np.round(rng.normal(size=REG_SIZE) * 2) / 2).astype(np.float32)
+        out.append(((target + 0.5 * rng.normal(size=REG_SIZE)).astype(np.float32), target))
     return out
 
 
@@ -373,6 +385,53 @@ def scenario_running_collection(rank: int, world: int) -> Dict[str, Any]:
     return {"values": _np(values), "groups": [list(g) for g in col.compute_groups.values()]}
 
 
+def scenario_regression_collection(rank: int, world: int) -> Dict[str, Any]:
+    """Pearson (rank-stacked moments), MinMaxMetric over MAE, Spearman (cat)
+    and MSE in one collection, synced in compute() and through the
+    functional path; and a MinMaxMetric whose extrema this rank observed on
+    its own batches (``functional_forward``), merged across ranks with
+    "min"/"max" through its ``_sync_state_collect``."""
+    import warnings
+
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch import regression as reg
+    from tpumetrics_torch.parallel import TorchDistBackend
+    from tpumetrics_torch.wrappers import MinMaxMetric
+
+    mine = regression_batches()[shards(REG_BATCHES, world)[rank]]
+
+    def members():
+        return {
+            "pearson": reg.PearsonCorrCoef(device="cpu"),
+            "minmax": MinMaxMetric(reg.MeanAbsoluteError(device="cpu")),
+            "spearman": reg.SpearmanCorrCoef(device="cpu"),
+            "mse": reg.MeanSquaredError(device="cpu"),
+        }
+
+    col = MetricCollection(members(), device="cpu")
+    fcol = MetricCollection(members(), compute_groups=[["pearson"], ["minmax"], ["spearman"], ["mse"]], device="cpu")
+    state = fcol.init_state()
+    minmax = MinMaxMetric(reg.MeanSquaredError(device="cpu"))
+    mm_state = minmax.init_state()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a rank without data warns at compute
+        for p, t in mine:
+            p, t = torch.from_numpy(p), torch.from_numpy(t)
+            col.update(p, t)
+            state = fcol.functional_update(state, p, t)
+            mm_state, _ = minmax.functional_forward(mm_state, p, t)
+        values = col.compute()
+        functional = fcol.functional_compute(state, backend=TorchDistBackend())
+        mm_synced = minmax.sync_state(mm_state, TorchDistBackend())
+    return {
+        "values": _np(values),
+        "functional": _np(functional),
+        "minmax_synced": _np(mm_synced),
+        "minmax_value": _np(minmax.functional_compute(mm_synced)),
+        "groups": [list(g) for g in col.compute_groups.values()],
+    }
+
+
 def scenario_backend(rank: int, world: int) -> Dict[str, Any]:
     """The backend's own edge cases: gathers of ranks that differ in ndim,
     dtype and size, an int "mean", and a state the group cannot carry."""
@@ -410,6 +469,7 @@ SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "aggregators": scenario_aggregators,
     "aggregator_collection": scenario_aggregator_collection,
     "running_collection": scenario_running_collection,
+    "regression_collection": scenario_regression_collection,
     "backend": scenario_backend,
 }
 

@@ -9,7 +9,11 @@ precision-recall curve, ROC, AUROC, average precision, recall, precision or
 specificity at a fixed point of the curve, hinge loss, calibration error,
 the multilabel ranking metrics, group fairness and Dice (binary, multiclass
 and multilabel, binned or exact curves, and the task-string wrappers such
-as ``Accuracy(task=...)``), the
+as ``Accuracy(task=...)``), the regression domain (``regression``: errors,
+R2, explained variance, Pearson, concordance, Spearman, Kendall, cosine
+similarity, KL divergence, Tweedie deviance), the wrappers (``wrappers``:
+``MinMaxMetric``, ``MultioutputWrapper``, ``ClasswiseWrapper``,
+``MultitaskWrapper``, ``BootStrapper``, ``MetricTracker``, ``Running``), the
 aggregation metrics (``SumMetric``, ``MeanMetric``, ...), metric arithmetic
 (``CompositionalMetric``), the ``MetricCollection``, cross-rank sync over
 ``torch.distributed`` (``parallel``), fixed-capacity list states
@@ -31,17 +35,34 @@ from tpumetrics_torch.classification import *  # noqa: F401,F403
 from tpumetrics_torch.classification import __all__ as _classification_all
 from tpumetrics_torch.collections import MetricCollection
 from tpumetrics_torch.metric import CompositionalMetric, Metric
+from tpumetrics_torch.regression import *  # noqa: F401,F403
+from tpumetrics_torch.regression import __all__ as _regression_all
+from tpumetrics_torch.wrappers import (
+    BootStrapper,
+    ClasswiseWrapper,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
+    MultitaskWrapper,
+)
 
 __all__ = [
+    "BootStrapper",
     "CatMetric",
+    "ClasswiseWrapper",
     "CompositionalMetric",
     "MaxMetric",
     "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultioutputWrapper",
+    "MultitaskWrapper",
     "RunningMean",
     "RunningSum",
     "SumMetric",
     *_classification_all,
+    *_regression_all,
 ]

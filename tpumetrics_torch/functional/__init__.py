@@ -1,5 +1,6 @@
 """Functional metrics of the port (counterpart of ``tpumetrics/functional``):
-the classification functions and their task-string dispatchers."""
+the classification functions and their task-string dispatchers, and the
+regression functions."""
 
 from tpumetrics_torch.functional.classification import *  # noqa: F401,F403
 from tpumetrics_torch.functional.classification import __all__ as _classification_all
@@ -21,6 +22,8 @@ from tpumetrics_torch.functional.classification.precision_recall_curve import pr
 from tpumetrics_torch.functional.classification.roc import roc
 from tpumetrics_torch.functional.classification.specificity import specificity
 from tpumetrics_torch.functional.classification.stat_scores import stat_scores
+from tpumetrics_torch.functional.regression import *  # noqa: F401,F403
+from tpumetrics_torch.functional.regression import __all__ as _regression_all
 
 __all__ = [
     *_classification_all,
@@ -44,4 +47,5 @@ __all__ = [
     "roc",
     "specificity",
     "stat_scores",
+    *_regression_all,
 ]

@@ -1,0 +1,31 @@
+"""Shared regression helpers (port of ``tpumetrics/functional/regression/utils.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from tpumetrics_torch.utils.checks import _check_same_shape  # noqa: F401  (re-export)
+
+Tensor = torch.Tensor
+
+
+def _check_data_shape_to_num_outputs(
+    preds: Tensor, target: Tensor, num_outputs: int, allow_1d_reshape: bool = False
+) -> None:
+    """Check the inputs' shape against the declared ``num_outputs``: 1-D for
+    one output (unless ``allow_1d_reshape``), ``(N, num_outputs)`` for more."""
+    if preds.ndim > 2:
+        raise ValueError(
+            f"Expected both predictions and target to be either 1- or 2-dimensional tensors,"
+            f" but got {target.ndim} and {preds.ndim}."
+        )
+    cond1 = False
+    if not allow_1d_reshape:
+        cond1 = num_outputs == 1 and preds.ndim != 1
+    cond2 = num_outputs > 1 and (preds.ndim == 1 or num_outputs != preds.shape[1])
+    if cond1 or cond2:
+        raise ValueError(
+            f"Expected argument `num_outputs` to match the second dimension of input, but got {num_outputs}"
+            f" and {tuple(preds.shape)}"
+        )
+

@@ -13,6 +13,12 @@ state into a port metric or collection on its device; ``export_state``
 takes it out. Dtypes are kept (int32 counts, float32 values). This module
 imports nothing of JAX: the JAX side converts with ``np.asarray`` /
 ``jnp.asarray``.
+
+The wrappers with a functional bridge carry the state of that bridge:
+``MinMaxMetric`` a dict ``{"base", "min_val", "max_val"}``,
+``MultioutputWrapper`` a list with one state per output,
+``ClasswiseWrapper`` the wrapped metric's state, and ``MultitaskWrapper`` a
+dict with one state per task (a collection task's keyed by its leaders).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from tpumetrics_torch.buffers import MaskedBuffer
 from tpumetrics_torch.collections import MetricCollection
 from tpumetrics_torch.metric import Metric
+from tpumetrics_torch.wrappers import ClasswiseWrapper, MinMaxMetric, MultioutputWrapper, MultitaskWrapper
 
 
 def _is_buffer(value: Any) -> bool:
@@ -55,13 +62,32 @@ def _load_metric(metric: Metric, state: Dict[str, Any]) -> None:
     metric._computed = None
 
 
-def load_state(target: Union[Metric, MetricCollection], state: Dict[str, Any]) -> None:
+def load_state(target: Union[Metric, MetricCollection], state: Any) -> None:
     """Put ``state`` (numpy leaves, keyed like ``init_state()``) into ``target``.
 
     A collection's state is keyed by compute-group leader, so ``target`` must
     have the same groups: set them with ``compute_groups=[[...], ...]`` or
     establish them with one ``update`` first.
     """
+    if isinstance(target, MinMaxMetric):
+        load_state(target._base_metric, state["base"])
+        _load_metric(target, {"min_val": state["min_val"], "max_val": state["max_val"]})
+        return
+    if isinstance(target, MultioutputWrapper):
+        if len(state) != len(target.metrics):
+            raise ValueError(f"MultioutputWrapper has {len(target.metrics)} outputs, got {len(state)} states")
+        for metric, sub in zip(target.metrics, state):
+            load_state(metric, sub)
+        return
+    if isinstance(target, ClasswiseWrapper):
+        load_state(target.metric, state)
+        return
+    if isinstance(target, MultitaskWrapper):
+        if set(state) != set(target.task_metrics):
+            raise ValueError(f"MultitaskWrapper has tasks {sorted(target.task_metrics)}, got {sorted(state)}")
+        for name, metric in target.task_metrics.items():
+            load_state(metric, state[name])
+        return
     if isinstance(target, Metric):
         _load_metric(target, state)
         return
@@ -72,12 +98,26 @@ def load_state(target: Union[Metric, MetricCollection], state: Dict[str, Any]) -
             f"{'' if target._groups_checked else ' (groups not established yet)'}: pass compute_groups=... to match"
         )
     for name in leaders:
-        _load_metric(target._modules[name], state[name])
+        load_state(target._modules[name], state[name])
     target._state_is_copy = False  # members pick the leaders' states up on next access
 
 
-def export_state(source: Union[Metric, MetricCollection]) -> Dict[str, Any]:
+def export_state(source: Union[Metric, MetricCollection]) -> Any:
     """``source``'s state as numpy arrays, keyed like ``init_state()``."""
+    if isinstance(source, MinMaxMetric):
+        own = _export_plain(source)
+        return {"base": export_state(source._base_metric), **own}
+    if isinstance(source, MultioutputWrapper):
+        return [export_state(m) for m in source.metrics]
+    if isinstance(source, ClasswiseWrapper):
+        return export_state(source.metric)
+    if isinstance(source, MultitaskWrapper):
+        return {name: export_state(m) for name, m in source.task_metrics.items()}
+    return _export_plain(source)
+
+
+def _export_plain(source: Union[Metric, MetricCollection]) -> Dict[str, Any]:
+    """A metric's registered states, or a collection's leaders' states."""
 
     def _host(val: Any) -> Any:
         if isinstance(val, MaskedBuffer):

@@ -817,6 +817,44 @@ class Metric(ABC):
         self._computed = None
         return self
 
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Convert the floating-point states, their defaults and a cached
+        ``compute`` value to ``dst_type``; integer and boolean states keep
+        their dtypes. Later floating defaults of ``add_state`` take it too."""
+        self._dtype = dst_type
+
+        def _convert(val: Any) -> Any:
+            if isinstance(val, Tensor):
+                return val.to(dst_type) if val.is_floating_point() else val
+            if isinstance(val, dict):
+                return {k: _convert(v) for k, v in val.items()}
+            if isinstance(val, list) or (isinstance(val, tuple) and not hasattr(val, "_fields")):
+                return type(val)(_convert(v) for v in val)
+            return val
+
+        for attr in self._defaults:
+            val = getattr(self, attr)
+            if isinstance(val, list):
+                object.__setattr__(self, attr, [_convert(v) for v in val])
+            else:
+                object.__setattr__(self, attr, _convert(val))
+        self._defaults = {k: ([] if isinstance(v, list) else _convert(v)) for k, v in self._defaults.items()}
+        self._computed = _convert(self._computed)
+        return self
+
+    def float(self) -> "Metric":
+        """Floating-point states in float32."""
+        return self.set_dtype(torch.float32)
+
+    def double(self) -> "Metric":
+        """Floating-point states in float64."""
+        return self.set_dtype(torch.float64)
+
+    def half(self) -> "Metric":
+        """Floating-point states in bfloat16, as the JAX package's ``half()``
+        (not float16, torch's usual meaning of half)."""
+        return self.set_dtype(torch.bfloat16)
+
     # --------------------------------------------------------------- plumbing
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:

@@ -26,7 +26,10 @@ How a call runs:
 - The first sighting of a key runs the transition eagerly on the buffers.
   That is the warm-up: it builds the kernel library and fills the kernel's
   per-device cache, so the capture launches nothing but device work, and a
-  ragged last batch, seen once, pays no capture.
+  ragged last batch, seen once, pays no capture. A state whose shape the
+  warm-up changes (a scalar default that a 2-D batch broadcasts to one
+  entry per output, as ``ExplainedVariance``'s after a ``reset``) gets a new
+  buffer there; a captured transition keeps every shape.
 - The second sighting captures the transition into a graph whose own input
   buffers the batch is copied into, and whose last operations copy the new
   state into the step's buffers; the graph then replays once to perform the
@@ -317,17 +320,27 @@ class FusedCollectionStep:
             out[name] = m0.functional_update(state[name], *args, **m0._filter_kwargs(**kwargs))
         return out
 
-    def _write_back(self, new_state: Dict[str, Any]) -> None:
-        """Copy the transition's new state into the step's buffers."""
+    def _write_back(self, new_state: Dict[str, Any], resize: bool = False) -> bool:
+        """Copy the transition's new state into the step's buffers. With
+        ``resize`` (an eager transition), a state whose shape the update
+        changed gets a new buffer, as a scalar default broadcast to one entry
+        per output by its first update does; returns whether one did. A
+        captured transition keeps every state's shape, and no transition
+        changes a dtype."""
+        resized = False
         for path, val in _leaves(new_state):
             buf = self._buffers[path]
             if val.shape != buf.shape or val.dtype != buf.dtype:
-                raise TPUMetricsUserError(
-                    f"State {'/'.join(path)} went from {tuple(buf.shape)} {buf.dtype} to {tuple(val.shape)}"
-                    f" {val.dtype} in one update: a fused step keeps every state at a fixed shape and dtype."
-                )
-            if val is not buf:
+                if not resize or val.dtype != buf.dtype:
+                    raise TPUMetricsUserError(
+                        f"State {'/'.join(path)} went from {tuple(buf.shape)} {buf.dtype} to {tuple(val.shape)}"
+                        f" {val.dtype} in one update: a fused step keeps every state at a fixed shape and dtype."
+                    )
+                self._buffers[path] = val.detach().clone(memory_format=torch.contiguous_format)
+                resized = True
+            elif val is not buf:
                 buf.copy_(val)
+        return resized
 
     def _key(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Hashable:
         """The program key: the per-call kwargs and each positional tensor's
@@ -374,7 +387,12 @@ class FusedCollectionStep:
             self._replay(program, args, state)
             self.counts["replayed"] += 1
         elif key not in self._seen:
-            self._write_back(self._transition(state, args, merged))  # the warm-up
+            if self._write_back(self._transition(state, args, merged), resize=True):  # the warm-up
+                # a state changed its shape: every graph read the old buffers
+                self._programs.clear()
+                self._seen.clear()
+                own = {path: self._buffers[path] for path in own}
+                state = _rebuild(state, own)
             self._seen.add(key)
             self.counts["eager"] += 1
         else:

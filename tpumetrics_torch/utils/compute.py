@@ -18,6 +18,11 @@ def _as_float(x: Tensor) -> Tensor:
     return x if x.is_floating_point() else x.to(torch.float32)
 
 
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)`` with ``0 * log(0) := 0``."""
+    return torch.where(x == 0.0, 0.0, x * torch.log(torch.where(x == 0.0, 1.0, y)))
+
+
 def _safe_divide(num: Tensor, denom: Tensor, zero_division: float = 0.0) -> Tensor:
     """Division with 0/0 := zero_division; integer operands divide in float32."""
     num = _as_float(num)
