@@ -84,6 +84,29 @@ Phases, each of which passes or exits non-zero:
      Pearson, Spearman, Kendall's tau-b with its p-value, cosine similarity,
      and a ``MultitaskWrapper`` beside them; Kendall's 12 x 22-chunk pass
      timed apart, and the host syncs of ``remove_nans=True`` printed;
+5d. clustering phase, at ImageNet-1k val size as deep-clustering work
+   evaluates it (50,000 images of 1000 classes, 1000 predicted clusters,
+   2048-wide float32 embeddings made from the seed, batches of 4,096 and a
+   ragged 848): mutual information, NMI, AMI, Rand, adjusted Rand,
+   Fowlkes-Mallows, homogeneity, completeness and V-measure on (preds,
+   target), Calinski-Harabasz, Davies-Bouldin and Dunn on (embeddings,
+   preds), all on list states, and a capacity copy of MI, AMI, V-measure,
+   adjusted Rand and Calinski-Harabasz whose live states are MaskedBuffers of
+   the stream's rows; on the card and the CPU (labels, data and buffers
+   identical), the values against float64 numpy/scipy oracles (1e-5
+   relative, AMI 1e-5 absolute) and computed twice with identical results,
+   one steady update with host syncs made errors, the compute time and the
+   device time of its main parts (the contingency table, the expected-MI
+   grid, the centroid sums and the centroid distances);
+5e. nominal phase: UCI Adult (48,842 rows; 9 categorical columns of its
+   cardinalities and missing shares, made from the seed) through Cramer's V,
+   Tschuprow's T, Pearson's contingency coefficient and Theil's U of
+   (occupation, education) and the four ``*_matrix`` functions over all
+   nine columns (their host reads per column pair counted), and Fleiss
+   kappa of CIFAR-10H's geometry (10,000 images, 10 classes, 50 raters) in
+   ``counts`` and ``probs`` modes; on the card and the CPU (tables and count
+   lists identical), against float64 oracles with float32 error bounds,
+   one steady update with host syncs made errors;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -94,7 +117,7 @@ Phases, each of which passes or exits non-zero:
    leaders' states, two gathers per list state) counted by a wrapper around
    the backend and in ``torch.profiler``, the binned update free of host
    syncs, and the sync's host-clock time per ``compute()``;
-7. fused phase, at the end of each of the nine streams above: the stream's
+7. fused phase, at the end of each of the streams above: the stream's
    collection twice, ``fused_update=False`` and ``True`` (CUDA graphs), fed
    update by update in turns: states bit for bit and ``compute()`` values
    equal after every update, the updates of each mode counted (a key's
@@ -689,7 +712,8 @@ def check_same_states(label: str, got, want, scales: dict = None, path: str = ""
     (a dict, or a list of per-output states): int32 tensor states and float32
     count states (Dice's) bit for bit, list states (the exact curve's preds
     and targets, the calibration error's confidences and accuracies, the
-    regression metrics' appended inputs) entry by entry, and float32 sums of
+    regression metrics' appended inputs, the clustering labels and data)
+    entry by entry, MaskedBuffer states field by field, and float32 sums of
     floats (hinge, ranking, regression) within 1e-6 relative, with a floor of
     1e-6 times the sum of the absolute terms (``scales[path]``, see
     ``cancel_scales``) for a sum whose terms cancel. Returns the worst
@@ -698,6 +722,11 @@ def check_same_states(label: str, got, want, scales: dict = None, path: str = ""
     if isinstance(want, dict):
         check(isinstance(got, dict) and got.keys() == want.keys(), f"{label}: {path} keys {sorted(got)} vs {sorted(want)}")
         return max([check_same_states(label, got[k], v, scales, f"{path}.{k}" if path else k) for k, v in want.items()] or [0.0])
+    if isinstance(want, tuple):  # a MaskedBuffer state: values, count and requested, exact
+        check(isinstance(got, tuple) and len(got) == len(want), f"{label}: {path} is not a buffer on the card")
+        same = all(g.dtype == w.dtype and np.array_equal(g, w, equal_nan=True) for g, w in zip(got, want))
+        check(same, f"{label}: buffer state {path} differs card vs CPU")
+        return 0.0
     if isinstance(want, list):
         check(isinstance(got, list) and len(got) == len(want), f"{label}: {path} has {len(got)} entries, not {len(want)}")
         if all(isinstance(w, np.ndarray) for w in want):  # a list state
@@ -736,15 +765,16 @@ def check_same_values(torch, label: str, values: dict, cpu_values: dict) -> None
 
 def check_identical_states(label: str, got, want, path: str = "") -> None:
     """Two collections' exported states bit for bit: every tensor state of
-    one dtype and equal, list states entry by entry, and a wrapper's nested
-    state (a dict or a list of its children's) all the way down."""
+    one dtype and equal, list states entry by entry, MaskedBuffer states
+    field by field, and a wrapper's nested state (a dict or a list of its
+    children's) all the way down."""
     if isinstance(want, dict):
         check(isinstance(got, dict) and got.keys() == want.keys(), f"{label}: {path or 'leaders'} {sorted(got)} vs {sorted(want)}")
         for key, ref in want.items():
             check_identical_states(label, got[key], ref, f"{path}.{key}" if path else key)
         return
-    if isinstance(want, list):
-        check(isinstance(got, list) and len(got) == len(want), f"{label}: {path} has {len(got)} entries, not {len(want)}")
+    if isinstance(want, (list, tuple)):  # a list state, a wrapper's per-output states, or a MaskedBuffer's fields
+        check(isinstance(got, type(want)) and len(got) == len(want), f"{label}: {path} has {len(got)} entries, not {len(want)}")
         for i, (val, ref) in enumerate(zip(got, want)):
             check_identical_states(label, val, ref, f"{path}[{i}]")
         return
@@ -1847,6 +1877,539 @@ def multioutput_phase(torch, bc) -> dict:
             "nan_row_syncs": nan_row_syncs, "tracker_steps": best_step, "oracle_worst": worst, "fused": fused}
 
 
+# ImageNet-1k val (50,000 images, 50 per class) at the size deep-clustering work evaluates on (SCAN, Van
+# Gansbeke et al., ECCV 2020, Table 5: 1000 clusters, NMI/AMI/ARI over 2048-wide ResNet-50 pooled features).
+CLUSTER_N, CLUSTER_K, CLUSTER_D, CLUSTER_BATCH = 50_000, 1000, 2048, 4096
+CLUSTER_REASSIGNED = 0.45  # share of points given a random cluster: NMI about 0.70, ARI about 0.30 (SCAN: 0.72, 0.28)
+CLUSTER_RTOL = 1e-5  # MI and Rand families and the intrinsic metrics against float64 oracles (float32 sums)
+CLUSTER_AMI_ATOL = 1e-5  # AMI: MI's float32 error over the normalizer less E[MI]
+EMI_BUDGET = 1 << 23  # the port's n_ij chunking of the expected-MI grid, which the oracle follows
+CLUSTER_GROUPS = [  # the list members share their states, the capacity copies theirs
+    ["ami", "ari", "completeness", "fmi", "homogeneity", "mi", "nmi", "rand", "v_measure"],
+    ["cap_ami", "cap_ari", "cap_mi", "cap_v_measure"], ["cap_ch"], ["ch", "db", "dunn"],
+]
+
+
+def make_clustering(seed: int):
+    """Targets (50 per class, shuffled), predicted clusters (the targets
+    under a random relabelling, ``CLUSTER_REASSIGNED`` of them moved to a
+    random cluster) and float32 embeddings (a Gaussian mean per class plus
+    unit noise), in batches of ``CLUSTER_BATCH``."""
+    rng = np.random.default_rng(seed)
+    target = rng.permutation(np.repeat(np.arange(CLUSTER_K), CLUSTER_N // CLUSTER_K))
+    preds = rng.permutation(CLUSTER_K)[target]
+    moved = rng.random(CLUSTER_N) < CLUSTER_REASSIGNED
+    preds[moved] = rng.integers(0, CLUSTER_K, int(moved.sum()))
+    emb = rng.standard_normal((CLUSTER_N, CLUSTER_D), dtype=np.float32)
+    emb += rng.standard_normal((CLUSTER_K, CLUSTER_D), dtype=np.float32)[target]
+    return preds, target, emb
+
+
+def emi_oracle(a: np.ndarray, b: np.ndarray, n: float) -> float:
+    """Expected mutual information of two clusterings with marginals ``a``
+    and ``b``, in float64 (scipy's ``gammaln``), over the n_ij grid in the
+    port's chunks; each distinct (a_i, b_j) pair is evaluated once and
+    weighted by how often it occurs, the same sum in other order."""
+    from scipy.special import gammaln
+
+    av, ac = np.unique(a[a > 0], return_counts=True)
+    bv, bc_ = np.unique(b[b > 0], return_counts=True)
+    m = int(max(a.max(), b.max())) + 1
+    chunk = max(1, min(m, EMI_BUDGET // (a.size * b.size)))
+    A, B = av[:, None, None], bv[None, :, None]
+    weight = (ac[:, None] * bc_[None, :]).astype(np.float64)[:, :, None]
+    total = 0.0
+    for lo in range(0, m, chunk):
+        nij = np.arange(lo, min(lo + chunk, m), dtype=np.float64)[None, None, :]
+        mask = (nij >= np.maximum(1.0, A + B - n)) & (nij < np.minimum(A, B) + 1)
+        s = np.where(mask, nij, 1.0)
+        gln = (gammaln(A + 1) + gammaln(B + 1) + gammaln(n - A + 1) + gammaln(n - B + 1) - gammaln(s + 1)
+               - gammaln(n + 1) - gammaln(np.where(mask, A - s + 1, 1.0)) - gammaln(np.where(mask, B - s + 1, 1.0))
+               - gammaln(np.where(mask, n - A - B + s + 1, 1.0)))
+        with np.errstate(over="ignore", invalid="ignore"):  # off the mask only, where the terms are dropped
+            terms = s / n * (np.log(n * s) - np.log(A) - np.log(B)) * np.exp(gln)
+            total += float(np.sum(np.where(mask, terms * weight, 0.0)))
+    return total
+
+
+def label_pair_oracle(preds: np.ndarray, target: np.ndarray) -> dict:
+    """float64 values of the label-pair members (sklearn's formulas, in numpy)."""
+    k = int(max(preds.max(), target.max())) + 1
+    table = np.bincount(target * k + preds, minlength=k * k).reshape(k, k).astype(np.float64)
+    n = table.sum()
+    a, b = table.sum(1), table.sum(0)
+    nz = table > 0
+    mi = float(np.sum(table[nz] / n * (np.log(n * table[nz]) - np.log(np.outer(a, b)[nz]))))
+    h_t = float(-np.sum(a[a > 0] / n * np.log(a[a > 0] / n)))
+    h_p = float(-np.sum(b[b > 0] / n * np.log(b[b > 0] / n)))
+    emi = emi_oracle(a, b, n)
+    sum_ij, sum_a, sum_b, pairs = (table * (table - 1)).sum() / 2, (a * (a - 1)).sum() / 2, (b * (b - 1)).sum() / 2, n * (n - 1) / 2
+    expected = sum_a * sum_b / pairs
+    hom, com = mi / h_t, mi / h_p
+    return {
+        "mi": mi, "nmi": mi / ((h_t + h_p) / 2), "ami": (mi - emi) / ((h_t + h_p) / 2 - emi),
+        "rand": 1 + (2 * sum_ij - sum_a - sum_b) / pairs, "ari": (sum_ij - expected) / ((sum_a + sum_b) / 2 - expected),
+        "fmi": sum_ij / np.sqrt(sum_a * sum_b), "homogeneity": hom, "completeness": com,
+        "v_measure": 2 * hom * com / (hom + com), "emi": emi,
+    }
+
+
+def intrinsic_oracle(emb: np.ndarray, labels: np.ndarray) -> dict:
+    """float64 Calinski-Harabasz, Davies-Bouldin and Dunn (p=2) of the
+    embeddings' clustering: centroids from sorted segment sums, distances to
+    centroids in row chunks, centroid distances from the float64 Gram matrix."""
+    order = np.argsort(labels, kind="stable")
+    counts = np.bincount(labels, minlength=CLUSTER_K)
+    live = np.flatnonzero(counts)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])[live]
+    centroids = np.add.reduceat(emb[order].astype(np.float64), starts, axis=0) / counts[live, None]
+    slot = np.full(CLUSTER_K, -1)
+    slot[live] = np.arange(live.size)
+    dist = np.concatenate([
+        np.linalg.norm(emb[i : i + 8192].astype(np.float64) - centroids[slot[labels[i : i + 8192]]], axis=1)
+        for i in range(0, emb.shape[0], 8192)
+    ])
+    mean = emb.astype(np.float64).mean(0)
+    k, n = live.size, emb.shape[0]
+    between = float((counts[live] * ((centroids - mean) ** 2).sum(1)).sum())
+    within = float((dist**2).sum())
+    sq = (centroids**2).sum(1)
+    cdist = np.sqrt(np.maximum(sq[:, None] + sq[None, :] - 2 * centroids @ centroids.T, 0.0))
+    intra = np.bincount(slot[labels], weights=dist, minlength=k) / counts[live]
+    ratio = (intra[:, None] + intra[None, :]) / np.where(np.eye(k, dtype=bool), np.inf, cdist)
+    return {
+        "ch": between * (n - k) / (within * (k - 1)), "db": float(ratio.max(1).mean()),
+        "dunn": float(cdist[np.triu_indices(k, 1)].min() / dist.max()),
+    }
+
+
+def pair_members(device) -> dict:
+    """The label-pair members: nine on list states (class spaces from the
+    data) and a capacity copy of four (declared class spaces, live
+    MaskedBuffers of the whole stream's rows)."""
+    import tpumetrics_torch.clustering as cl
+
+    kw = {"device": device}
+    spaces = {"num_classes_preds": CLUSTER_K, "num_classes_target": CLUSTER_K, **kw}
+    return {
+        "mi": cl.MutualInfoScore(**kw), "nmi": cl.NormalizedMutualInfoScore(**kw),
+        "ami": cl.AdjustedMutualInfoScore(**kw), "rand": cl.RandScore(**kw), "ari": cl.AdjustedRandScore(**kw),
+        "fmi": cl.FowlkesMallowsIndex(**kw), "homogeneity": cl.HomogeneityScore(**kw),
+        "completeness": cl.CompletenessScore(**kw), "v_measure": cl.VMeasureScore(**kw),
+        "cap_mi": buffered(cl.MutualInfoScore(**spaces)), "cap_ami": buffered(cl.AdjustedMutualInfoScore(**spaces)),
+        "cap_v_measure": buffered(cl.VMeasureScore(**spaces)), "cap_ari": buffered(cl.AdjustedRandScore(**spaces)),
+    }
+
+
+def intrinsic_members(device) -> dict:
+    """Calinski-Harabasz, Davies-Bouldin and Dunn (p=2) on list states, and a
+    capacity copy of Calinski-Harabasz (declared 1000 clusters)."""
+    import tpumetrics_torch.clustering as cl
+
+    kw = {"device": device}
+    return {
+        "ch": cl.CalinskiHarabaszScore(**kw), "db": cl.DaviesBouldinScore(**kw), "dunn": cl.DunnIndex(p=2, **kw),
+        "cap_ch": buffered(cl.CalinskiHarabaszScore(num_labels=CLUSTER_K, **kw)),
+    }
+
+
+def buffered(metric):
+    """``metric`` with its list states in MaskedBuffers of the stream's rows,
+    installed as its live states: its update appends to them with no host
+    read, and a fused collection captures it."""
+    from tpumetrics_torch.interop import load_state
+
+    for name in metric._defaults:
+        metric.set_state_capacity(name, CLUSTER_N, feature_shape=(CLUSTER_D,) if name == "data" else ())
+    load_state(metric, metric.init_state())
+    return metric
+
+
+def clustering_phase(torch, bc) -> dict:
+    """ImageNet-size clustering evaluation (see the module note): the
+    label-pair and intrinsic collections on the card and on the CPU, their
+    states against each other, the values against float64 oracles, a
+    steady update free of host syncs, the compute time and the device time of
+    its main parts, and the fused phase of each collection."""
+    import importlib
+
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.clustering.utils import (
+        _centroid_distances,
+        _cluster_centroids,
+        calculate_contingency_matrix,
+    )
+    from tpumetrics_torch.interop import export_state
+
+    ami_mod = importlib.import_module("tpumetrics_torch.functional.clustering.adjusted_mutual_info_score")
+    label = f"clustering ImageNet-1k val {CLUSTER_N} x {CLUSTER_K} clusters x {CLUSTER_D}-d"
+    preds, target, emb = make_clustering(SEED + 17)
+    spans = range(0, CLUSTER_N, CLUSTER_BATCH)
+    pair_batches = [(preds[i : i + CLUSTER_BATCH], target[i : i + CLUSTER_BATCH]) for i in spans]
+    emb_batches = [(emb[i : i + CLUSTER_BATCH], preds[i : i + CLUSTER_BATCH]) for i in spans]
+    dev_pairs = [tuple(torch.from_numpy(x).cuda() for x in b) for b in pair_batches]
+    dev_embs = [tuple(torch.from_numpy(x).cuda() for x in b) for b in emb_batches]
+
+    def pair_collection(device, fused=False):
+        return MetricCollection(pair_members(device), fused_update=fused, device=device)
+
+    def intrinsic_collection(device, fused=False):
+        return MetricCollection(intrinsic_members(device), fused_update=fused, device=device)
+
+    pairs, intrinsic = pair_collection("cuda"), intrinsic_collection("cuda")
+    torch.cuda.synchronize()
+    bc.launches = 0
+    update_ms = []
+    for i, (pb, eb) in enumerate(zip(dev_pairs, dev_embs)):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update: no member may read the host
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            pairs.update(*pb)
+            intrinsic.update(*eb)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    compute_ms, values = {}, {}
+    for name, col in (("pairs", pairs), ("intrinsic", intrinsic)):
+        t0 = time.perf_counter()
+        values.update(col.compute())
+        torch.cuda.synchronize()
+        compute_ms[name] = (time.perf_counter() - t0) * 1e3
+    for col in (pairs, intrinsic):  # the same states computed again: the same values, bit for bit
+        for m in col._modules.values():
+            m._computed = None
+    again = {**pairs.compute(), **intrinsic.compute()}
+    check(all(torch.equal(again[k], v) for k, v in values.items()), f"{label}: a second compute gave other values")
+    groups = sorted(sorted(g) for col in (pairs, intrinsic) for g in col.compute_groups.values())
+    check(groups == CLUSTER_GROUPS, f"{label}: compute groups {groups}")
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+
+    cpu_pairs, cpu_intrinsic = pair_collection("cpu"), intrinsic_collection("cpu")
+    for pb, eb in zip(pair_batches, emb_batches):
+        cpu_pairs.update(*(torch.from_numpy(x) for x in pb))
+        cpu_intrinsic.update(*(torch.from_numpy(x) for x in eb))
+    for col, cpu in ((pairs, cpu_pairs), (intrinsic, cpu_intrinsic)):
+        check_same_states(label, export_state(col), export_state(cpu))
+    del cpu_pairs, cpu_intrinsic
+
+    o = {**label_pair_oracle(preds, target), **intrinsic_oracle(emb, preds)}
+    oracle = {k: o[k] for k in ("mi", "nmi", "ami", "rand", "ari", "fmi", "homogeneity", "completeness", "v_measure", "ch", "db", "dunn")}
+    oracle.update({f"cap_{k}": o[k] for k in ("mi", "ami", "v_measure", "ari", "ch")})
+    tol = {k: (CLUSTER_RTOL, 0.0) for k in oracle}
+    tol["ami"] = tol["cap_ami"] = (0.0, CLUSTER_AMI_ATOL)
+    check(set(values) == set(oracle), f"{label}: keys {sorted(values)}")
+    worst = check_values(label, values, oracle, tol)
+
+    # compute's main parts on the device (CUDA events, L2 flushed): the EMI grid, the centroid sums, the distances
+    flush = l2_flush(torch)
+    all_p, all_t = torch.from_numpy(preds).cuda(), torch.from_numpy(target).cuda()
+    all_e = torch.from_numpy(emb).cuda()
+    table = calculate_contingency_matrix(all_p, all_t, None, CLUSTER_K, CLUSTER_K)
+    emi = ami_mod.expected_mutual_info_score(table, table.sum())
+    check(abs(float(emi) - o["emi"]) <= 1e-6 * abs(o["emi"]), f"{label}: E[MI] {float(emi)} vs float64 oracle {o['emi']}")
+    parts = {
+        "contingency": cuda_ms(torch, lambda: calculate_contingency_matrix(all_p, all_t, None, CLUSTER_K, CLUSTER_K), 5, flush),
+        "emi_grid": cuda_ms(torch, lambda: ami_mod.expected_mutual_info_score(table, table.sum()), 3, flush),
+        "centroid_sums": cuda_ms(torch, lambda: _cluster_centroids(all_e, all_p, CLUSTER_K), 3, flush),
+    }
+    centroids, _ = _cluster_centroids(all_e, all_p, CLUSTER_K)
+    parts["centroid_distances"] = cuda_ms(torch, lambda: _centroid_distances(centroids, 2), 3, flush)
+    del flush, all_e, centroids
+    steady = update_ms[1:-1]
+    print(
+        f"clustering phase: {label}: {len(pair_batches)} batches of {CLUSTER_BATCH} (the last {len(pair_batches[-1][0])}),"
+        f" {CLUSTER_REASSIGNED:.0%} of the points reassigned at random; reduced: none; {len(pairs._modules)} label-pair"
+        f" and {len(intrinsic._modules)} intrinsic members in {len(groups)} compute groups; states equal to the CPU"
+        f" run's (labels, data and buffers identical); values against float64 numpy/scipy oracles, worst share of the"
+        f" tolerance {max(worst.values()):.3f} ({max(worst, key=worst.get)}); NMI {float(values['nmi']):.6f} AMI"
+        f" {float(values['ami']):.6f} ARI {float(values['ari']):.6f} V {float(values['v_measure']):.6f}"
+        f" CH {float(values['ch']):.4f} DB {float(values['db']):.6f} Dunn {float(values['dunn']):.6f};"
+        f" E[MI] {float(emi):.6f} (oracle {o['emi']:.6f}); a second compute identical; update 2 free of host syncs;"
+        f" first update {update_ms[0]:.3f} ms, steady median {np.median(steady):.3f} ms; compute() pairs"
+        f" {compute_ms['pairs']:.3f} ms, intrinsic {compute_ms['intrinsic']:.3f} ms (host clock); device time of one"
+        f" call (median, L2 flushed; host time to make it): "
+        + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]:.3f} ms)" for k, v in parts.items()),
+        flush=True,
+    )
+    profile_step(torch, pairs, dev_pairs[1], f"{label} label pairs")
+    profile_step(torch, intrinsic, dev_embs[1], f"{label} intrinsic")
+    del pairs, intrinsic
+    fused = fused_pair(torch, bc, f"{label} label pairs", lambda f: pair_collection("cuda", f), dev_pairs)
+    list_leader = [g[0] for g in fused["groups"] if not g[0].startswith("cap_")]  # the list states' group: eager
+    check(fused["eager_leaders"] == list_leader, f"{label}: eager leaders {fused['eager_leaders']}")
+    fused_intrinsic = fused_pair(torch, bc, f"{label} intrinsic", lambda f: intrinsic_collection("cuda", f), dev_embs)
+    check(fused_intrinsic["modes"]["replayed"] >= 1 and fused_intrinsic["guarded_replay"], f"{label} intrinsic: no checked graph replay")
+    list_leader = [g[0] for g in fused_intrinsic["groups"] if not g[0].startswith("cap_")]
+    check(fused_intrinsic["eager_leaders"] == list_leader, f"{label}: intrinsic eager leaders {fused_intrinsic['eager_leaders']}")
+    return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "parts_ms": parts, "oracle_worst": worst,
+            "values": {k: float(v) for k, v in values.items()}, "fused": fused, "fused_intrinsic": fused_intrinsic}
+
+
+# UCI Adult (Becker & Kohavi 1996; train and test, 48,842 rows): its nine categorical columns, their
+# cardinalities, and the shares of missing values ("?") in three of them.
+ADULT_N, ADULT_BATCH = 48_842, 4096
+ADULT_COLUMNS = [("workclass", 9), ("education", 16), ("marital-status", 7), ("occupation", 15),
+                 ("relationship", 6), ("race", 5), ("sex", 2), ("native-country", 42), ("income", 2)]
+ADULT_MISSING = {"workclass": 0.0573, "occupation": 0.0575, "native-country": 0.0175}
+ADULT_UNKNOWN = 15.0  # a missing occupation is its own category, the 16th of the pair's class space
+# CIFAR-10H (Peterson et al., ICCV 2019): 10,000 CIFAR-10 test images, 10 classes, about 50 human labels each
+RATERS_N, RATERS_K, RATERS, RATERS_BATCH = 10_000, 10, 50, 1024
+RATER_ACCURACY = 0.95  # the human labels' accuracy, about CIFAR-10H's
+NOMINAL_RTOL = 1e-5  # float32 chi-squared, entropies and kappa against float64 oracles
+THEIL_ATOL = 5e-6  # U's two entropies (up to log 42) round to a few 1e-7 each before their difference
+
+
+def make_adult(seed: int) -> np.ndarray:
+    """``(48,842, 9)`` float32 category codes: each column's categories with
+    geometric shares in a random order, occupation following education in
+    half the rows, NaN at each column's missing share."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for _, k in ADULT_COLUMNS:
+        shares = 0.7 ** rng.permutation(k)
+        cols.append(rng.choice(k, size=ADULT_N, p=shares / shares.sum()))
+    edu, occ = 1, 3
+    follows = rng.random(ADULT_N) < 0.5
+    cols[occ] = np.where(follows, rng.integers(0, 15, 16)[cols[edu]], cols[occ])
+    out = np.stack(cols, 1).astype(np.float32)
+    for j, (name, _) in enumerate(ADULT_COLUMNS):
+        out[rng.random(ADULT_N) < ADULT_MISSING.get(name, 0.0), j] = np.nan
+    return out
+
+
+def make_raters(seed: int):
+    """CIFAR-10H's geometry: 1000 images per class, each labelled by 50
+    raters who are right at ``RATER_ACCURACY`` and else pick another class;
+    as ``(N, 10)`` int32 counts and as ``(N, 10, 50)`` float32 scores whose
+    argmax per rater is that rater's label."""
+    rng = np.random.default_rng(seed)
+    truth = rng.permutation(np.repeat(np.arange(RATERS_K), RATERS_N // RATERS_K))
+    wrong = (truth[:, None] + rng.integers(1, RATERS_K, (RATERS_N, RATERS))) % RATERS_K
+    choice = np.where(rng.random((RATERS_N, RATERS)) < RATER_ACCURACY, truth[:, None], wrong)
+    counts = np.zeros((RATERS_N, RATERS_K), np.int32)
+    np.add.at(counts, (np.arange(RATERS_N)[:, None], choice), 1)
+    scores = (rng.random((RATERS_N, RATERS_K, RATERS), dtype=np.float32) * 0.5)
+    scores[np.arange(RATERS_N)[:, None], choice, np.arange(RATERS)[None, :]] += 0.5
+    return counts, scores
+
+
+def sqrt_tol(value: float, err: float, denom: float) -> float:
+    """Tolerance of ``value = sqrt(x / denom)`` when ``x`` carries an
+    absolute error ``err``: ``NOMINAL_RTOL`` relative, plus the bound
+    ``|sqrt(a) - sqrt(b)| <= min(sqrt(|a - b|), |a - b| / sqrt(a))``."""
+    e = err / denom
+    return NOMINAL_RTOL * value + (np.sqrt(e) if value == 0 else min(np.sqrt(e), e / value))
+
+
+def association_oracle(x: np.ndarray, y: np.ndarray) -> dict:
+    """float64 Cramer's V and Tschuprow's T (with and without Bergsma's bias
+    correction, Yates' at one degree of freedom), Pearson's C and Theil's
+    U(x | y) of two code columns (negative codes dropped), each with its
+    tolerance. phi² in float32 carries the rounding of each expected count
+    (a few float32 steps of E in each ``(O - E)²/E``, so about 5e-7 of
+    ``Σ|O - E|``) and 1e-6 of chi² from the sum; a bias-corrected phi² also
+    1e-6 of the term it subtracts (``sqrt_tol``)."""
+    keep = (x >= 0) & (y >= 0)
+    x, y = x[keep].astype(np.int64), y[keep].astype(np.int64)
+    k = int(max(x.max(), y.max())) + 1
+    table = np.bincount(y * k + x, minlength=k * k).reshape(k, k).astype(np.float64)
+    n = table.sum()
+    rows, cols = table.sum(1), table.sum(0)
+    r, c = float((rows > 0).sum()), float((cols > 0).sum())
+    expected = np.outer(rows, cols) / n
+    pos = expected > 0
+    out, tol = {}, {}
+    for bias in (False, True):
+        obs = table
+        if bias and (r - 1) * (c - 1) == 1:
+            obs = table + np.sign(expected - table) * np.minimum(0.5, np.abs(expected - table))
+        chi2 = float(((obs - expected)[pos] ** 2 / expected[pos]).sum())
+        phi2 = chi2 / n
+        err = (5e-7 * float(np.abs(obs - expected)[pos].sum()) + 1e-6 * chi2) / n
+        if bias:
+            sub = (r - 1) * (c - 1) / (n - 1)
+            phi2c, rc, cc = max(0.0, phi2 - sub), r - (r - 1) ** 2 / (n - 1), c - (c - 1) ** 2 / (n - 1)
+            for key, d in (("cramers_v_bc", min(rc - 1, cc - 1)), ("tschuprows_t_bc", np.sqrt((rc - 1) * (cc - 1)))):
+                out[key] = np.sqrt(phi2c / d)
+                tol[key] = sqrt_tol(out[key], err + 1e-6 * sub, d)
+        else:
+            for key, d in (("cramers_v", min(r - 1, c - 1)), ("tschuprows_t", np.sqrt((r - 1) * (c - 1)))):
+                out[key] = np.sqrt(phi2 / d)
+                tol[key] = sqrt_tol(out[key], err, d)
+            out["pearson"] = np.sqrt(phi2 / (1 + phi2))
+            tol["pearson"] = sqrt_tol(out["pearson"], err, 1.0)
+    p_xy, p_y, p_x = table / n, rows / n, cols / n
+    nz = p_xy > 0
+    h_x = -float((p_x[p_x > 0] * np.log(p_x[p_x > 0])).sum())
+    h_xy = float((p_xy[nz] * (np.log(np.broadcast_to(p_y[:, None], p_xy.shape)[nz]) - np.log(p_xy[nz]))).sum())
+    out["theils_u"] = (h_x - h_xy) / h_x
+    tol["theils_u"] = NOMINAL_RTOL * abs(out["theils_u"]) + THEIL_ATOL
+    return {"values": out, "tol": tol}
+
+
+def fleiss_oracle(counts: np.ndarray) -> float:
+    """float64 Fleiss kappa, with the JAX package's 1e-5 in the denominator."""
+    c = counts.astype(np.float64)
+    raters = c.sum(1).max()
+    p_i = c.sum(0) / (c.shape[0] * raters)
+    p_j = ((c**2).sum(1) - raters) / (raters * (raters - 1))
+    pe = (p_i**2).sum()
+    return (p_j.mean() - pe) / (1 - pe + 1e-5)
+
+
+def adult_members(device) -> dict:
+    import tpumetrics_torch.nominal as nom
+
+    kw = {"num_classes": 16, "nan_strategy": "replace", "nan_replace_value": ADULT_UNKNOWN, "device": device}
+    return {
+        "cramers_v": nom.CramersV(**kw), "tschuprows_t": nom.TschuprowsT(**kw),
+        "pearson": nom.PearsonsContingencyCoefficient(**kw), "theils_u": nom.TheilsU(**kw),
+    }
+
+
+def nominal_phase(torch, bc) -> dict:
+    """Association at the size of the datasets it is run on (see the module
+    note): the (occupation, education) pair of UCI Adult through the four
+    association metrics and all nine columns through the four ``*_matrix``
+    functions, and Fleiss kappa of CIFAR-10H's raters in both modes; on the
+    card and on the CPU, against float64 oracles, with a steady update free
+    of host syncs, the host reads of the matrix loops, and the fused phase."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional import nominal as fn
+    from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.nominal import FleissKappa
+
+    label = f"association UCI Adult {ADULT_N} x {len(ADULT_COLUMNS)}, CIFAR-10H {RATERS_N} x {RATERS_K} x {RATERS} raters"
+    adult = make_adult(SEED + 19)
+    occ, edu = adult[:, 3], adult[:, 1]
+    batches = [(occ[i : i + ADULT_BATCH], edu[i : i + ADULT_BATCH]) for i in range(0, ADULT_N, ADULT_BATCH)]
+    dev_batches = [tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in b) for b in batches]
+
+    def collection(device, fused=False):
+        return MetricCollection(adult_members(device), fused_update=fused, device=device)
+
+    col = collection("cuda")
+    torch.cuda.synchronize()
+    bc.launches = 0
+    update_ms = []
+    for i, batch in enumerate(dev_batches):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update: no member may read the host
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            col.update(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    values = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    groups = sorted(sorted(g) for g in col.compute_groups.values())
+    check(groups == [["cramers_v", "pearson", "theils_u", "tschuprows_t"]], f"{label}: compute groups {groups}")
+    cpu = collection("cpu")
+    for batch in batches:
+        cpu.update(*(torch.from_numpy(np.ascontiguousarray(x)) for x in batch))
+    got, want = export_state(col), export_state(cpu)
+    check(all(np.array_equal(got[k]["confmat"], want[k]["confmat"]) and got[k]["confmat"].dtype == np.float32 for k in want),
+          f"{label}: the contingency table differs card vs CPU")
+
+    pair = association_oracle(np.nan_to_num(occ, nan=ADULT_UNKNOWN), edu)  # edu's NaNs: none
+    check(not np.isnan(edu).any(), f"{label}: education has missing values")
+    oracle = {"cramers_v": pair["values"]["cramers_v_bc"], "tschuprows_t": pair["values"]["tschuprows_t_bc"],
+              "pearson": pair["values"]["pearson"], "theils_u": pair["values"]["theils_u"]}
+    tol = {"cramers_v": (0.0, pair["tol"]["cramers_v_bc"]), "tschuprows_t": (0.0, pair["tol"]["tschuprows_t_bc"]),
+           "pearson": (0.0, pair["tol"]["pearson"]), "theils_u": (0.0, pair["tol"]["theils_u"])}
+    worst = check_values(label, values, oracle, tol)
+
+    # the nine columns through the *_matrix functions: missing values replaced by -1, which every table drops
+    matrix = torch.from_numpy(adult).cuda()
+    codes = np.nan_to_num(adult, nan=-1.0)
+    pair_oracles = {(i, j): association_oracle(codes[:, i], codes[:, j])
+                    for i in range(adult.shape[1]) for j in range(adult.shape[1]) if i != j}
+    matrix_fns = {
+        "cramers_v_matrix": (fn.cramers_v_matrix, "cramers_v_bc"), "tschuprows_t_matrix": (fn.tschuprows_t_matrix, "tschuprows_t_bc"),
+        "pearsons_contingency_coefficient_matrix": (fn.pearsons_contingency_coefficient_matrix, "pearson"),
+        "theils_u_matrix": (fn.theils_u_matrix, "theils_u"),
+    }
+    matrix_ms, matrix_syncs, matrix_worst, matrix_busy_ms = {}, {}, {}, {}
+    for name, (f, key) in matrix_fns.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = f(matrix, nan_replace_value=-1.0)
+        torch.cuda.synchronize()
+        matrix_ms[name] = (time.perf_counter() - t0) * 1e3
+        pairs_n = len(pair_oracles) if name == "theils_u_matrix" else len(pair_oracles) // 2
+        matrix_syncs[name] = count_host_syncs(torch, lambda: f(matrix, nan_replace_value=-1.0)) / pairs_n
+        matrix_busy_ms[name] = profile_update(torch, lambda: f(matrix, nan_replace_value=-1.0))["busy_ms"]
+        got = got.cpu().numpy().astype(np.float64)
+        check(bool(np.all(np.diag(got) == 1.0)), f"{label}: {name} diagonal {np.diag(got)}")
+        share = 0.0
+        for (i, j), o in pair_oracles.items():
+            if name != "theils_u_matrix" and i > j:
+                continue
+            want, allowed = o["values"][key], o["tol"][key]
+            check(abs(got[i, j] - want) <= allowed, f"{label}: {name}[{i}, {j}] = {got[i, j]} vs float64 oracle {want} (tolerance {allowed})")
+            if name != "theils_u_matrix":
+                check(got[j, i] == got[i, j], f"{label}: {name} is not symmetric at ({i}, {j})")
+            share = max(share, abs(got[i, j] - want) / allowed)
+        matrix_worst[name] = share
+
+    counts, scores = make_raters(SEED + 23)
+    kappa_want = fleiss_oracle(counts)
+    fleiss = {}
+    for mode, data in (("counts", counts), ("probs", scores)):
+        parts = [data[i : i + RATERS_BATCH] for i in range(0, RATERS_N, RATERS_BATCH)]
+        dev = [torch.from_numpy(x).cuda() for x in parts]
+        metric, cpu_metric = FleissKappa(mode, device="cuda"), FleissKappa(mode, device="cpu")
+        for i, x in enumerate(dev):
+            if i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                metric.update(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        for x in parts:
+            cpu_metric.update(torch.from_numpy(x))
+        check_same_states(f"{label} Fleiss kappa ({mode})", export_state(metric), export_state(cpu_metric))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kappa = metric.compute()
+        torch.cuda.synchronize()
+        fleiss[mode] = {"value": float(kappa), "compute_ms": (time.perf_counter() - t0) * 1e3}
+        fleiss[mode]["worst"] = check_values(f"{label} Fleiss kappa ({mode})", {"kappa": kappa}, {"kappa": kappa_want},
+                                             {"kappa": (NOMINAL_RTOL, 0.0)})["kappa"]
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+    steady = update_ms[1:-1]
+    print(
+        f"nominal phase: {label}: Adult (occupation, education) in {len(batches)} batches of {ADULT_BATCH} (the last"
+        f" {len(batches[-1][0])}), missing occupations as category {int(ADULT_UNKNOWN)}; reduced: none (Adult),"
+        f" a fixed {RATERS} raters per image (CIFAR-10H has 47-63); 4 members in one compute group, the table"
+        f" identical to the CPU's; values against float64 oracles, worst share of the tolerance {max(worst.values()):.3f}"
+        f" ({max(worst, key=worst.get)}): Cramer's V {float(values['cramers_v']):.6f} Tschuprow's T"
+        f" {float(values['tschuprows_t']):.6f} Pearson's C {float(values['pearson']):.6f} Theil's U"
+        f" {float(values['theils_u']):.6f}; update 2 free of host syncs; first update {update_ms[0]:.3f} ms, steady"
+        f" median {np.median(steady):.3f} ms; compute() {compute_ms:.3f} ms; the *_matrix functions over the 9 columns"
+        f" (host clock, device union of a profiled call, host reads per column pair, worst share of the tolerance): "
+        + ", ".join(f"{k} {matrix_ms[k]:.3f} ms, {matrix_busy_ms[k]:.3f} ms, {matrix_syncs[k]:.2f}, {matrix_worst[k]:.3f}"
+                    for k in matrix_fns)
+        + f"; Fleiss kappa counts {fleiss['counts']['value']:.6f}, probs {fleiss['probs']['value']:.6f} (oracle"
+        f" {kappa_want:.6f}), states identical to the CPU's, update 2 free of host syncs",
+        flush=True,
+    )
+    profile_step(torch, col, dev_batches[1], label)
+    del col, cpu
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    check(fused["eager_leaders"] == [], f"{label}: eager leaders {fused['eager_leaders']}")
+    return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "oracle_worst": worst,
+            "matrix_ms": matrix_ms, "matrix_busy_ms": matrix_busy_ms, "matrix_host_reads_per_pair": matrix_syncs,
+            "matrix_worst": matrix_worst,
+            "fleiss": fleiss, "fused": fused}
+
+
 def sync_phase(torch, bc, smi: str) -> dict:
     """The ImageNet-size collection synced over NCCL at world size 1 (see the module note)."""
     import tempfile
@@ -2181,6 +2744,8 @@ def main() -> None:
         "segmentation": segmentation_phase(torch, bc),
         "ratings": ratings_phase(torch, bc),
         "multioutput": multioutput_phase(torch, bc),
+        "clustering": clustering_phase(torch, bc),
+        "nominal": nominal_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
     clocks = subprocess.run(
@@ -2233,6 +2798,18 @@ def main() -> None:
             "ratings": {k: paths["ratings"][k] for k in ("compute_ms", "rank_2m_ms", "host_syncs", "oracle_worst")},
             "multioutput": {k: paths["multioutput"][k] for k in (
                 "compute_ms", "kendall_ms", "nan_row_syncs", "tracker_steps", "oracle_worst")},
+        },
+        "clustering": {
+            **{k: paths["clustering"][k] for k in ("compute_ms", "parts_ms", "oracle_worst", "values")},
+            "fused_intrinsic": {k: paths["clustering"]["fused_intrinsic"][k] for k in (
+                "modes", "plain_ms", "fused_ms", "capture_s", "graphs", "eager_leaders")},
+            "reduced": "none",
+        },
+        "nominal": {
+            **{k: paths["nominal"][k] for k in (
+                "compute_ms", "oracle_worst", "matrix_ms", "matrix_busy_ms", "matrix_host_reads_per_pair", "matrix_worst",
+                "fleiss")},
+            "reduced": f"CIFAR-10H: a fixed {RATERS} raters per image (the dataset has 47-63)",
         },
     }
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)

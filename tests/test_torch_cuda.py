@@ -816,3 +816,154 @@ def test_multioutput_without_nan_removal_syncs_nothing(cuda):
         torch.cuda.set_sync_debug_mode(0)
     want = (preds - target).abs().mean(0).cpu()
     np.testing.assert_allclose(clean.compute().cpu().numpy(), want.numpy(), rtol=1e-6)
+
+
+# ------------------------------------------------------ clustering and nominal
+
+
+def test_contingency_tables_on_the_card_equal_the_cpu(cuda):
+    """The clustering contingency table (1000 x 1000 classes, 50,000 rows,
+    some labels negative or out of range) and the nominal table (16 x 16,
+    NaNs replaced) on the card equal the CPU's exactly."""
+    from tpumetrics_torch.functional.clustering.utils import calculate_contingency_matrix
+    from tpumetrics_torch.functional.nominal.utils import _nominal_confmat
+
+    rng = np.random.default_rng(21)
+    preds, target = rng.integers(-3, 1003, 50_000), rng.integers(0, 1000, 50_000)
+    got = calculate_contingency_matrix(*(torch.from_numpy(x).to(cuda) for x in (preds, target)), None, 1000, 1000)
+    want = calculate_contingency_matrix(*(torch.from_numpy(x) for x in (preds, target)), None, 1000, 1000)
+    assert got.dtype == torch.float32 and torch.equal(got.cpu(), want)
+    x, y = rng.integers(0, 16, 48_842).astype(np.float32), rng.integers(0, 15, 48_842).astype(np.float32)
+    x[::97] = np.nan
+    got = _nominal_confmat(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda), 16)
+    assert torch.equal(got.cpu(), _nominal_confmat(torch.from_numpy(x), torch.from_numpy(y), 16))
+
+
+def test_chunked_centroid_distances_equal_the_unchunked_ones(cuda, monkeypatch):
+    """Centroid distances taken 3 rows at a time equal one pass over all 37
+    rows and a float64 numpy oracle (p = 2 and 1); Davies-Bouldin and Dunn
+    of a clustering give the same value twice, in either chunking, and with
+    TF32 products allowed or not."""
+    from tpumetrics_torch.functional.clustering import davies_bouldin_score, dunn_index
+    from tpumetrics_torch.functional.clustering import utils
+
+    rng = np.random.default_rng(22)
+    centroids = rng.normal(size=(37, 64)).astype(np.float32)
+    c = torch.from_numpy(centroids).to(cuda)
+    data = torch.from_numpy(rng.normal(size=(2000, 64)).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 37, 2000)).to(cuda)
+    whole = {p: utils._centroid_distances(c, p) for p in (2, 1)}
+    values = [davies_bouldin_score(data, labels, 37), dunn_index(data, labels, 2, 37)]
+    monkeypatch.setattr(utils, "_DIFF_BUDGET", 3 * 37 * 64)
+    for p, ref in whole.items():
+        chunked = utils._centroid_distances(c, p)
+        assert torch.equal(chunked, ref) or torch.allclose(chunked, ref, rtol=1e-6, atol=0)
+        diff = centroids[:, None, :].astype(np.float64) - centroids[None, :, :]
+        oracle = np.sqrt((diff**2).sum(-1)) if p == 2 else np.abs(diff).sum(-1)
+        np.testing.assert_allclose(chunked.cpu().numpy(), oracle, rtol=1e-5, atol=1e-5)
+    again = [davies_bouldin_score(data, labels, 37), dunn_index(data, labels, 2, 37)]
+    for a, b in zip(values, again):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(again, [davies_bouldin_score(data, labels, 37), dunn_index(data, labels, 2, 37)]))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = not saved  # the per-cluster sums are float64 products: TF32 never applies
+    try:
+        flipped = [davies_bouldin_score(data, labels, 37), dunn_index(data, labels, 2, 37)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert all(torch.equal(a, b) for a, b in zip(again, flipped))
+
+
+def _numpy_emi(table: np.ndarray) -> float:
+    """Expected mutual information as a float64 numpy grid (scipy's gammaln)."""
+    from scipy.special import gammaln
+
+    a, b, n = table.sum(1), table.sum(0), table.sum()
+    total = 0.0
+    for i in range(a.size):
+        for j in range(b.size):
+            lo, hi = max(1, a[i] + b[j] - n), min(a[i], b[j])
+            nij = np.arange(lo, hi + 1, dtype=np.float64)
+            if nij.size == 0:
+                continue
+            gln = (gammaln(a[i] + 1) + gammaln(b[j] + 1) + gammaln(n - a[i] + 1) + gammaln(n - b[j] + 1)
+                   - gammaln(nij + 1) - gammaln(n + 1) - gammaln(a[i] - nij + 1) - gammaln(b[j] - nij + 1)
+                   - gammaln(n - a[i] - b[j] + nij + 1))
+            total += float(np.sum(nij / n * (np.log(n * nij) - np.log(a[i]) - np.log(b[j])) * np.exp(gln)))
+    return total
+
+
+def test_device_expected_mutual_info_equals_a_numpy_float64_grid(cuda, monkeypatch):
+    """The float64 EMI grid on the card, whole and in chunks of rows and of
+    n_ij values, equals a float64 numpy loop (rounded once to float32)."""
+    import importlib
+
+    from tpumetrics_torch.functional.clustering.utils import calculate_contingency_matrix
+
+    ami = importlib.import_module("tpumetrics_torch.functional.clustering.adjusted_mutual_info_score")
+    rng = np.random.default_rng(23)
+    target = rng.integers(0, 40, 3000)
+    preds = np.where(rng.random(3000) < 0.6, target, rng.integers(0, 45, 3000))
+    table = calculate_contingency_matrix(*(torch.from_numpy(x).to(cuda) for x in (preds, target)), None, 45, 40)
+    want = np.float32(_numpy_emi(table.cpu().numpy().astype(np.float64)))
+    for budget in (1 << 23, 40 * 45 * 3, 100):
+        monkeypatch.setattr(ami, "_EMI_BUDGET", budget)
+        got = ami.expected_mutual_info_score(table, table.sum())
+        assert got.device == table.device
+        np.testing.assert_allclose(float(got), want, rtol=1e-6)
+
+
+def test_buffered_clustering_and_nominal_updates_replay_in_a_graph(cuda):
+    """The label-pair clustering members with live capacity buffers, the
+    Calinski-Harabasz capacity copy and the nominal association metrics
+    (``nan_strategy="replace"``) replay in CUDA graphs: states bit for bit
+    the unfused collections' after every update, the replays raising nothing
+    with host syncs made errors."""
+    from tpumetrics_torch.clustering import AdjustedMutualInfoScore, AdjustedRandScore, CalinskiHarabaszScore, MutualInfoScore
+    from tpumetrics_torch.interop import load_state
+    from tpumetrics_torch.nominal import CramersV, TheilsU
+
+    def buffered(m, cap=4096):
+        for state in m._defaults:
+            m.set_state_capacity(state, cap, feature_shape=(32,) if state == "data" else ())
+        load_state(m, m.init_state())
+        return m
+
+    def makers(d):
+        spaces = {"num_classes_preds": 50, "num_classes_target": 50, "device": d}
+        return [
+            lambda f: MetricCollection({"mi": buffered(MutualInfoScore(**spaces)), "ami": buffered(AdjustedMutualInfoScore(**spaces)),
+                                        "ari": buffered(AdjustedRandScore(**spaces))}, fused_update=f, device=d),
+            lambda f: MetricCollection({"ch": buffered(CalinskiHarabaszScore(num_labels=50, device=d))}, fused_update=f, device=d),
+            lambda f: MetricCollection({"v": CramersV(16, device=d), "u": TheilsU(16, device=d)}, fused_update=f, device=d),
+        ]
+
+    rng = np.random.default_rng(24)
+    for k, make in enumerate(makers(cuda)):
+        cols = {f: make(f) for f in (False, True)}
+        for i in range(5):
+            labels = rng.integers(0, 50, 512)
+            if k == 0:
+                args = (labels, np.where(rng.random(512) < 0.5, labels, rng.integers(0, 50, 512)))
+            elif k == 1:
+                args = (rng.normal(size=(512, 32)).astype(np.float32), labels)
+            else:
+                x = rng.integers(0, 16, 512).astype(np.float32)
+                x[::31] = np.nan
+                args = (x, rng.integers(0, 15, 512).astype(np.float32))
+            args = [torch.from_numpy(a).to(cuda) for a in args]
+            cols[False].update(*args)
+            if i >= 3:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                cols[True].update(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            fused, plain = export_state(cols[True]), export_state(cols[False])
+            for leader, states in plain.items():
+                for name, ref in states.items():
+                    got = fused[leader][name]
+                    assert all(np.array_equal(g, r) for g, r in zip(got, ref)) if isinstance(ref, tuple) else np.array_equal(got, ref)
+        assert cols[True]._fused_oo_step.counts["replayed"] >= 2
+        for key, val in cols[False].compute().items():
+            assert torch.equal(cols[True].compute()[key], val), key

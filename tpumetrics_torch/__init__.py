@@ -11,7 +11,12 @@ the multilabel ranking metrics, group fairness and Dice (binary, multiclass
 and multilabel, binned or exact curves, and the task-string wrappers such
 as ``Accuracy(task=...)``), the regression domain (``regression``: errors,
 R2, explained variance, Pearson, concordance, Spearman, Kendall, cosine
-similarity, KL divergence, Tweedie deviance), the wrappers (``wrappers``:
+similarity, KL divergence, Tweedie deviance), the clustering domain
+(``clustering``: mutual information and its normalized and adjusted forms,
+homogeneity, completeness, V-measure, Rand, adjusted Rand, Fowlkes-Mallows,
+Calinski-Harabasz, Davies-Bouldin, Dunn), the nominal domain (``nominal``:
+Cramer's V, Tschuprow's T, Pearson's contingency coefficient, Theil's U,
+Fleiss kappa), the wrappers (``wrappers``:
 ``MinMaxMetric``, ``MultioutputWrapper``, ``ClasswiseWrapper``,
 ``MultitaskWrapper``, ``BootStrapper``, ``MetricTracker``, ``Running``), the
 aggregation metrics (``SumMetric``, ``MeanMetric``, ...), metric arithmetic
@@ -33,8 +38,12 @@ from tpumetrics_torch.aggregation import (
 )
 from tpumetrics_torch.classification import *  # noqa: F401,F403
 from tpumetrics_torch.classification import __all__ as _classification_all
+from tpumetrics_torch.clustering import *  # noqa: F401,F403
+from tpumetrics_torch.clustering import __all__ as _clustering_all
 from tpumetrics_torch.collections import MetricCollection
 from tpumetrics_torch.metric import CompositionalMetric, Metric
+from tpumetrics_torch.nominal import *  # noqa: F401,F403
+from tpumetrics_torch.nominal import __all__ as _nominal_all
 from tpumetrics_torch.regression import *  # noqa: F401,F403
 from tpumetrics_torch.regression import __all__ as _regression_all
 from tpumetrics_torch.wrappers import (
@@ -64,5 +73,7 @@ __all__ = [
     "RunningSum",
     "SumMetric",
     *_classification_all,
+    *_clustering_all,
+    *_nominal_all,
     *_regression_all,
 ]

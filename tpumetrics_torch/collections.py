@@ -25,10 +25,16 @@ from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Opti
 import numpy as np
 import torch
 
+from tpumetrics_torch.buffers import _BufferList
 from tpumetrics_torch.metric import Metric, _refuse_axis_name, _resolve_device
 from tpumetrics_torch.parallel.backend import DistributedBackend, get_default_backend
 from tpumetrics_torch.parallel.fuse import FusedReducer
-from tpumetrics_torch.parallel.fuse_update import FusedCollectionStep, UnhashableKwargsError, fusable_oo_leaders
+from tpumetrics_torch.parallel.fuse_update import (
+    FusedCollectionStep,
+    UnhashableKwargsError,
+    _holds_tensors,
+    fusable_oo_leaders,
+)
 from tpumetrics_torch.utils.data import _flatten_dict
 from tpumetrics_torch.utils.exceptions import TPUMetricsUserError
 from tpumetrics_torch.utils.prints import rank_zero_warn
@@ -142,6 +148,10 @@ class MetricCollection:
         back as their states, and the eager update wrapper's side effects
         (cache invalidation, update counter) are applied by hand."""
         step = self._fused_oo_step
+        if step is not None and not all(
+            _holds_tensors(self._modules[n], a) for n in step.leaders for a in self._modules[n]._defaults
+        ):
+            step = self._fused_oo_step = None  # a reset put a list back in a buffer state: leaders change
         if step is None:
             leaders = fusable_oo_leaders(self)
             if not leaders:
@@ -154,14 +164,13 @@ class MetricCollection:
                 "A fused update of a synced metric would copy the synced states into the local ones that"
                 " ``unsync`` restores; call ``unsync`` before updating."
             )
-        state = {name: {attr: getattr(m, attr) for attr in m._defaults} for name, m in zip(leaders, modules)}
+        state = {name: m._copy_state_dict() for name, m in zip(leaders, modules)}
         try:
             new_state = step.update(state, *args, **kwargs)
         except UnhashableKwargsError:
             return frozenset()  # tensor kwargs: this call runs fully eager
         for name, m0 in zip(leaders, modules):
-            for attr, val in new_state[name].items():
-                object.__setattr__(m0, attr, val)
+            m0._set_states(new_state[name])
             m0._computed = None
             m0._update_count += 1
         return frozenset(leaders)
@@ -198,7 +207,8 @@ class MetricCollection:
         groups: Dict[int, List[str]], modules: "OrderedDict[str, Metric]"
     ) -> Dict[str, Dict[str, tuple]]:
         """Every group leader's states on the host, ``{leader: {attr: (type,
-        kind, value)}}`` with kind ``"tensor"`` / ``"list"``. The tensors are
+        kind, value)}}`` with kind ``"tensor"`` / ``"list"`` (a MaskedBuffer
+        state is a list of its three fields). The tensors are
         packed as raw bytes into one buffer on the device, copied to the host
         once, and unpacked into numpy arrays of their own dtypes."""
         flat: List[torch.Tensor] = []
@@ -208,7 +218,11 @@ class MetricCollection:
             entry: Dict[str, tuple] = {}
             for attr in m._defaults:
                 val = getattr(m, attr)
-                if isinstance(val, list):
+                if isinstance(val, _BufferList):  # compared field by field, as a list of three
+                    fields = list(val.buffer)
+                    entry[attr] = (type(val), "list", list(range(len(flat), len(flat) + len(fields))))
+                    flat.extend(fields)
+                elif isinstance(val, list):
                     entry[attr] = (type(val), "list", list(range(len(flat), len(flat) + len(val))))
                     flat.extend(val)
                 else:

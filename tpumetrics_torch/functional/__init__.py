@@ -1,6 +1,6 @@
 """Functional metrics of the port (counterpart of ``tpumetrics/functional``):
 the classification functions and their task-string dispatchers, and the
-regression functions."""
+clustering, nominal and regression functions."""
 
 from tpumetrics_torch.functional.classification import *  # noqa: F401,F403
 from tpumetrics_torch.functional.classification import __all__ as _classification_all
@@ -22,6 +22,10 @@ from tpumetrics_torch.functional.classification.precision_recall_curve import pr
 from tpumetrics_torch.functional.classification.roc import roc
 from tpumetrics_torch.functional.classification.specificity import specificity
 from tpumetrics_torch.functional.classification.stat_scores import stat_scores
+from tpumetrics_torch.functional.clustering import *  # noqa: F401,F403
+from tpumetrics_torch.functional.clustering import __all__ as _clustering_all
+from tpumetrics_torch.functional.nominal import *  # noqa: F401,F403
+from tpumetrics_torch.functional.nominal import __all__ as _nominal_all
 from tpumetrics_torch.functional.regression import *  # noqa: F401,F403
 from tpumetrics_torch.functional.regression import __all__ as _regression_all
 
@@ -47,5 +51,7 @@ __all__ = [
     "roc",
     "specificity",
     "stat_scores",
+    *_clustering_all,
+    *_nominal_all,
     *_regression_all,
 ]

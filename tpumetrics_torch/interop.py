@@ -41,17 +41,21 @@ def _is_buffer(value: Any) -> bool:
 def _load_metric(metric: Metric, state: Dict[str, Any]) -> None:
     if set(state) != set(metric._defaults):
         raise ValueError(f"{type(metric).__name__} has states {sorted(metric._defaults)}, got {sorted(state)}")
+
+    def tensor(v: Any) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.detach().to(metric.device, copy=True)
+        return torch.tensor(np.asarray(v), device=metric.device)
+
     loaded: Dict[str, Any] = {}
     for name, value in state.items():
         default = metric._defaults[name]
         if isinstance(default, list) and _is_buffer(value):
-            value = MaskedBuffer(
-                *(torch.tensor(np.asarray(getattr(value, f)), device=metric.device) for f in MaskedBuffer._fields)
-            )
+            value = MaskedBuffer(*(tensor(getattr(value, f)) for f in MaskedBuffer._fields))
         elif isinstance(default, list):
-            value = [torch.tensor(np.asarray(v), device=metric.device) for v in value]
+            value = [tensor(v) for v in value]
         else:
-            value = torch.tensor(np.asarray(value), device=metric.device)
+            value = tensor(value)
             if value.shape != default.shape or value.dtype != default.dtype:
                 raise ValueError(
                     f"{type(metric).__name__}.{name}: expected {default.dtype}{tuple(default.shape)},"
@@ -63,7 +67,10 @@ def _load_metric(metric: Metric, state: Dict[str, Any]) -> None:
 
 
 def load_state(target: Union[Metric, MetricCollection], state: Any) -> None:
-    """Put ``state`` (numpy leaves, keyed like ``init_state()``) into ``target``.
+    """Put ``state`` (numpy or tensor leaves, keyed like ``init_state()``) into
+    ``target``. A MaskedBuffer leaf stays a buffer: ``load_state(m,
+    m.init_state())`` after ``set_state_capacity`` makes ``m``'s eager
+    update append to fixed-capacity buffers.
 
     A collection's state is keyed by compute-group leader, so ``target`` must
     have the same groups: set them with ``compute_groups=[[...], ...]`` or

@@ -138,6 +138,9 @@ class Metric(ABC):
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = None
+    # an update that reads the host by its semantics (a boolean row selection):
+    # a fused collection keeps it eager instead of capturing it
+    _update_reads_host: bool = False
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = _resolve_device(kwargs.pop("device", None))

@@ -93,14 +93,20 @@ class UnhashableKwargsError(TypeError):
 
 def fusable_oo_leaders(collection: Any) -> List[str]:
     """Group-leader names whose attribute states can round-trip through one
-    captured transition: every registered state is a tensor, and the leader
-    updates through the base functional bridge.
+    captured transition: every registered state is a tensor or holds a
+    MaskedBuffer, the leader updates through the base functional bridge,
+    and its update reads nothing on the host by its semantics.
 
     Leaders with list states keep their eager update: a list grows every
     step (a new structure each call), and routing it through a
-    fixed-capacity MaskedBuffer would change eager semantics. So do
-    wrappers (``Running``), whose state lives in child metrics and which
-    have no functional bridge.
+    fixed-capacity MaskedBuffer would change eager semantics. A list state
+    that already holds a MaskedBuffer (one installed with
+    ``interop.load_state``, e.g. from ``init_state()`` after
+    ``set_state_capacity``) appends at a fixed capacity in its eager update
+    too, so the step changes nothing there. Wrappers (``Running``), whose
+    state lives in child metrics and which have no functional bridge, stay
+    eager, and so do metrics that mark ``_update_reads_host`` (a nominal
+    metric with ``nan_strategy="drop"``).
     """
     from tpumetrics_torch.metric import Metric
 
@@ -109,11 +115,18 @@ def fusable_oo_leaders(collection: Any) -> List[str]:
         m0 = collection._modules[cg[0]]
         if (
             m0._defaults
-            and not any(isinstance(d, list) for d in m0._defaults.values())
+            and all(_holds_tensors(m0, name) for name in m0._defaults)
             and type(m0).functional_update is Metric.functional_update
+            and not m0._update_reads_host
         ):
             leaders.append(cg[0])
     return leaders
+
+
+def _holds_tensors(metric: Any, name: str) -> bool:
+    """Whether state ``name`` of ``metric`` is a tensor or a MaskedBuffer
+    now (a list state is neither; one that holds a buffer is the latter)."""
+    return not isinstance(getattr(metric, name), list)
 
 
 def _leaves(state: Dict[str, Any], prefix: Path = ()) -> Iterator[Tuple[Path, Tensor]]:
