@@ -107,6 +107,22 @@ Phases, each of which passes or exits non-zero:
    ``counts`` and ``probs`` modes; on the card and the CPU (tables and count
    lists identical), against float64 oracles with float32 error bounds,
    one steady update with host syncs made errors;
+5f. retrieval phase: MS MARCO passage re-ranking, dev (small) (6,980
+   queries x 1,000 candidates, 6,980,000 rows made from the seed at the
+   set's rates: 1.065 judged relevant passages a query, one among the
+   candidates for 85.7% of the queries, scores on a 1/1024 grid with the
+   relevant ones shifted to an MRR@10 near 0.36; batches of 65,536 in query
+   order, each permuted, a ragged 33,184): MRR@10, nDCG@10, MAP, P@10,
+   R@1000, HR@10, R-precision, fall-out@10, the PR curve and recall at
+   precision 0.1 (max_k 100) on list states, and a capacity copy of MRR@10,
+   MAP and nDCG@10 (``num_queries``, MaskedBuffers of the stream's rows);
+   on the card and the CPU (lists and buffers identical, values within
+   1e-6), against a float64 numpy oracle (1e-6), computed twice with
+   identical bits, one steady update with host syncs made errors but in the
+   two leaders' binary-target checks (counted), the device time of
+   compute's parts (the two sorts, ``sort_queries``, a segment sum, the PR
+   grid), and a graded stream at TREC DL 2019 passage geometry (43 x 1,000,
+   grades 0-3) through nDCG@10;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -117,6 +133,14 @@ Phases, each of which passes or exits non-zero:
    leaders' states, two gathers per list state) counted by a wrapper around
    the backend and in ``torch.profiler``, the binned update free of host
    syncs, and the sync's host-clock time per ``compute()``;
+6b. pairwise phase: 768-d embeddings (BERT-base width, as dense retrievers
+   such as DPR use): cosine, linear and euclidean of 6,980 queries against
+   65,536 passages under each reduction and in the self case at 6,980 x
+   6,980 (zero diagonal), manhattan and minkowski (p=3) at 4,096 x 4,096 in
+   row chunks of at most 1 GiB of difference; every result against a
+   float64 oracle on the card within its float32 error bound, once more
+   under the caller's ``set_float32_matmul_precision("medium")``, with each
+   function's device time and peak scratch;
 7. fused phase, at the end of each of the streams above: the stream's
    collection twice, ``fused_update=False`` and ``True`` (CUDA graphs), fed
    update by update in turns: states bit for bit and ``compute()`` values
@@ -1015,7 +1039,7 @@ def rank_auroc(probs: np.ndarray, target: np.ndarray) -> float:
 def task_phase(torch, bc, task: str) -> dict:
     """One binary or multilabel stream through its collection on the card and
     on the CPU (see the module note); returns the launches and times."""
-    import tpumetrics_torch as tm
+    import tpumetrics_torch.classification as tm
     from tpumetrics_torch import MetricCollection
     from tpumetrics_torch.interop import export_state
 
@@ -1194,7 +1218,7 @@ def fairness_phase(torch, bc) -> dict:
     target, groups)`` on the card and on the CPU; the per-group counts
     against numpy and the values against a float64 oracle; the histogram's
     device time; then the fused phase."""
-    import tpumetrics_torch as tm
+    import tpumetrics_torch.classification as tm
     from tpumetrics_torch import MetricCollection
     from tpumetrics_torch.functional.classification.group_fairness import _binary_groups_stat_scores
     from tpumetrics_torch.interop import export_state
@@ -1336,7 +1360,7 @@ def segmentation_phase(torch, bc) -> dict:
     note): mIoU, pixel accuracy and macro Dice on the card; the first 4
     batches against the CPU, the whole stream against numpy; then the fused
     phase."""
-    import tpumetrics_torch as tm
+    import tpumetrics_torch.classification as tm
     from tpumetrics_torch import MetricCollection
     from tpumetrics_torch.interop import export_state
 
@@ -2013,14 +2037,14 @@ def intrinsic_members(device) -> dict:
     }
 
 
-def buffered(metric):
-    """``metric`` with its list states in MaskedBuffers of the stream's rows,
-    installed as its live states: its update appends to them with no host
-    read, and a fused collection captures it."""
+def buffered(metric, rows: int = CLUSTER_N):
+    """``metric`` with its list states in MaskedBuffers of ``rows`` rows (the
+    stream's), installed as its live states: its update appends to them with
+    no host read, and a fused collection captures it."""
     from tpumetrics_torch.interop import load_state
 
     for name in metric._defaults:
-        metric.set_state_capacity(name, CLUSTER_N, feature_shape=(CLUSTER_D,) if name == "data" else ())
+        metric.set_state_capacity(name, rows, feature_shape=(CLUSTER_D,) if name == "data" else ())
     load_state(metric, metric.init_state())
     return metric
 
@@ -2410,6 +2434,409 @@ def nominal_phase(torch, bc) -> dict:
             "fleiss": fleiss, "fused": fused}
 
 
+# MS MARCO passage ranking, dev (small) (Nguyen et al. 2016; Nogueira & Cho 2019): 6,980 queries, the top 1000
+# BM25 candidates of each re-ranked; 7,437 relevance judgments; BM25's recall@1000 0.857; monoBERT's MRR@10 about 0.36.
+MSMARCO_Q, MSMARCO_CANDIDATES = 6980, 1000
+MSMARCO_BATCH = 65_536
+MSMARCO_RELEVANT = ([1, 2, 3, 4], [0.945, 0.047, 0.006, 0.002])  # judged relevant passages per query: 1.065 on average
+MSMARCO_RECALL = 0.857  # share of queries with a relevant passage among their candidates
+MSMARCO_SHIFT = 2.7  # the relevant passages' score shift over unit-normal negatives: MRR@10 about 0.36
+SCORE_GRID = 1024  # scores rounded to multiples of 1/1024, so that scores tie within a query
+TRECDL_Q, TRECDL_GRADES = 43, [0.905, 0.037, 0.042, 0.016]  # TREC DL 2019 passage: 43 queries, graded 0-3
+RETRIEVAL_ATOL = 1e-6  # values against the float64 oracle, and card against CPU
+
+
+def make_msmarco(seed: int, queries: int, graded: bool = False):
+    """``(indexes, scores, targets)`` in query order, 1000 candidates a query:
+    binary targets at MS MARCO dev's rates, or grades 0-3 at TREC DL 2019's,
+    float32 scores on a 1/1024 grid (a relevant passage's shifted up)."""
+    rng = np.random.default_rng(seed)
+    n = queries * MSMARCO_CANDIDATES
+    idx = np.repeat(np.arange(queries, dtype=np.int64), MSMARCO_CANDIDATES)
+    if graded:
+        target = rng.choice(4, n, p=TRECDL_GRADES).astype(np.int64)
+        shift = MSMARCO_SHIFT * target / 3
+    else:
+        nrel = rng.choice(MSMARCO_RELEVANT[0], queries, p=MSMARCO_RELEVANT[1]) * (rng.random(queries) < MSMARCO_RECALL)
+        # each query's relevant passages at distinct random candidate slots
+        slots = np.argsort(rng.random((queries, MSMARCO_CANDIDATES)), axis=1)[:, :4]
+        rel = np.zeros((queries, MSMARCO_CANDIDATES), bool)
+        for j in range(4):
+            rows = np.nonzero(nrel > j)[0]
+            rel[rows, slots[rows, j]] = True
+        target = rel.reshape(-1).astype(np.int64)
+        shift = MSMARCO_SHIFT * target
+    scores = (np.round((rng.standard_normal(n) + shift) * SCORE_GRID) / SCORE_GRID).astype(np.float32)
+    return idx, scores, target
+
+
+def msmarco_batches(idx, scores, target, seed: int):
+    """Rows in query order, in batches of 65,536 (queries straddle batch
+    edges), each batch's rows permuted."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for lo in range(0, idx.size, MSMARCO_BATCH):
+        perm = lo + rng.permutation(min(MSMARCO_BATCH, idx.size - lo))
+        out.append((scores[perm], target[perm], idx[perm]))
+    return out
+
+
+def retrieval_oracle(idx: np.ndarray, scores: np.ndarray, target: np.ndarray, queries: int) -> dict:
+    """float64 values of the members under ``empty_target_action="neg"``
+    (FallOut "pos"): each query ranked by a stable sort of ``-score``, ties
+    in the order the rows were appended; nDCG tie-averaged."""
+    order = np.lexsort((-scores.astype(np.float64), idx))
+    q, s, t = idx[order], scores[order].astype(np.float64), target[order].astype(np.float64)
+    counts = np.bincount(q, minlength=queries)
+    starts = np.cumsum(counts) - counts
+    rank = np.arange(q.size) - starts[q]
+    npos = np.bincount(q, weights=t, minlength=queries)
+    found = npos > 0
+    rel = t > 0
+
+    def per_query(w):
+        return np.bincount(q, weights=w, minlength=queries)
+
+    first = np.full(queries, np.iinfo(np.int64).max)
+    np.minimum.at(first, q[rel], rank[rel])
+    out = {"mrr10": np.where(first < 10, 1.0 / (first + 1.0), 0.0).mean()}
+    cum = np.cumsum(t)
+    cum_in_query = cum - (cum[starts] - t[starts])[q]
+    ap = per_query(t * cum_in_query / (rank + 1)) / np.maximum(npos, 1)
+    out["map"] = np.where(found, ap, 0.0).mean()
+    out["p10"] = np.where(found, per_query(t * (rank < 10)) / 10, 0.0).mean()
+    out["r1000"] = np.where(found, per_query(t * (rank < 1000)) / np.maximum(npos, 1), 0.0).mean()
+    out["hr10"] = np.where(found, per_query(t * (rank < 10)) > 0, 0.0).mean()
+    out["rprec"] = np.where(found, per_query(t * (rank < npos[q])) / np.maximum(npos, 1), 0.0).mean()
+    neg = 1.0 - t
+    out["fallout10"] = (per_query(neg * (rank < 10)) / np.maximum(per_query(neg), 1)).mean()
+    # tie-averaged DCG@10: each row counts its tie group's mean target
+    new_group = np.r_[True, (q[1:] != q[:-1]) | (s[1:] != s[:-1])]
+    gid = np.cumsum(new_group) - 1
+    avg = (np.bincount(gid, weights=t) / np.bincount(gid))[gid]
+    disc = np.where(rank < 10, 1.0 / np.log2(rank + 2.0), 0.0)
+    dcg = per_query(avg * disc)
+    ideal = np.lexsort((-t, q))
+    idcg = per_query(t[ideal] * disc)  # the ideal order: same query runs, ranks unchanged
+    out["ndcg10"] = np.where(idcg > 0, dcg / np.where(idcg > 0, idcg, 1.0), 0.0).mean()
+    # the PR curve and recall at precision 0.1, max_k = 100
+    grid = np.zeros((queries, 100))
+    keep = rank < 100
+    np.add.at(grid, (q[keep], rank[keep]), t[keep])
+    rel_cum = np.cumsum(grid, axis=1)
+    precision = (rel_cum / np.arange(1, 101)).mean(0)
+    recall = (rel_cum / np.maximum(npos, 1)[:, None]).mean(0)
+    out["prc"] = (precision, recall)
+    ok = precision >= 0.1
+    best = np.where(ok, recall, -np.inf)
+    max_recall = best.max() if ok.any() else 0.0
+    best_k = int(np.nonzero(ok & (best == max_recall))[0].max() + 1) if ok.any() and max_recall > 0 else 100
+    out["rafp"] = (max_recall, best_k)
+    return out
+
+
+RETRIEVAL_GROUPS = [
+    ["cap_map", "cap_mrr10", "cap_ndcg10"],
+    ["fallout10", "hr10", "map", "mrr10", "ndcg10", "p10", "prc", "r1000", "rafp", "rprec"],
+]
+# the two groups' leaders (a collection orders its members by name): their eager updates read the host once
+RETRIEVAL_HOST_READERS = {
+    "cap_map": "an eager update checks the targets are binary on the host (skipped under capture)",
+    "fallout10": "an eager update checks the targets are binary on the host (skipped under capture)",
+}
+
+
+def steady_host_syncs(torch, metric, batch) -> int:
+    """Host syncs of a steady update of a copy of ``metric``: the copy's
+    first update runs before the count (the first call of an op in a process
+    may initialize something on the host)."""
+    import copy
+
+    m = copy.deepcopy(metric)
+    m.update(*batch)
+    torch.cuda.synchronize()
+    return count_host_syncs(torch, lambda: m.update(*batch))
+
+
+def retrieval_members(device) -> dict:
+    """The MS MARCO report: ten members on list states, and a capacity copy
+    of MRR@10, MAP and nDCG@10 on MaskedBuffers of the stream's rows."""
+    import tpumetrics_torch.retrieval as rt
+
+    kw = {"device": device}
+    n = MSMARCO_Q * MSMARCO_CANDIDATES
+    spaces = {"num_queries": MSMARCO_Q, **kw}
+    return {
+        "mrr10": rt.RetrievalMRR(top_k=10, **kw), "ndcg10": rt.RetrievalNormalizedDCG(top_k=10, **kw),
+        "map": rt.RetrievalMAP(**kw), "p10": rt.RetrievalPrecision(top_k=10, **kw),
+        "r1000": rt.RetrievalRecall(top_k=1000, **kw), "hr10": rt.RetrievalHitRate(top_k=10, **kw),
+        "rprec": rt.RetrievalRPrecision(**kw), "fallout10": rt.RetrievalFallOut(top_k=10, **kw),
+        "prc": rt.RetrievalPrecisionRecallCurve(max_k=100, **kw),
+        "rafp": rt.RetrievalRecallAtFixedPrecision(min_precision=0.1, max_k=100, **kw),
+        "cap_mrr10": buffered(rt.RetrievalMRR(top_k=10, **spaces), n), "cap_map": buffered(rt.RetrievalMAP(**spaces), n),
+        "cap_ndcg10": buffered(rt.RetrievalNormalizedDCG(top_k=10, **spaces), n),
+    }
+
+
+def retrieval_phase(torch, bc) -> dict:
+    """MS MARCO passage re-ranking (see the module note): the report on the
+    card and on the CPU, states against each other, values against a
+    float64 oracle, a second compute identical, the host syncs of a steady
+    update, compute's parts on the device, the graded TREC DL stream, and the
+    fused phase."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.retrieval import _grouped as grouped
+    from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.retrieval import RetrievalNormalizedDCG
+
+    n = MSMARCO_Q * MSMARCO_CANDIDATES
+    label = f"retrieval MS MARCO dev {MSMARCO_Q} queries x {MSMARCO_CANDIDATES} candidates"
+    idx, scores, target = make_msmarco(SEED + 23, MSMARCO_Q)
+    batches = msmarco_batches(idx, scores, target, SEED + 24)
+
+    def collection(device, fused=False):
+        return MetricCollection(retrieval_members(device), fused_update=fused, device=device)
+
+    dev_batches = [tuple(torch.from_numpy(x).cuda() for x in b) for b in batches]
+    col = collection("cuda")
+    torch.cuda.synchronize()
+    bc.launches = 0
+    update_ms = []
+    for i, batch in enumerate(dev_batches):
+        t0 = time.perf_counter()
+        if i == 1:  # a steady update: a host sync raises, but in the leaders' binary-target checks
+            syncs = {name: steady_host_syncs(torch, col._modules[name], batch) for name in RETRIEVAL_HOST_READERS}
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with host_readers_exempt(torch, col, RETRIEVAL_HOST_READERS):
+                    col.update(*batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            col.update(*batch)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    values = col.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    for m in col._modules.values():
+        m._computed = None
+    t0 = time.perf_counter()
+    again = col.compute()
+    torch.cuda.synchronize()
+    compute2_ms = (time.perf_counter() - t0) * 1e3
+    flat, flat_again = flat_values(values), flat_values(again)
+    check(all(torch.equal(flat_again[k], v) for k, v in flat.items()), f"{label}: a second compute gave other bits")
+    groups = sorted(sorted(g) for g in col.compute_groups.values())
+    check(groups == RETRIEVAL_GROUPS, f"{label}: compute groups {groups}")
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+    check(all(v == 1 for v in syncs.values()), f"{label}: host syncs of one eager update {syncs}, expected one each")
+
+    cpu = collection("cpu")
+    for batch in batches:
+        cpu.update(*(torch.from_numpy(x) for x in batch))
+    check_same_states(label, export_state(col), export_state(cpu))
+    check_same_values(torch, label, values, cpu.compute())
+    del cpu
+
+    o = retrieval_oracle(np.concatenate([b[2] for b in batches]), np.concatenate([b[0] for b in batches]),
+                         np.concatenate([b[1] for b in batches]), MSMARCO_Q)
+    oracle = {k: v for k, v in o.items() if k not in ("prc", "rafp")}
+    oracle.update({f"cap_{k}": o[k] for k in ("mrr10", "map", "ndcg10")})
+    oracle.update({"prc[0]": o["prc"][0], "prc[1]": o["prc"][1], "prc[2]": np.arange(1, 101),
+                   "rafp[0]": o["rafp"][0], "rafp[1]": o["rafp"][1]})
+    check(set(flat) == set(oracle), f"{label}: keys {sorted(flat)}")
+    worst = check_values(label, flat, oracle, {k: (0.0, RETRIEVAL_ATOL) for k in oracle})
+
+    # compute's parts on the device (CUDA events, L2 flushed): the two sorts, one segment sum, the PR grid
+    flush = l2_flush(torch)
+    all_idx = torch.from_numpy(np.concatenate([b[2] for b in batches])).cuda().to(torch.int32)
+    all_s = torch.from_numpy(np.concatenate([b[0] for b in batches])).cuda()
+    all_t = torch.from_numpy(np.concatenate([b[1] for b in batches])).cuda().float()
+    sq = grouped.sort_queries(all_idx, all_s, all_t, MSMARCO_Q)
+    parts = {
+        "two_sorts": cuda_ms(torch, lambda: grouped._ranked_order(all_idx, all_s), 5, flush),
+        "sort_queries": cuda_ms(torch, lambda: grouped.sort_queries(all_idx, all_s, all_t, MSMARCO_Q), 5, flush),
+        "segment_sum": cuda_ms(torch, lambda: grouped._segment_sum(sq.target, sq), 5, flush),
+        "pr_grid": cuda_ms(torch, lambda: grouped.grouped_precision_recall_curve(sq, 100), 5, flush),
+    }
+    # the graded stream: TREC DL 2019 passage geometry through nDCG@10 on the card and the CPU
+    g_idx, g_scores, g_target = make_msmarco(SEED + 25, TRECDL_Q, graded=True)
+    g_batches = msmarco_batches(g_idx, g_scores, g_target, SEED + 26)
+    graded = {d: RetrievalNormalizedDCG(top_k=10, device=d) for d in ("cuda", "cpu")}
+    for b in g_batches:
+        graded["cuda"].update(*(torch.from_numpy(x).cuda() for x in b))
+        graded["cpu"].update(*(torch.from_numpy(x) for x in b))
+    g_value, g_cpu = graded["cuda"].compute(), graded["cpu"].compute()
+    g_oracle = retrieval_oracle(np.concatenate([b[2] for b in g_batches]), np.concatenate([b[0] for b in g_batches]),
+                                np.concatenate([b[1] for b in g_batches]), TRECDL_Q)["ndcg10"]
+    check(abs(float(g_value) - float(g_cpu)) <= RETRIEVAL_ATOL, f"{label}: graded nDCG@10 card {g_value} vs CPU {g_cpu}")
+    check(abs(float(g_value) - g_oracle) <= RETRIEVAL_ATOL, f"{label}: graded nDCG@10 {g_value} vs oracle {g_oracle}")
+    del flush, sq, all_idx, all_s, all_t
+    steady = update_ms[2:-1]
+    print(
+        f"retrieval phase: {label}: {n} rows in {len(batches)} batches of {MSMARCO_BATCH} (the last {len(batches[-1][0])},"
+        f" rows permuted in each), {int(target.sum())} relevant, {int((np.bincount(idx, weights=target) > 0).sum())}"
+        f" queries with one; reduced: none; {len(col._modules)} members in {len(groups)} compute groups; states"
+        f" identical to the CPU run's (lists and buffers), values within {RETRIEVAL_ATOL} of it; against a float64"
+        f" oracle, worst share of the tolerance {max(worst.values()):.3f} ({max(worst, key=worst.get)}); MRR@10"
+        f" {float(values['mrr10']):.6f} nDCG@10 {float(values['ndcg10']):.6f} MAP {float(values['map']):.6f}"
+        f" P@10 {float(values['p10']):.6f} R@1000 {float(values['r1000']):.6f} HR@10 {float(values['hr10']):.6f}"
+        f" R-prec {float(values['rprec']):.6f} fall-out@10 {float(values['fallout10']):.3e}; recall at precision 0.1"
+        f" {float(values['rafp'][0]):.6f} at k {int(values['rafp'][1])}; a second compute identical; update 2 with"
+        f" host syncs made errors but in {sorted(RETRIEVAL_HOST_READERS)}, whose host syncs in one update are {syncs};"
+        f" first update {update_ms[0]:.3f} ms, steady median {np.median(steady):.3f} ms; compute() {compute_ms:.3f} ms"
+        f" first, {compute2_ms:.3f} ms again (host clock); device time of one call over the {n} rows (median, L2"
+        f" flushed; host time to make it): " + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]:.3f} ms)" for k, v in parts.items())
+        + f"; graded TREC DL 2019 geometry ({TRECDL_Q} x {MSMARCO_CANDIDATES}, grades 0-3): nDCG@10"
+        f" {float(g_value):.6f}, CPU {float(g_cpu):.6f}, oracle {g_oracle:.6f}",
+        flush=True,
+    )
+    profile_step(torch, col, dev_batches[2], label)
+    del col
+    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches,
+                       exempt={"fallout10": RETRIEVAL_HOST_READERS["fallout10"]})
+    check(fused["eager_leaders"] == ["fallout10"], f"{label}: eager leaders {fused['eager_leaders']}")
+    return {"launches": 0, "update_ms": update_ms, "compute_ms": [compute_ms, compute2_ms], "parts_ms": parts,
+            "host_syncs": syncs, "oracle_worst": worst, "graded_ndcg10": float(g_value),
+            "values": {k: float(v) for k, v in flat.items() if v.numel() == 1}, "fused": fused}
+
+
+# dense retrieval at BERT-base width (DPR-style bi-encoders): MS MARCO dev's 6,980 query embeddings against one
+# 65,536-passage block of the corpus, 768-d float32; the L1 and L3 distances at 4,096 x 4,096
+EMB_D, EMB_QUERIES, EMB_PASSAGES, EMB_LP = 768, 6980, 65_536, 4096
+U32 = 2.0**-24  # float32's unit roundoff
+REDUCE_DEPTH = 128  # a bound on the float32 additions in a row of torch's sum over 65,536 columns
+
+
+def pairwise_phase(torch, bc) -> dict:
+    """Embedding similarity at 768-d (see the module note): cosine, linear
+    and euclidean of 6,980 x 65,536 under each reduction and in the self case
+    at 6,980 x 6,980, manhattan and minkowski (p=3) at 4,096 x 4,096 in row
+    chunks; every result against a float64 oracle on the card within its
+    float32 error bound, again under the caller's
+    ``set_float32_matmul_precision("medium")``; times and peak scratch."""
+    import tpumetrics_torch.functional.pairwise as pw
+    from tpumetrics_torch.functional.pairwise import helpers
+
+    bc.launches = 0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    mean = 0.3 * torch.randn(EMB_D, device="cuda", generator=g)
+    q = (mean + 0.5 * torch.randn(EMB_QUERIES, EMB_D, device="cuda", generator=g)).contiguous()
+    p = (mean + 0.5 * torch.randn(EMB_PASSAGES, EMB_D, device="cuda", generator=g)).contiguous()
+    label = f"pairwise {EMB_QUERIES} x {EMB_PASSAGES} x {EMB_D}-d"
+
+    def oracle_rows(name, x, y, lo, hi):
+        """float64 results and absolute tolerances of rows ``lo:hi`` (unreduced)."""
+        x64, y64 = x[lo:hi].double(), y.double()
+        if name == "cosine":  # the float32 norms add a relative error of (D/2 + 2)u per row
+            xn = x64 / x64.norm(dim=1, keepdim=True)
+            yn = y64 / y64.norm(dim=1, keepdim=True)
+            return xn @ yn.T, (2 * EMB_D + 8) * U32 * (xn.abs() @ yn.abs().T)
+        if name == "linear":
+            return x64 @ y64.T, (EMB_D + 8) * U32 * (x64.abs() @ y64.abs().T)
+        c = x.double().mean(0)
+        xc, yc = x64 - c, y64 - c
+        xs, ys = (xc * xc).sum(1), (yc * yc).sum(1)
+        d = torch.sqrt(torch.clamp(xs[:, None] + ys[None, :] - 2 * xc @ yc.T, min=0.0))
+        # the float32 squared distance is off by e at most; the distance by sqrt(d^2 + e) - d
+        e = 2 * (EMB_D + 8) * U32 * (xs[:, None] + ys[None, :])
+        tol = torch.sqrt(d * d + e) - d + 2 * U32 * (xs.sqrt()[:, None] + ys.sqrt()[None, :] + d)
+        return d, tol
+
+    def check_fn(name, fn, x, y, reduction, zero_diag):
+        got = fn(x, y, reduction=reduction)
+        worst = 0.0
+        rows = 1024
+        yy = x if y is None else y
+        for lo in range(0, x.shape[0], rows):
+            want, tol = oracle_rows(name, x, yy, lo, min(lo + rows, x.shape[0]))
+            if zero_diag:
+                eye = torch.zeros_like(want, dtype=torch.bool)
+                r = torch.arange(want.shape[0], device=want.device)
+                eye[r, lo + r] = True
+                want = torch.where(eye, 0.0, want)
+                tol = torch.where(eye, 0.0, tol)
+            if reduction in ("sum", "mean"):
+                scale = 1.0 / want.shape[1] if reduction == "mean" else 1.0
+                tol = (tol.sum(1) + REDUCE_DEPTH * U32 * want.abs().sum(1)) * scale
+                want = want.sum(1) * scale
+            diff = (got[lo : lo + rows].double() - want).abs()
+            check(bool((diff <= tol).all()), f"{label}: {name} {reduction} rows {lo}+: worst diff {float(diff.max())}"
+                  f" over tolerance {float((diff / tol.clamp(min=1e-300)).max())}x")
+            worst = max(worst, float((diff / tol.clamp(min=1e-300)).max()))
+        if zero_diag and reduction is None:
+            check(bool((torch.diagonal(got) == 0).all()), f"{label}: {name} self case: the diagonal is not zero")
+        return worst
+
+    fns = {"cosine": pw.pairwise_cosine_similarity, "linear": pw.pairwise_linear_similarity,
+           "euclidean": pw.pairwise_euclidean_distance}
+    worst, times, scratch = {}, {}, {}
+    for precision in ("highest", "medium"):
+        torch.set_float32_matmul_precision(precision)
+        try:
+            for name, fn in fns.items():
+                for reduction in (None, "mean", "sum"):
+                    worst[f"{name} {reduction} {precision}"] = check_fn(name, fn, q, p, reduction, False)
+                worst[f"{name} self {precision}"] = check_fn(name, fn, q, None, None, True)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # manhattan and minkowski (p=3), 4,096 x 4,096 x 768: at least two chunks of at most 1 GiB of difference
+    x, y = q[:EMB_LP], p[:EMB_LP]
+    rows = helpers._DIFF_BUDGET_BYTES // (EMB_LP * EMB_D * 4)
+    check(rows < EMB_LP, f"{label}: one chunk of {rows} rows holds all {EMB_LP}")
+    lp = {"manhattan": (lambda a, b: pw.pairwise_manhattan_distance(a, b), 1.0),
+          "minkowski3": (lambda a, b: pw.pairwise_minkowski_distance(a, b, exponent=3), 3.0)}
+    for name, (fn, power) in lp.items():
+        got = fn(x, y)
+        for lo in range(0, EMB_LP, 64):
+            diff = (x[lo : lo + 64, None, :].double() - y[None, :, :].double()).abs()
+            want = diff.pow(power).sum(-1).pow(1.0 / power)
+            err = (got[lo : lo + 64].double() - want).abs()
+            rtol = (EMB_D + 16) * U32
+            check(bool((err <= rtol * want).all()), f"{label}: {name} rows {lo}+ worst relative {float((err / want).max())}")
+            worst[name] = max(worst.get(name, 0.0), float((err / (rtol * want)).max()))
+        del diff, want, err
+
+    flush = l2_flush(torch)
+    for name, fn in fns.items():
+        for reduction in (None, "mean", "sum"):
+            key = f"{name} {reduction}"
+            times[key] = cuda_ms(torch, lambda: fn(q, p, reduction=reduction), 3, flush)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(q, p, reduction=reduction)
+            torch.cuda.synchronize()
+            scratch[key] = (torch.cuda.max_memory_allocated() - resident - out.numel() * 4) / 2**20
+            del out
+    for name, (fn, _) in lp.items():
+        times[name] = cuda_ms(torch, lambda: fn(x, y), 3, flush)
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(x, y)
+        torch.cuda.synchronize()
+        scratch[name] = (torch.cuda.max_memory_allocated() - resident - out.numel() * 4) / 2**20
+        del out
+    del flush
+    check(bc.launches == 0, f"{label}: binned_confusion launched {bc.launches} times")
+    print(
+        f"pairwise phase: {label}: cosine, linear and euclidean under each reduction and in the self case"
+        f" ({EMB_QUERIES} x {EMB_QUERIES}, zero diagonal), manhattan and minkowski (p=3) at {EMB_LP} x {EMB_LP} in"
+        f" {-(-EMB_LP // rows)} chunks of {rows} rows; every result within its float32 bound of a float64 oracle on the"
+        f" card, with set_float32_matmul_precision 'highest' and 'medium'; worst share of the bound "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+        + "; device time of one call (median, L2 flushed; host time to make it) and peak scratch beyond the"
+        " result: " + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]:.3f} ms), {scratch[k]:.0f} MiB" for k, v in times.items()),
+        flush=True,
+    )
+    return {"launches": 0, "oracle_worst": worst, "ms": {k: v[0] for k, v in times.items()}, "scratch_mib": scratch}
+
+
 def sync_phase(torch, bc, smi: str) -> dict:
     """The ImageNet-size collection synced over NCCL at world size 1 (see the module note)."""
     import tempfile
@@ -2418,14 +2845,8 @@ def sync_phase(torch, bc, smi: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpumetrics_torch import (
-        CatMetric,
-        MeanMetric,
-        MetricCollection,
-        MulticlassAccuracy,
-        MulticlassAUROC,
-        MulticlassF1Score,
-    )
+    from tpumetrics_torch import CatMetric, MeanMetric, MetricCollection
+    from tpumetrics_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
     from tpumetrics_torch.parallel import (
         NoOpBackend,
         TorchDistBackend,
@@ -2746,8 +3167,10 @@ def main() -> None:
         "multioutput": multioutput_phase(torch, bc),
         "clustering": clustering_phase(torch, bc),
         "nominal": nominal_phase(torch, bc),
+        "retrieval": retrieval_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
+    pairwise = pairwise_phase(torch, bc)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -2811,6 +3234,12 @@ def main() -> None:
                 "fleiss")},
             "reduced": f"CIFAR-10H: a fixed {RATERS} raters per image (the dataset has 47-63)",
         },
+        "retrieval": {
+            **{k: paths["retrieval"][k] for k in ("compute_ms", "parts_ms", "host_syncs", "oracle_worst", "values",
+                                                  "graded_ndcg10")},
+            "reduced": "none",
+        },
+        "pairwise": pairwise,
     }
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)

@@ -24,8 +24,10 @@ import tpumetrics_torch.functional as fn
 from tests.test_torch_classification import _assert_same, _both
 from tpumetrics.ops import binned_confusion_fused as jax_binned_confusion_fused
 from tpumetrics_torch import MetricCollection
-from tpumetrics_torch.functional.classification import precision_recall_curve as prc
 from tpumetrics_torch.interop import export_state
+
+# the module (the package's ``__init__`` binds the name to the task dispatcher)
+prc = importlib.import_module("tpumetrics_torch.functional.classification.precision_recall_curve")
 
 jax_prc = importlib.import_module("tpumetrics.functional.classification.precision_recall_curve")
 

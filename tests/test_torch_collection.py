@@ -493,6 +493,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import tpumetrics_torch, tpumetrics_torch.interop, tpumetrics_torch.functional, tpumetrics_torch.ops\n"
+        "import tpumetrics_torch.utilities.data\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpumetrics')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True, timeout=120)

@@ -5,7 +5,12 @@ a MaskedBuffer's dump row on the card, the fused collection update
 (CUDA graphs) against the unfused one, and the regression domain: Spearman's
 ranks and Kendall's pair count on the card against the CPU, the regression
 leaders captured in a graph, and a ``MultioutputWrapper`` free of host
-syncs.
+syncs; the clustering and nominal tables and leaders; and the retrieval
+and pairwise slice: the retrieval sort's permutation on the card against
+the CPU's (NaN, +-inf, +-0.0 among the scores), a retrieval ``compute()``
+twice with the same bits, the full-float32 product under the caller's
+``set_float32_matmul_precision("medium")``, and a buffered retrieval
+leader replayed with no host sync.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -967,3 +972,129 @@ def test_buffered_clustering_and_nominal_updates_replay_in_a_graph(cuda):
         assert cols[True]._fused_oo_step.counts["replayed"] >= 2
         for key, val in cols[False].compute().items():
             assert torch.equal(cols[True].compute()[key], val), key
+
+
+# ---------------------------------------------------------- retrieval and pairwise
+
+_SORT_KEYS = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 0.5, -0.5, 1e-30, -1e-30], np.float32)
+
+
+def test_retrieval_sort_permutation_on_the_card_equals_the_cpu(cuda):
+    """The two stable sorts on canonical keys give the CPU's permutation on
+    the card, with NaN of both signs, +-inf and +-0.0 among the scores."""
+    from tpumetrics_torch.functional.retrieval._grouped import _ranked_order, sort_queries
+
+    rng = np.random.default_rng(31)
+    idx = torch.from_numpy(rng.integers(0, 50, 200_000).astype(np.int32))
+    preds = torch.from_numpy(rng.choice(_SORT_KEYS, 200_000))
+    assert torch.equal(_ranked_order(idx.to(cuda), preds.to(cuda)).cpu(), _ranked_order(idx, preds))
+    got = sort_queries(idx.to(cuda), preds.to(cuda), preds.abs().nan_to_num(0.0, 0.0, 0.0).to(cuda), 50)
+    want = sort_queries(idx, preds, preds.abs().nan_to_num(0.0, 0.0, 0.0), 50)
+    for field in ("idx", "rank", "counts", "starts", "ends"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+
+
+def test_retrieval_compute_gives_the_same_bits_twice_and_the_cpu_values(cuda):
+    """A collection's ``compute()`` on the card twice: identical bits; within
+    1e-6 of the CPU's."""
+    from tpumetrics_torch import retrieval as rt
+
+    def members(d):
+        return {"map": rt.RetrievalMAP(device=d), "ndcg": rt.RetrievalNormalizedDCG(top_k=10, device=d),
+                "mrr": rt.RetrievalMRR(top_k=10, device=d), "prc": rt.RetrievalPrecisionRecallCurve(max_k=20, device=d)}
+
+    rng = np.random.default_rng(32)
+    idx = np.repeat(np.arange(3000), 200).astype(np.int64)
+    preds = (rng.integers(0, 1024, idx.size) / 1024).astype(np.float32)
+    target = (rng.random(idx.size) < 0.02).astype(np.int64)
+    gpu, cpu = MetricCollection(members(cuda), device=cuda), MetricCollection(members("cpu"), device="cpu")
+    for lo in range(0, idx.size, 65536):
+        batch = [torch.from_numpy(a[lo : lo + 65536]) for a in (preds, target, idx)]
+        gpu.update(*(b.to(cuda) for b in batch))
+        cpu.update(*batch)
+    first = gpu.compute()
+    for m in gpu._modules.values():
+        m._computed = None
+    second, want = gpu.compute(), cpu.compute()
+    for key in want:
+        a, b, c = (x if isinstance(x, tuple) else (x,) for x in (first[key], second[key], want[key]))
+        for x, y, z in zip(a, b, c):
+            assert torch.equal(x, y), key
+            torch.testing.assert_close(x.cpu().double(), z.double(), rtol=0, atol=1e-6)
+
+
+def test_safe_matmul_is_full_float32_under_medium_precision(cuda):
+    """``set_float32_matmul_precision("medium")`` by the caller: the product
+    still agrees with float64 to float32's tolerance (TF32 misses it by
+    three orders), and the caller's setting comes back."""
+    from tpumetrics_torch.utils.compute import _safe_matmul
+
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.standard_normal((512, 768)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((1024, 768)).astype(np.float32))
+    want = x.double() @ y.double().T
+    torch.set_float32_matmul_precision("medium")
+    try:
+        got = _safe_matmul(x.to(cuda), y.to(cuda)).cpu().double()
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    scale = (x.double().abs() @ y.double().abs().T)
+    assert bool(((got - want).abs() <= 768 * 2**-24 * scale).all())
+
+
+def test_buffered_retrieval_leader_replays_without_a_host_sync(cuda):
+    """A retrieval leader on live MaskedBuffers is captured and replayed;
+    the replays raise nothing with host syncs made errors; states bit for
+    bit the unfused collection's; a list leader stays eager beside it."""
+    from tpumetrics_torch import retrieval as rt
+    from tpumetrics_torch.interop import load_state
+
+    def buffered(m, cap=8192):
+        for state in m._defaults:
+            m.set_state_capacity(state, cap)
+        load_state(m, m.init_state())
+        return m
+
+    def make(f):
+        return MetricCollection(
+            {"cap_mrr": buffered(rt.RetrievalMRR(top_k=10, num_queries=40, device=cuda)),
+             "cap_map": buffered(rt.RetrievalMAP(num_queries=40, device=cuda)),
+             "list_ndcg": rt.RetrievalNormalizedDCG(device=cuda)},
+            fused_update=f, device=cuda,
+        )
+
+    cols = {f: make(f) for f in (False, True)}
+    rng = np.random.default_rng(34)
+    for i in range(6):
+        args = [torch.from_numpy(a).to(cuda) for a in (
+            rng.random(1024).astype(np.float32), rng.integers(0, 2, 1024), np.sort(rng.integers(0, 40, 1024)))]
+        cols[False].update(*args)
+        if i >= 3:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            # the list leader's eager binary check reads the host: let it through by name
+            ndcg = cols[True]._modules["list_ndcg"]
+            update = ndcg.update
+
+            def allowed(*a, **k):
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    return update(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("error" if i >= 3 else 0)
+
+            object.__setattr__(ndcg, "update", allowed)
+            cols[True].update(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            object.__setattr__(ndcg, "update", update)
+        fused, plain = export_state(cols[True]), export_state(cols[False])
+        for leader, states in plain.items():
+            for name, ref in states.items():
+                got = fused[leader][name]
+                assert all(np.array_equal(g, r) for g, r in zip(got, ref)), (leader, name)
+    step = cols[True]._fused_oo_step
+    assert step.leaders == ["cap_map"] and step.counts["replayed"] >= 3
+    for key, val in cols[False].compute().items():
+        assert torch.equal(cols[True].compute()[key], val), key

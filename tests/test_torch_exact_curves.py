@@ -25,7 +25,9 @@ import tpumetrics_torch
 import tpumetrics_torch.classification as cls
 import tpumetrics_torch.functional as fn
 from tests.test_torch_classification import _assert_same, _both
-from tpumetrics_torch.functional.classification import precision_recall_curve as prc
+
+# the module (the package's ``__init__`` binds the name to the task dispatcher)
+prc = importlib.import_module("tpumetrics_torch.functional.classification.precision_recall_curve")
 
 jax_prc = importlib.import_module("tpumetrics.functional.classification.precision_recall_curve")
 

@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from tpumetrics.ops import binned_confusion_fused as jax_binned_confusion_fused
-from tpumetrics_torch.functional.classification import precision_recall_curve as prc
 from tpumetrics_torch.ops import binned_confusion as bc
 from tpumetrics_torch.utils.data import _bincount
+
+# the module (the package's ``__init__`` binds the name to the task dispatcher)
+prc = importlib.import_module("tpumetrics_torch.functional.classification.precision_recall_curve")
 
 # the JAX package's classification namespace re-exports a function of the same name
 jax_prc = importlib.import_module("tpumetrics.functional.classification.precision_recall_curve")

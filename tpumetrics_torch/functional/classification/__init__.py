@@ -1,33 +1,50 @@
-"""Functional classification metrics of the port: the binary, multiclass and
-multilabel variants. The task-string dispatchers (``accuracy``, ``auroc``,
-...) share their names with modules of this package, so they are exported
-from ``tpumetrics_torch.functional`` and the names here stay the modules."""
+"""Functional classification metrics of the port (counterpart of
+``tpumetrics/functional/classification``): the binary, multiclass and
+multilabel variants and the task-string dispatchers (``accuracy``,
+``auroc``, ...). A dispatcher shares its name with the module that holds
+it, so the name here is the function; reach the module with
+``importlib.import_module``."""
 
 from tpumetrics_torch.functional.classification.accuracy import (
+    accuracy,
     binary_accuracy,
     multiclass_accuracy,
     multilabel_accuracy,
 )
-from tpumetrics_torch.functional.classification.auroc import binary_auroc, multiclass_auroc, multilabel_auroc
+from tpumetrics_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc, multilabel_auroc
 from tpumetrics_torch.functional.classification.average_precision import (
+    average_precision,
     binary_average_precision,
     multiclass_average_precision,
     multilabel_average_precision,
 )
 from tpumetrics_torch.functional.classification.calibration_error import (
     binary_calibration_error,
+    calibration_error,
     multiclass_calibration_error,
 )
-from tpumetrics_torch.functional.classification.cohen_kappa import binary_cohen_kappa, multiclass_cohen_kappa
+from tpumetrics_torch.functional.classification.cohen_kappa import (
+    binary_cohen_kappa,
+    cohen_kappa,
+    multiclass_cohen_kappa,
+)
 from tpumetrics_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
+    confusion_matrix,
     multiclass_confusion_matrix,
     multilabel_confusion_matrix,
 )
-from tpumetrics_torch.functional.classification.exact_match import multiclass_exact_match, multilabel_exact_match
+from tpumetrics_torch.functional.classification.dice import dice
+from tpumetrics_torch.functional.classification.exact_match import (
+    exact_match,
+    multiclass_exact_match,
+    multilabel_exact_match,
+)
 from tpumetrics_torch.functional.classification.f_beta import (
     binary_f1_score,
     binary_fbeta_score,
+    f1_score,
+    fbeta_score,
     multiclass_f1_score,
     multiclass_fbeta_score,
     multilabel_f1_score,
@@ -41,17 +58,20 @@ from tpumetrics_torch.functional.classification.group_fairness import (
 )
 from tpumetrics_torch.functional.classification.hamming import (
     binary_hamming_distance,
+    hamming_distance,
     multiclass_hamming_distance,
     multilabel_hamming_distance,
 )
-from tpumetrics_torch.functional.classification.hinge import binary_hinge_loss, multiclass_hinge_loss
+from tpumetrics_torch.functional.classification.hinge import binary_hinge_loss, hinge_loss, multiclass_hinge_loss
 from tpumetrics_torch.functional.classification.jaccard import (
     binary_jaccard_index,
+    jaccard_index,
     multiclass_jaccard_index,
     multilabel_jaccard_index,
 )
 from tpumetrics_torch.functional.classification.matthews_corrcoef import (
     binary_matthews_corrcoef,
+    matthews_corrcoef,
     multiclass_matthews_corrcoef,
     multilabel_matthews_corrcoef,
 )
@@ -67,11 +87,14 @@ from tpumetrics_torch.functional.classification.precision_recall import (
     multiclass_recall,
     multilabel_precision,
     multilabel_recall,
+    precision,
+    recall,
 )
 from tpumetrics_torch.functional.classification.precision_recall_curve import (
     binary_precision_recall_curve,
     multiclass_precision_recall_curve,
     multilabel_precision_recall_curve,
+    precision_recall_curve,
 )
 from tpumetrics_torch.functional.classification.ranking import (
     multilabel_coverage_error,
@@ -83,11 +106,12 @@ from tpumetrics_torch.functional.classification.recall_fixed_precision import (
     multiclass_recall_at_fixed_precision,
     multilabel_recall_at_fixed_precision,
 )
-from tpumetrics_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc
+from tpumetrics_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
 from tpumetrics_torch.functional.classification.specificity import (
     binary_specificity,
     multiclass_specificity,
     multilabel_specificity,
+    specificity,
 )
 from tpumetrics_torch.functional.classification.specificity_sensitivity import (
     binary_specificity_at_sensitivity,
@@ -98,9 +122,13 @@ from tpumetrics_torch.functional.classification.stat_scores import (
     binary_stat_scores,
     multiclass_stat_scores,
     multilabel_stat_scores,
+    stat_scores,
 )
 
 __all__ = [
+    "accuracy",
+    "auroc",
+    "average_precision",
     "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
@@ -124,8 +152,19 @@ __all__ = [
     "binary_specificity",
     "binary_specificity_at_sensitivity",
     "binary_stat_scores",
+    "calibration_error",
+    "cohen_kappa",
+    "confusion_matrix",
     "demographic_parity",
+    "dice",
     "equal_opportunity",
+    "exact_match",
+    "f1_score",
+    "fbeta_score",
+    "hamming_distance",
+    "hinge_loss",
+    "jaccard_index",
+    "matthews_corrcoef",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
@@ -170,4 +209,10 @@ __all__ = [
     "multilabel_specificity",
     "multilabel_specificity_at_sensitivity",
     "multilabel_stat_scores",
+    "precision",
+    "precision_recall_curve",
+    "recall",
+    "roc",
+    "specificity",
+    "stat_scores",
 ]

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from contextlib import contextmanager
+from typing import Iterator, Optional
 
 import torch
 
@@ -12,6 +13,38 @@ Tensor = torch.Tensor
 # f32 accumulator: a 0/1-weighted f32 contraction over fewer samples is an
 # exact count
 EXACT_F32_COUNT = 1 << 24
+
+
+@contextmanager
+def _ieee_float32_matmul() -> Iterator[None]:
+    """Inside it, float32 matmuls on the card (cuBLAS) and the CPU (oneDNN)
+    run in full float32, whatever ``torch.set_float32_matmul_precision`` or
+    the backends' ``fp32_precision`` say; the caller's settings come back on
+    exit. The settings are process-wide: a matmul that another thread
+    dispatches meanwhile runs in full float32 too."""
+    backends = [torch.backends.cuda.matmul, torch.backends.mkldnn.matmul]
+    saved = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for b, value in zip(backends, saved):
+            b.fp32_precision = value
+
+
+def _safe_matmul(x: Tensor, y: Tensor) -> Tensor:
+    """``x @ y.T`` in full float32, never TF32 or bfloat16: the counterpart
+    of the JAX package's ``Precision.HIGHEST`` product.
+
+    Safe inside a CUDA graph capture: the precision settings are read on the
+    host when the product is dispatched, to choose the cuBLAS kernel and math
+    mode; changing them launches nothing on the card and reads nothing back,
+    so the captured graph holds the full-float32 kernel and its replays run
+    it whatever the settings are then.
+    """
+    with _ieee_float32_matmul():
+        return torch.matmul(x, y.T)
 
 
 def _as_float(x: Tensor) -> Tensor:

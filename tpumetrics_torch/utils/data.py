@@ -89,6 +89,11 @@ def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor
     return _one_hot(label_tensor, num_classes).movedim(-1, 1)
 
 
+def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities or logits to dense labels, the argmax along ``argmax_dim``."""
+    return torch.argmax(x, dim=argmax_dim)
+
+
 def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     """int32 mask of the top-k entries along ``dim``."""
     if topk == 1:

@@ -36,3 +36,11 @@ def rank_zero_warn(message: str, *args: Any, **kwargs: Any) -> None:
     kwargs.setdefault("stacklevel", 5)
     warnings.warn(message, *args, **kwargs)
 
+
+
+@rank_zero_only
+def rank_zero_info(message: str, *args: Any, **kwargs: Any) -> None:
+    print(message, *args, **kwargs)
+
+
+rank_zero_debug = rank_zero_info
