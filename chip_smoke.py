@@ -8,7 +8,8 @@ Run from the repository root, on a machine with an NVIDIA card and ``nvcc``::
 Phases, each of which passes or exits non-zero:
 
 1. the card's name and power limit;
-2. build every CUDA kernel of the port from ``tpumetrics_torch/csrc``;
+2. build every CUDA kernel of the port from ``tpumetrics_torch/csrc``
+   (one ``nvcc`` for each source, all started together);
 3. kernel phase: ``binned_confusion`` against its plain torch version on
    the same inputs, exact, at the shapes of every path below and at edge
    cases (contended narrow C, T=1, unsorted and duplicate thresholds with
@@ -123,6 +124,32 @@ Phases, each of which passes or exits non-zero:
    compute's parts (the two sorts, ``sort_queries``, a segment sum, the PR
    grid), and a graded stream at TREC DL 2019 passage geometry (43 x 1,000,
    grades 0-3) through nDCG@10;
+5g. audio: the kernel phase of ``biquad_cascade`` (SRMR's IIR filterbanks)
+   against its plain torch version on the card, bit for bit, at both call
+   sites' shapes at T=2048 and 4096, at edge cases (T=1, one lane,
+   silence, lanes driven into the clip, NaN and inf inputs) and at the
+   SRMR stream's full shapes (184 and 1,472 lanes x 128,000 samples, the
+   shapes its main path gives the kernel), with its time at those shapes
+   (events, L2 flushed), a one-lane launch's at the full T (the sequential
+   chain of one thread per lane), the plain version's at the full shapes
+   and at T=2048, and the bytes bound; then a separation
+   stream at WSJ0-2mix test geometry (3,000 two-speaker mixtures of 4 s at
+   8 kHz, made from the seed as speech-like modulated noise with estimates
+   at 15 dB and the speakers swapped in about half; batches of 50; made
+   with their float64 oracles in worker processes): speaker-wise PIT over
+   SI-SDR on the raw estimates, a collection of SI-SNR, SNR, SA-SDR and SDR
+   (512 taps) and C-SI-SNR of a 512-point STFT on the estimates that
+   ``pit_permutate`` reorders; values against float64 oracles (brute-force
+   PIT, ``scipy.linalg.solve_toeplitz`` SDR), the card against the CPU on
+   the first 4 batches, every recovered permutation against the data's,
+   host syncs of each member's steady update, three speakers eagerly (the
+   Hungarian path, its host read let through) and under capture (the
+   exhaustive path, the same result); and an SRMR stream at REVERB
+   challenge geometry (64 reverberant utterances of 8 s at 16 kHz, batches
+   of 8; ``norm=True`` over one batch): the card against the CPU on 2
+   utterances of 2 s, clean utterances scoring above their reverberant
+   copies, the kernel's launches (2 an update) and its share of the
+   update's device time; each stream with its fused phase;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -151,8 +178,15 @@ Phases, each of which passes or exits non-zero:
    the host in every update, let through by name), 15 steady updates of
    each timed on the host clock in turns, one of each under
    ``torch.profiler`` (device union), the capture time, and
-   the kernel's launches (eager calls plus each graph's replays times the
-   calls it captured) equal to the unfused run's.
+   each kernel's launches (eager calls plus each graph's replays times the
+   calls it captured) equal to the unfused run's (the separation stream's
+   SDR stays eager beside the graph: MAGMA's batched LU cannot be captured).
+
+Run alone, a phase is a function of this module, called from a script that
+guards its own entry point (``if __name__ == "__main__":``; the separation
+phase starts worker processes with ``spawn``) after ``_build.build()``:
+``chip_smoke.separation_phase(torch, bc)``, ``chip_smoke.srmr_phase(torch,
+bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -164,6 +198,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -718,7 +753,7 @@ def slice_phase(torch, bc, label: str, n: int, c: int, t: int, batch: int, extra
     )
     profile_step(torch, col, dev_batches[0], label)
     del col
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches)
     if extra:
         check(fused["groups"] == want, f"{label}: fused compute groups {fused['groups']}")
         check(fused["eager_leaders"] == ["ece"], f"{label}: eager leaders {fused['eager_leaders']}, expected ['ece']")
@@ -865,7 +900,7 @@ class host_readers_exempt:
         return False
 
 
-def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: int = 15, exempt=None) -> dict:
+def fused_pair(torch, label: str, make, dev_batches, update=None, rounds: int = 15, exempt=None) -> dict:
     """The fused phase of one stream: the same collection twice,
     ``fused_update=False`` and ``True``, fed the stream update by update in
     turns. After every update the states are identical bit for bit and the
@@ -880,10 +915,11 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
     members (with the reason) that read the host in every update; the
     guarded replay lets them, and holds every other member to no host sync."""
     from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.ops import COUNTED_KERNELS
 
     update = update or (lambda col, batch: col.update(*batch))
     cols = {"plain": make(False), "fused": make(True)}
-    launches = {"plain": 0, "fused": 0}
+    launches = {kernel: {"plain": 0, "fused": 0} for kernel in COUNTED_KERNELS}
     modes = {"groups": 0, "eager": 0, "captured": 0, "replayed": 0, "unfused": 0}
     times = {"plain": [], "fused": []}
 
@@ -891,7 +927,7 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
         col = cols[name]
         step = col._fused_oo_step
         before = dict(step.counts) if step is not None else {}
-        n0 = bc.launches
+        n0 = {kernel: wrapper.launches for kernel, wrapper in COUNTED_KERNELS.items()}
         t0 = time.perf_counter()
         if guard:
             torch.cuda.set_sync_debug_mode("error")
@@ -903,7 +939,8 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches[name] += bc.launches - n0
+        for kernel, wrapper in COUNTED_KERNELS.items():
+            launches[kernel][name] += wrapper.launches - n0[kernel]
         mode = update_mode(col._fused_oo_step, before) if name == "fused" else "plain"
         if name == "fused":
             modes[mode] += 1
@@ -955,7 +992,13 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
         gc.callbacks.remove(on_gc)
     compare("after the timed updates")
     step = cols["fused"]._fused_oo_step
-    replay_launches = step.kernel_launches().get("binned_confusion", 0) if step is not None else 0
+    replayed = step.kernel_launches() if step is not None else {}
+    # each kernel's launches: unfused, and fused as eager calls plus the graphs' replays of the calls they captured
+    kernel_launches = {
+        kernel: {"plain": n["plain"], "fused": n["fused"] + replayed.get(kernel, 0), "fused_eager": n["fused"],
+                 "fused_replayed": replayed.get(kernel, 0)}
+        for kernel, n in launches.items()
+    }
     prof = {name: profile_update(torch, lambda: update(cols[name], steady)) for name in ("plain", "fused")}
     groups = [list(g) for g in cols["fused"].compute_groups.values()]
     leaders = step.leaders if step is not None else []
@@ -973,16 +1016,13 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
         "profile": prof,
         "capture_s": list(step.capture_seconds) if step is not None else [],
         "graphs": step.program_count if step is not None else 0,
-        "launches_plain": launches["plain"],
-        "launches_fused": launches["fused"] + replay_launches,
-        "launches_fused_eager": launches["fused"],
-        "launches_fused_replayed": replay_launches,
+        "kernel_launches": kernel_launches,
         "groups": groups,
         "eager_leaders": [g[0] for g in groups if g[0] not in leaders],
     }
-    check(out["launches_fused"] == out["launches_plain"],
-          f"{label}: fused kernel launches {out['launches_fused']} (eager {launches['fused']} + replayed"
-          f" {replay_launches}) vs unfused {out['launches_plain']}")
+    for kernel, n in kernel_launches.items():
+        check(n["fused"] == n["plain"], f"{label}: fused {kernel} launches {n['fused']} (eager {n['fused_eager']} +"
+                                        f" replayed {n['fused_replayed']}) vs unfused {n['plain']}")
     print(
         f"fused phase: {label}: {len(dev_batches)} + {rounds + 1} updates in turns, states bit for bit and values"
         f" equal to the unfused collection after every update; fused updates by mode {modes}"
@@ -994,9 +1034,10 @@ def fused_pair(torch, bc, label: str, make, dev_batches, update=None, rounds: in
         f" {prof['fused']['busy_ms']:.3f} ms ({100 * prof['fused']['share']:.1f}%, {prof['fused']['intervals']}"
         f" intervals) vs unfused {prof['plain']['wall_ms']:.3f} ms wall, {prof['plain']['busy_ms']:.3f} ms"
         f" ({100 * prof['plain']['share']:.1f}%, {prof['plain']['intervals']} intervals); graphs {out['graphs']},"
-        f" capture {[round(x, 4) for x in out['capture_s']]} s; eager leaders {out['eager_leaders']};"
-        f" binned_confusion launches fused {out['launches_fused']} ({launches['fused']} eager + {replay_launches}"
-        f" replayed) vs unfused {out['launches_plain']}"
+        f" capture {[round(x, 4) for x in out['capture_s']]} s; eager leaders {out['eager_leaders']}"
+        + "".join(f"; {kernel} launches fused {n['fused']} ({n['fused_eager']} eager + {n['fused_replayed']}"
+                  f" replayed) vs unfused {n['plain']}"
+                  for kernel, n in kernel_launches.items() if kernel == "binned_confusion" or n["plain"])
         + "".join(f"; host syncs allowed in the guarded replay for {name}: {why}" for name, why in (exempt or {}).items()),
         flush=True,
     )
@@ -1184,7 +1225,7 @@ def task_phase(torch, bc, task: str) -> dict:
     )
     profile_step(torch, col, dev_batches[1], label)
     del col
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches)
     eager = ["auroc_exact", "ece"] if task == "binary" else []
     check(fused["eager_leaders"] == eager, f"{label}: eager leaders {fused['eager_leaders']}, expected {eager}")
     return {"launches": launches, "update_ms": update_ms, "compute_ms": compute_ms, "fused": fused}
@@ -1293,7 +1334,7 @@ def fairness_phase(torch, bc) -> dict:
     )
     profile_step(torch, col, dev_batches[1], label)
     del col
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches)
     check(fused["eager_leaders"] == [], f"{label}: eager leaders {fused['eager_leaders']}")
     return {"launches": 0, "update_ms": update_ms, "count_ms": count_ms, "hist_ms": hist_ms, "fused": fused}
 
@@ -1441,7 +1482,7 @@ def segmentation_phase(torch, bc) -> dict:
     )
     profile_step(torch, col, stream[0], label)
     del col, cpu
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), stream)
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), stream)
     check(fused["eager_leaders"] == [], f"{label}: eager leaders {fused['eager_leaders']}")
     return {"launches": 0, "update_ms": update_ms, "fused": fused}
 
@@ -1478,7 +1519,8 @@ def count_host_syncs(torch, fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    # the first non-zero debug mode of a process also warns that the mode is a prototype: not a sync
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message) for w in caught)
 
 
 def cancel_scales(p: np.ndarray, t: np.ndarray) -> dict:
@@ -1710,7 +1752,7 @@ def ratings_phase(torch, bc) -> dict:
     )
     profile_step(torch, col, dev_batches[2], label)
     del col, cpu
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches,
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches,
                        exempt={"bootstrap_mse": RATINGS_HOST_READERS["bootstrap_mse"]})
     check(fused["eager_leaders"] == ["bootstrap_mse", "minmax_mae", "spearman"], f"{label}: eager leaders {fused['eager_leaders']}")
     return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "rank_2m_ms": rank_ms,
@@ -1895,7 +1937,7 @@ def multioutput_phase(torch, bc) -> dict:
     )
     profile_step(torch, col, dev_batches[1], label)
     del col, cpu
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches)
     check(fused["eager_leaders"] == ["cosine", "mae_per_target", "r2"], f"{label}: eager leaders {fused['eager_leaders']}")
     return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "kendall_ms": float(np.median(kendall_ms)),
             "nan_row_syncs": nan_row_syncs, "tracker_steps": best_step, "oracle_worst": worst, "fused": fused}
@@ -2160,10 +2202,10 @@ def clustering_phase(torch, bc) -> dict:
     profile_step(torch, pairs, dev_pairs[1], f"{label} label pairs")
     profile_step(torch, intrinsic, dev_embs[1], f"{label} intrinsic")
     del pairs, intrinsic
-    fused = fused_pair(torch, bc, f"{label} label pairs", lambda f: pair_collection("cuda", f), dev_pairs)
+    fused = fused_pair(torch, f"{label} label pairs", lambda f: pair_collection("cuda", f), dev_pairs)
     list_leader = [g[0] for g in fused["groups"] if not g[0].startswith("cap_")]  # the list states' group: eager
     check(fused["eager_leaders"] == list_leader, f"{label}: eager leaders {fused['eager_leaders']}")
-    fused_intrinsic = fused_pair(torch, bc, f"{label} intrinsic", lambda f: intrinsic_collection("cuda", f), dev_embs)
+    fused_intrinsic = fused_pair(torch, f"{label} intrinsic", lambda f: intrinsic_collection("cuda", f), dev_embs)
     check(fused_intrinsic["modes"]["replayed"] >= 1 and fused_intrinsic["guarded_replay"], f"{label} intrinsic: no checked graph replay")
     list_leader = [g[0] for g in fused_intrinsic["groups"] if not g[0].startswith("cap_")]
     check(fused_intrinsic["eager_leaders"] == list_leader, f"{label}: intrinsic eager leaders {fused_intrinsic['eager_leaders']}")
@@ -2426,7 +2468,7 @@ def nominal_phase(torch, bc) -> dict:
     )
     profile_step(torch, col, dev_batches[1], label)
     del col, cpu
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches)
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches)
     check(fused["eager_leaders"] == [], f"{label}: eager leaders {fused['eager_leaders']}")
     return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "oracle_worst": worst,
             "matrix_ms": matrix_ms, "matrix_busy_ms": matrix_busy_ms, "matrix_host_reads_per_pair": matrix_syncs,
@@ -2696,7 +2738,7 @@ def retrieval_phase(torch, bc) -> dict:
     )
     profile_step(torch, col, dev_batches[2], label)
     del col
-    fused = fused_pair(torch, bc, label, lambda f: collection("cuda", f), dev_batches,
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches,
                        exempt={"fallout10": RETRIEVAL_HOST_READERS["fallout10"]})
     check(fused["eager_leaders"] == ["fallout10"], f"{label}: eager leaders {fused['eager_leaders']}")
     return {"launches": 0, "update_ms": update_ms, "compute_ms": [compute_ms, compute2_ms], "parts_ms": parts,
@@ -2835,6 +2877,545 @@ def pairwise_phase(torch, bc) -> dict:
         flush=True,
     )
     return {"launches": 0, "oracle_worst": worst, "ms": {k: v[0] for k, v in times.items()}, "scratch_mib": scratch}
+
+
+# ----------------------------------------------------------------- audio: the IIR kernel and two streams
+
+SRMR_FS, SRMR_UTTERANCES, SRMR_SECONDS, SRMR_BATCH = 16_000, 64, 8, 8
+SRMR_T = SRMR_FS * SRMR_SECONDS  # 128,000 samples an utterance
+GAMMATONE_CHANNELS, MOD_BANDS = 23, 8
+
+
+def biquad_bound(lanes: int, t: int, stages: int, clamp: bool) -> dict:
+    """Least time for the cascade on an H100 SXM: x read once and the output
+    written once (and the coefficients read once) over the memory rate,
+    against its operations (5 products and 4 sums or differences a stage and
+    step, 2 comparisons with ``clamp``) at the fp32 rate outside the tensor
+    cores. A parallel scan over T needs no sequential chain, so the chain of
+    this design is no part of the bound."""
+    nbytes = 2 * lanes * t * 4 + 2 * stages * lanes * 3 * 4
+    ops = (9 + (2 if clamp else 0)) * stages * lanes * t
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_OPS_PER_S * 1e3
+    return {
+        "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def biquad_call_inputs(torch, kind: str, batch: int, t: int, seed: int):
+    """``(x, b, a, clamp)`` on the card as SRMR's two call sites give them at
+    16 kHz: the gammatone bank (4 stages, clipped, ``batch x 23`` lanes of
+    one waveform each) or the modulation bank (1 stage, ``batch x 23 x 8``
+    lanes of envelopes)."""
+    from tpumetrics_torch.functional.audio import srmr
+
+    rng = np.random.default_rng(seed)
+    const = srmr._constants(SRMR_FS, GAMMATONE_CHANNELS, 125.0, 4.0, 128.0, torch.device("cuda"))
+    if kind == "gammatone":
+        wave = rng.uniform(-1, 1, (batch, t)).astype(np.float32)
+        x = torch.from_numpy(wave).cuda()[:, None, :].expand(batch, GAMMATONE_CHANNELS, t).reshape(-1, t)
+        return x.contiguous(), const["as_"].repeat(1, batch, 1), const["bs"].repeat(1, batch, 1), True
+    env = np.abs(rng.standard_normal((batch * GAMMATONE_CHANNELS, t))).astype(np.float32) * 1e-3
+    x = torch.from_numpy(env).cuda()[:, None, :].expand(-1, MOD_BANDS, t).reshape(-1, t)
+    lanes = batch * GAMMATONE_CHANNELS
+    return x.contiguous(), const["mb"].repeat(lanes, 1)[None], const["ma"].repeat(lanes, 1)[None], False
+
+
+def same_with_nan(torch, got, want) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(nan, torch.isnan(got)) and torch.equal(got[~nan], want[~nan]))
+
+
+def biquad_kernel_phase(torch, bq) -> dict:
+    """``biquad_cascade`` against its plain version on the card, bit for bit,
+    at both call sites' shapes at short T, at edge cases, and at the SRMR
+    stream's full shapes (the shapes its main path gives the kernel, on the
+    inputs that are timed); its time at the full shapes, a one-lane launch's
+    at the full T (the sequential chain of this design), and the plain
+    version's at the full T (one call) and at T=2048."""
+    cases = []
+    for kind in ("gammatone", "modulation"):
+        for t in (2048, 4096):
+            cases.append((f"{kind} {SRMR_BATCH} utterances T={t}", biquad_call_inputs(torch, kind, SRMR_BATCH, t, SEED + t)))
+    x, b, a, _ = biquad_call_inputs(torch, "gammatone", SRMR_BATCH, 4096, SEED + 1)
+    cases.append(("gammatone T=1", (x[:, :1].contiguous(), b, a, True)))
+    cases.append(("gammatone one lane L=1", (x[:1].contiguous(), b[:, :1].contiguous(), a[:, :1].contiguous(), True)))
+    cases.append(("gammatone all zeros", (torch.zeros_like(x), b, a, True)))
+    loud = x.clone()
+    loud[::7] *= 3e4  # every 7th lane drives its stages past [-1, 1]: the clip between them acts
+    cases.append(("gammatone lanes driven into the clamp", (loud, b, a, True)))
+    nan = x.clone()
+    nan[3, 100] = float("nan")
+    nan[10, 4000:] = float("nan")
+    nan[11, 0] = float("inf")
+    cases.append(("gammatone NaN and inf inputs", (nan, b, a, True)))
+    xm, bm, am, _ = biquad_call_inputs(torch, "modulation", 1, 4096, SEED + 2)
+    xm = xm.clone()
+    xm[5, 2000] = float("nan")
+    cases.append(("modulation NaN input", (xm, bm, am, False)))
+    max_err = 0.0
+    for label, (x, b, a, clamp) in cases:
+        got = bq.biquad_cascade(x, b, a, clamp)
+        torch.cuda.synchronize()
+        want = bq.biquad_cascade_plain(x, b, a, clamp)
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+        max_err = max(max_err, err)
+        check(same_with_nan(torch, got, want), f"biquad_cascade != plain version at {label} (err {err})")
+        loud_case = label.endswith("driven into the clamp")
+        if loud_case:  # the clip between the stages acts where the output differs from the unclipped cascade's
+            check(not torch.equal(got, bq.biquad_cascade_plain(x, b, a, False)), f"biquad_cascade at {label}: the clip never acted")
+        print(f"kernel phase: biquad_cascade {label} ({tuple(x.shape)}, {b.shape[0]} stages, clamp {clamp}):"
+              f" bit for bit{', the clip between the stages acting' if loud_case else ''}", flush=True)
+    del cases, x, b, a, loud, nan, xm, bm, am
+    flush = l2_flush(torch)
+    timed = {}
+    for kind, lanes in (("gammatone", SRMR_BATCH * GAMMATONE_CHANNELS), ("modulation", SRMR_BATCH * GAMMATONE_CHANNELS * MOD_BANDS)):
+        x, b, a, clamp = biquad_call_inputs(torch, kind, SRMR_BATCH, SRMR_T, SEED + 3)
+        ms, host_ms = cuda_ms(torch, lambda: bq.biquad_cascade(x, b, a, clamp), reps=5, ahead=flush)
+        one_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade(x[:1], b[:, :1], a[:, :1], clamp), reps=3, ahead=flush)
+        # the main path's shape: the kernel against the plain version on the timed inputs, bit for bit
+        got = bq.biquad_cascade(x, b, a, clamp)
+        flush()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        want = bq.biquad_cascade_plain(x, b, a, clamp)
+        end.record()
+        end.synchronize()
+        plain_full_ms, plain_full_wall_s = start.elapsed_time(end), time.perf_counter() - t0
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+        max_err = max(max_err, err)
+        check(same_with_nan(torch, got, want), f"biquad_cascade != plain version at the {kind} main-path shape (err {err})")
+        print(f"kernel phase: biquad_cascade {kind} at the main path's shape ({tuple(x.shape)}, {b.shape[0]} stages,"
+              f" clamp {clamp}): bit for bit with the plain version on the card ({plain_full_ms:.1f} ms of device"
+              f" time, {plain_full_wall_s:.1f} s on the host clock)", flush=True)
+        del got, want, fin
+        xs, bs, as_ = x[:, :2048].contiguous(), b, a
+        plain_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade_plain(xs, bs, as_, clamp), reps=1, ahead=flush)
+        kern_short_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade(xs, bs, as_, clamp), reps=5, ahead=flush)
+        bound = biquad_bound(lanes, SRMR_T, b.shape[0], clamp)
+        timed[kind] = {"lanes": lanes, "t": SRMR_T, "stages": b.shape[0], "ms": ms, "host_ms": host_ms,
+                       "one_lane_ms": one_ms, "plain_ms": plain_full_ms, "plain_ms_t2048": plain_ms,
+                       "ms_t2048": kern_short_ms, **bound}
+        print(
+            f"kernel phase: biquad_cascade {kind} {lanes} lanes x {SRMR_T} samples, {b.shape[0]} stages:"
+            f" kernel {ms:.3f} ms on the device ({ms / bound['bound_ms']:.1f}x its bound; {host_ms:.4f} ms of host"
+            f" time to make the call); plain {plain_full_ms:.1f} ms; one lane at the full T {one_ms:.3f} ms (the"
+            f" sequential chain); at T=2048"
+            f" kernel {kern_short_ms:.4f} ms, plain {plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms by"
+            f" {bound['bound_by']} (bytes {bound['bytes']} -> {bound['bytes_ms']:.4f} ms at 3.35 TB/s;"
+            f" ops {bound['ops']} -> {bound['ops_ms']:.4f} ms at 67 TFLOP/s fp32); library call: none",
+            flush=True,
+        )
+        del x, b, a, xs, bs, as_
+        torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "timed": timed}
+
+
+# WSJ0-2mix (Hershey et al. 2016), its test set as Conv-TasNet (Luo & Mesgarani 2019) evaluates it: 3,000
+# two-speaker mixtures at 8 kHz, the speakers within +-2.5 dB of each other; made from the seed as speech-like
+# modulated noise, the estimates the sources plus noise at 15 dB, the speakers swapped in half the mixtures
+WSJ_FS, WSJ_MIXTURES, WSJ_T, WSJ_BATCH, WSJ_EST_SNR_DB = 8000, 3000, 32_000, 50, 15.0
+WSJ_CPU_BATCHES = 4  # the batches held card against CPU (the CPU's LU solves are too slow for the whole set)
+STFT_N, STFT_HOP = 512, 128  # C-SI-SNR on a 512-point STFT: 257 bins
+AUDIO_RTOL = 1e-5  # SNR family, SI-SDR, SA-SDR, C-SI-SNR means against float64 oracles (float32 sums)
+SDR_ATOL_DB = 5e-3  # SDR against a float64 Toeplitz solve: the float32 LU of a 512-tap system, in dB per value
+AUDIO_STATE_RTOL = {"sdr": 1e-4}  # card vs CPU sums: the LU solves (MAGMA / LAPACK) round apart; the rest 1e-5
+SEPARATION_EAGER = {
+    "sdr": "its batched LU solve (torch's default for 100 systems of 512 on a card, MAGMA's batched getrf)"
+           " cannot be captured, so it stays eager beside the graph",
+}
+
+
+def speech_like(rng, n: int, t: int, fs: int) -> np.ndarray:
+    """``n`` signals of ``t`` samples, float64 of unit power: noise with a
+    speech-like spectral tilt (a one-pole low-pass) under a syllabic
+    envelope of 3-6 Hz with short pauses."""
+    from scipy.signal import lfilter
+
+    x = lfilter([1.0], [1.0, -0.9], rng.standard_normal((n, t)), axis=-1)
+    time_s = np.arange(t) / fs
+    rate, phase = rng.uniform(3, 6, (n, 1)), rng.uniform(0, 2 * np.pi, (n, 1))
+    x = x * (np.maximum(np.sin(2 * np.pi * rate * time_s + phase), 0.0) ** 2 + 0.05)
+    return x / np.sqrt(np.mean(x**2, axis=-1, keepdims=True))
+
+
+def make_separation_batch(index: int, n: int = WSJ_BATCH, spk: int = 2):
+    """Estimates ``(n, spk, T)`` float32, sources ``(n, spk, T)`` float32 and
+    the permutation each estimate slot was given (slot j holds source
+    ``perm[j]``; for two speakers, swapped in about half of the mixtures)."""
+    rng = np.random.default_rng(SEED + 1000 + index)
+    src = speech_like(rng, n * spk, WSJ_T, WSJ_FS).reshape(n, spk, WSJ_T)
+    src *= 10 ** (rng.uniform(-2.5, 2.5, (n, spk, 1)) / 20)
+    power = np.mean(src**2, axis=-1, keepdims=True)
+    est = src + rng.standard_normal(src.shape) * np.sqrt(power) * 10 ** (-WSJ_EST_SNR_DB / 20)
+    perm = np.stack([rng.permutation(spk) for _ in range(n)])
+    est = np.take_along_axis(est, perm[:, :, None], axis=1)
+    return est.astype(np.float32), src.astype(np.float32), perm
+
+
+def sdr_from_gram(pp, tt, pt, eps: float) -> np.ndarray:
+    """SI-SDR in dB from the float64 inner products of an estimate and its
+    target (``|p|^2``, ``|t|^2``, ``p.t``), with the metric's own eps:
+    ``alpha = (p.t + eps) / (|t|^2 + eps)``, the scaled target's power
+    ``alpha^2 |t|^2`` over the residual's ``alpha^2 |t|^2 - 2 alpha p.t + |p|^2``."""
+    alpha = (pt + eps) / (tt + eps)
+    signal = alpha**2 * tt
+    return 10 * np.log10((signal + eps) / (signal - 2 * alpha * pt + pp + eps))
+
+
+def stft_oracle(x: np.ndarray) -> np.ndarray:
+    """``torch.stft``'s 512-point STFT in float64 numpy: centred (reflection
+    padding), a periodic Hann window, hop 128, one-sided."""
+    pad = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(STFT_N // 2, STFT_N // 2)], mode="reflect")
+    frames = 1 + (pad.shape[-1] - STFT_N) // STFT_HOP
+    idx = np.arange(frames)[:, None] * STFT_HOP + np.arange(STFT_N)[None, :]
+    win = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(STFT_N) / STFT_N)
+    return np.swapaxes(np.fft.rfft(pad[..., idx] * win, axis=-1), -1, -2)  # (..., 257, frames)
+
+
+def separation_oracle(est: np.ndarray, src: np.ndarray) -> dict:
+    """Per-mixture values in float64: PIT's best mean SI-SDR over all
+    permutations (brute force) and the permutation, then on the estimates
+    it reorders SI-SNR, SNR, SA-SDR, SDR (filter 512 with the metric's 1e-6
+    diagonal loading, by ``scipy.linalg.solve_toeplitz``) and C-SI-SNR of
+    their STFTs. Every energy comes from float64 inner products."""
+    from itertools import permutations as perms
+
+    import scipy.fft
+    from scipy.linalg import solve_toeplitz
+
+    p, t = est.astype(np.float64), src.astype(np.float64)
+    eps = float(np.finfo(np.float32).eps)
+    n, spk, length = p.shape
+    gram_pt = np.einsum("bis,bjs->bij", p, t)  # [b, i, j] = p_i . t_j
+    pp, tt = np.einsum("bis,bis->bi", p, p), np.einsum("bjs,bjs->bj", t, t)
+    cand = np.asarray(list(perms(range(spk))))
+    rows = np.arange(spk)
+    scores = np.stack([sdr_from_gram(pp[:, c], tt, gram_pt[:, c, rows], eps).mean(-1) for c in cand], axis=1)
+    best = np.argmax(scores, axis=1)
+    perm = cand[best]
+    q = np.take_along_axis(p, perm[:, :, None], axis=1)
+    qq, qt = np.take_along_axis(pp, perm, axis=1), np.einsum("bis,bis->bi", q, t)
+    snr = 10 * np.log10((tt + eps) / (tt - 2 * qt + qq + eps))
+    sa_alpha = (qt.sum(-1) + eps) / (tt.sum(-1) + eps)
+    sa_signal = sa_alpha**2 * tt.sum(-1)
+    sa = 10 * np.log10((sa_signal + eps) / (sa_signal - 2 * sa_alpha * qt.sum(-1) + qq.sum(-1) + eps))
+    qc, tc = q - q.mean(-1, keepdims=True), t - t.mean(-1, keepdims=True)
+    si_snr = sdr_from_gram(np.einsum("bis,bis->bi", qc, qc), np.einsum("bis,bis->bi", tc, tc),
+                           np.einsum("bis,bis->bi", qc, tc), eps)
+    tn = t / np.maximum(np.sqrt(tt), 1e-6)[..., None]
+    qn = q / np.maximum(np.sqrt(qq), 1e-6)[..., None]
+    n_fft = 2 ** math.ceil(math.log2(2 * length - 1))
+    t_fft = scipy.fft.rfft(tn, n_fft, workers=-1)
+    q_fft = scipy.fft.rfft(qn, n_fft, workers=-1)
+    r0 = scipy.fft.irfft(np.abs(t_fft) ** 2, n_fft, workers=-1)[..., :512]
+    r0[..., 0] += 1e-6
+    b = scipy.fft.irfft(np.conj(t_fft) * q_fft, n_fft, workers=-1)[..., :512]
+    coh = np.asarray([[b[i, s] @ solve_toeplitz(r0[i, s], b[i, s]) for s in range(spk)] for i in range(n)])
+    out = {"pit": scores[np.arange(n), best], "perm": perm, "si_snr": si_snr, "snr": snr, "sa_sdr": sa,
+           "sdr": 10 * np.log10(coh / (1 - coh))}
+    # C-SI-SNR: SI-SDR of the spectra with real and imaginary parts as coordinates
+    ze, zs = stft_oracle(q).reshape(n, spk, -1), stft_oracle(t).reshape(n, spk, -1)
+    out["c_si_snr"] = sdr_from_gram(np.sum(np.abs(ze) ** 2, -1), np.sum(np.abs(zs) ** 2, -1),
+                                    np.sum(ze * np.conj(zs), -1).real, eps)
+    return out
+
+
+def separation_batch(index: int, n: int = WSJ_BATCH, spk: int = 2):
+    """One batch of the stream and its float64 oracle (run in worker processes)."""
+    est, src, perm = make_separation_batch(index, n, spk)
+    return est, src, perm, separation_oracle(est, src)
+
+
+def separation_members(device) -> dict:
+    import tpumetrics_torch.audio as au
+
+    return {"si_snr": au.ScaleInvariantSignalNoiseRatio(device=device), "snr": au.SignalNoiseRatio(device=device),
+            "sa_sdr": au.SourceAggregatedSignalDistortionRatio(device=device),
+            "sdr": au.SignalDistortionRatio(filter_length=512, device=device)}
+
+
+def stft(torch, x):
+    """512-point STFT (Hann window, hop 128) of ``(..., T)`` signals: ``(..., 257, frames)`` complex64."""
+    win = torch.hann_window(STFT_N, device=x.device)
+    spec = torch.stft(x.reshape(-1, x.shape[-1]), STFT_N, hop_length=STFT_HOP, window=win, return_complex=True)
+    return spec.reshape(*x.shape[:-1], *spec.shape[-2:])
+
+
+def audio_states(metric) -> dict:
+    return {name: np.asarray(getattr(metric, name).cpu()) for name in metric._defaults}
+
+
+def check_audio_states(label: str, got: dict, want: dict, rtol: float) -> float:
+    """Sum states within ``rtol`` relative, count states exact."""
+    worst = 0.0
+    for name, ref in want.items():
+        val = got[name]
+        check(val.dtype == ref.dtype and val.shape == ref.shape, f"{label}: {name} {val.dtype} vs {ref.dtype}")
+        if name in ("total", "num"):
+            check(np.array_equal(val, ref), f"{label}: {name} card {val} vs CPU {ref}")
+            continue
+        diff = float(np.abs(val.astype(np.float64) - ref.astype(np.float64)).max())
+        check(diff <= rtol * abs(float(ref)), f"{label}: {name} card {val} vs CPU {ref} (diff {diff})")
+        worst = max(worst, diff / abs(float(ref)))
+    return worst
+
+
+def separation_phase(torch, bc) -> dict:
+    """Speech separation scored as separation papers report it, at WSJ0-2mix
+    test geometry (see the module note): PIT on the raw estimates, then a
+    collection of SI-SNR, SNR, SA-SDR and SDR and a C-SI-SNR on the
+    estimates that ``pit_permutate`` reorders; float64 oracles, the card
+    against the CPU on the first batches, the recovered permutation against
+    the one the data was made with, host syncs, three speakers both ways,
+    and the fused phase."""
+    import copy
+
+    import tpumetrics_torch.audio as au
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.audio import (
+        permutation_invariant_training,
+        pit_permutate,
+        scale_invariant_signal_distortion_ratio,
+    )
+    from tpumetrics_torch.ops import biquad as bq
+
+    label = f"separation WSJ0-2mix test {WSJ_MIXTURES} mixtures x 2 speakers x {WSJ_T} samples at 8 kHz"
+    num_batches = WSJ_MIXTURES // WSJ_BATCH
+
+    def collection(device, fused=False):
+        return MetricCollection(separation_members(device), fused_update=fused, device=device)
+
+    pit = au.PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, mode="speaker-wise",
+                                          eval_func="max", device="cuda")
+    col = collection("cuda")
+    csisnr = au.ComplexScaleInvariantSignalNoiseRatio(device="cuda")
+    oracle = {k: [] for k in ("pit", "si_snr", "snr", "sa_sdr", "sdr", "c_si_snr")}
+    raw, ordered, perms_ok, update_ms = [], [], 0, []
+    host_batches = []
+    # the batches and their float64 oracles come from worker processes (numpy is single-threaded), in order
+    workers = min(8, os.cpu_count() or 1)
+    t_gen = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        made = pool.imap(separation_batch, range(num_batches))
+        torch.cuda.synchronize()
+        bc.launches, bq.launches = 0, 0
+        for i, (est, src, perm, o) in enumerate(made):
+            preds, target = torch.from_numpy(est).cuda(), torch.from_numpy(src).cuda()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pit.update(preds, target)
+            _, best_perm = permutation_invariant_training(preds, target, scale_invariant_signal_distortion_ratio)
+            reordered = pit_permutate(preds, best_perm)
+            col.update(reordered, target)
+            csisnr.update(stft(torch, reordered), stft(torch, target))
+            torch.cuda.synchronize()
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+            for k in oracle:
+                oracle[k].append(o[k])
+            got_perm = best_perm.cpu().numpy()
+            check(np.array_equal(o["perm"], np.argsort(perm, axis=1)), f"{label}: the oracle's permutation is not the data's")
+            check(np.array_equal(got_perm, o["perm"]), f"{label} batch {i}: PIT's permutation differs from the data's")
+            perms_ok += len(got_perm)
+            raw.append((preds, target))
+            ordered.append((reordered, target))
+            if i < WSJ_CPU_BATCHES:
+                host_batches.append((est, src))
+        pool.close()
+        pool.join()
+    t_gen = time.perf_counter() - t_gen
+    values = {"pit": pit.compute(), **col.compute(), "c_si_snr": csisnr.compute()}
+    check(bc.launches == 0 and bq.launches == 0, f"{label}: kernel launches {bc.launches}, {bq.launches}, expected none")
+    means = {k: float(np.mean(np.concatenate(v))) for k, v in oracle.items()}
+    tol = {k: (AUDIO_RTOL, 0.0) for k in means}
+    tol["sdr"] = (0.0, SDR_ATOL_DB)
+    worst = check_values(label, values, means, tol)
+    sdr_worst = float(np.max(np.abs(np.concatenate(oracle["sdr"]))))  # for the record: the SDR range
+
+    # the card against the CPU on the first batches: states within float32 rounding, counts exact
+    cpu = {"pit": au.PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, device="cpu"),
+           "col": collection("cpu"), "c_si_snr": au.ComplexScaleInvariantSignalNoiseRatio(device="cpu")}
+    card = {"pit": copy.deepcopy(pit), "col": collection("cuda"), "c_si_snr": au.ComplexScaleInvariantSignalNoiseRatio(device="cuda")}
+    card["pit"].reset()
+    for est, src in host_batches:
+        for dev, m in (("cpu", cpu), ("cuda", card)):
+            p, t = torch.from_numpy(est).to(dev), torch.from_numpy(src).to(dev)
+            m["pit"].update(p, t)
+            _, bp = permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+            q = pit_permutate(p, bp)
+            m["col"].update(q, t)
+            m["c_si_snr"].update(stft(torch, q), stft(torch, t))
+    state_err = {"pit": check_audio_states(f"{label} pit", audio_states(card["pit"]), audio_states(cpu["pit"]), 1e-5),
+                 "c_si_snr": check_audio_states(f"{label} c_si_snr", audio_states(card["c_si_snr"]),
+                                                audio_states(cpu["c_si_snr"]), 1e-5)}
+    for name in separation_members("cpu"):
+        state_err[name] = check_audio_states(f"{label} {name}", audio_states(card["col"][name]),
+                                             audio_states(cpu["col"][name]), AUDIO_STATE_RTOL.get(name, 1e-5))
+    del cpu, card
+
+    # host syncs of a steady update of each member (a warmed copy's)
+    b0 = ordered[0]
+    syncs = {"pit": steady_host_syncs(torch, pit, raw[0]), "c_si_snr": steady_host_syncs(
+        torch, csisnr, (stft(torch, b0[0]), stft(torch, b0[1])))}
+    syncs.update({name: steady_host_syncs(torch, col[name], b0) for name in separation_members("cpu")})
+    unexpected = {k: v for k, v in syncs.items() if v}
+    check(not unexpected, f"{label}: host syncs in a steady update of {unexpected}")
+
+    # three speakers: eagerly the Hungarian assignment (a host read, let through), under capture the exhaustive search
+    est3, src3, perm3 = make_separation_batch(num_batches, n=10, spk=3)
+    p3, t3 = torch.from_numpy(est3).cuda(), torch.from_numpy(src3).cuda()
+    hung_syncs = count_host_syncs(torch, lambda: permutation_invariant_training(p3, t3, scale_invariant_signal_distortion_ratio))
+    hung_metric, hung_perm = permutation_invariant_training(p3, t3, scale_invariant_signal_distortion_ratio)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the side stream's allocator before the capture
+        permutation_invariant_training(p3, t3, scale_invariant_signal_distortion_ratio)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        cap_metric, cap_perm = permutation_invariant_training(p3, t3, scale_invariant_signal_distortion_ratio)
+    graph.replay()
+    torch.cuda.synchronize()
+    o3 = separation_oracle(est3, src3)
+    check(np.array_equal(hung_perm.cpu().numpy(), np.argsort(perm3, axis=1)), f"{label}: 3 speakers, Hungarian permutation")
+    check(torch.equal(cap_perm, hung_perm), f"{label}: 3 speakers, captured exhaustive vs Hungarian permutation")
+    diff3 = float((cap_metric - hung_metric).abs().max())
+    check(diff3 <= 1e-6 * float(hung_metric.abs().max()), f"{label}: 3 speakers, best metric captured {cap_metric} vs eager {hung_metric}")
+    check(bool(np.allclose(hung_metric.cpu().numpy(), o3["pit"], rtol=AUDIO_RTOL, atol=0)), f"{label}: 3 speakers vs oracle")
+    check(hung_syncs >= 1, f"{label}: 3 speakers, the Hungarian path read nothing on the host")
+    del graph
+
+    steady = update_ms[2:]
+    print(
+        f"separation phase: {label}: {num_batches} batches of {WSJ_BATCH} (made from the seed with their float64"
+        f" oracles in {workers} worker processes, the stream in {t_gen:.1f} s); reduced: every mixture a fixed 4 s; PIT (speaker-wise SI-SDR, max) recovered the"
+        f" data's permutation for all {perms_ok} mixtures; values against float64 oracles (brute-force PIT,"
+        f" scipy solve_toeplitz SDR), worst share of the tolerance {max(worst.values()):.3f} ({max(worst, key=worst.get)}):"
+        + "".join(f" {k} {float(values[k]):.4f} dB (oracle {means[k]:.4f})" for k in means)
+        + f"; card vs CPU on {WSJ_CPU_BATCHES} batches, sums worst {max(state_err.values()):.2e} relative"
+        f" ({max(state_err, key=state_err.get)}), counts exact; host syncs in a steady update {syncs}"
+        f" (none expected; eager beside the fused graph: {'; '.join(f'{k}, {v}' for k, v in SEPARATION_EAGER.items())});"
+        f" three speakers (10 mixtures):"
+        f" the Hungarian path eagerly ({hung_syncs} host syncs, let through), the exhaustive one under capture,"
+        f" the same permutations and best metric within {diff3:.1e}; update (PIT, reorder, collection, 2 STFTs,"
+        f" C-SI-SNR) first {update_ms[0]:.3f} ms, steady median {np.median(steady):.3f} ms",
+        flush=True,
+    )
+    profile_step(torch, col, ordered[2], label)
+    del col
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), ordered,
+                       exempt={"sdr": SEPARATION_EAGER["sdr"]})
+    check(fused["eager_leaders"] == ["sdr"], f"{label}: eager leaders {fused['eager_leaders']}")
+    return {"launches": 0, "biquad_launches": 0, "update_ms": update_ms, "oracle_worst": worst, "state_err": state_err,
+            "host_syncs": syncs, "three_speakers": {"hungarian_syncs": hung_syncs, "captured_diff": diff3},
+            "values": {k: float(v) for k, v in values.items()}, "oracle": means, "sdr_range": sdr_worst,
+            "reduced": "every mixture a fixed 4 s (32,000 samples); WSJ0-2mix's test mixtures vary in length",
+            "fused": fused}
+
+
+# REVERB challenge geometry (Kinoshita et al. 2016): 16 kHz utterances of a dereverberation evaluation, each 8 s,
+# made from the seed as speech-like modulated noise convolved with an exponentially decaying room response
+SRMR_RT60 = (0.4, 0.7)  # seconds, about the challenge's medium and large rooms (RT60 0.5 and 0.7 s)
+SRMR_CPU_SECONDS, SRMR_CPU_UTTERANCES = 2, 2
+SRMR_CPU_RTOL = 1e-3  # card vs CPU: cuFFT and pocketfft round the Hilbert envelope apart, and the
+# modulation filters' poles near 1 carry that difference along T (see the phase's printed measurement)
+
+
+def make_utterances(seed: int, n: int = SRMR_UTTERANCES, t: int = SRMR_T):
+    """Clean and reverberant utterances ``(n, t)`` float32: the clean speech-like
+    signal at a level below full scale, and its convolution with a room
+    response (a direct path and an exponentially decaying noise tail of RT60
+    in ``SRMR_RT60``)."""
+    from scipy.signal import fftconvolve
+
+    rng = np.random.default_rng(seed)
+    clean = 0.05 * speech_like(rng, n, t, SRMR_FS)
+    rir_t = np.arange(int(0.6 * SRMR_FS)) / SRMR_FS
+    rt60 = rng.uniform(*SRMR_RT60, (n, 1))
+    rir = rng.standard_normal((n, rir_t.size)) * np.exp(-6.908 * rir_t / rt60) * 0.3
+    rir[:, 0] = 1.0
+    reverb = np.stack([fftconvolve(c, r)[:t] for c, r in zip(clean, rir)])
+    return clean.astype(np.float32), reverb.astype(np.float32)
+
+
+def srmr_phase(torch, bc) -> dict:
+    """SRMR over a dereverberation evaluation's utterances (see the module
+    note): ``norm=False`` over the stream and ``norm=True`` over one batch;
+    the card against the CPU on short utterances, a clean signal against its
+    reverberant copy, host syncs, the kernel's launches and its share of the
+    update's device time, and the fused phase."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.audio import SpeechReverberationModulationEnergyRatio as SRMR
+    from tpumetrics_torch.functional.audio import speech_reverberation_modulation_energy_ratio as srmr_fn
+    from tpumetrics_torch.ops import biquad as bq
+
+    label = f"SRMR REVERB-like {SRMR_UTTERANCES} utterances x {SRMR_T} samples at 16 kHz"
+    t0 = time.perf_counter()
+    clean, reverb = make_utterances(SEED + 11)
+    t_gen = time.perf_counter() - t0
+    dev_batches = [(torch.from_numpy(reverb[i : i + SRMR_BATCH]).cuda(),) for i in range(0, SRMR_UTTERANCES, SRMR_BATCH)]
+
+    def collection(device, fused=False):
+        return MetricCollection({"srmr": SRMR(SRMR_FS, device=device)}, fused_update=fused, device=device)
+
+    col = collection("cuda")
+    metric_norm = SRMR(SRMR_FS, norm=True, device="cuda")
+    torch.cuda.synchronize()
+    bc.launches, bq.launches = 0, 0
+    update_ms, scores = [], []
+    for i, (batch,) in enumerate(dev_batches):
+        t1 = time.perf_counter()
+        col.update(batch)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+    value = col.compute()["srmr"]
+    metric_norm.update(dev_batches[0][0])
+    value_norm = metric_norm.compute()
+    launches = bq.launches
+    check(bc.launches == 0, f"{label}: {bc.launches} binned_confusion launches, expected none")
+    check(launches == 2 * (len(dev_batches) + 1), f"{label}: {launches} biquad_cascade launches, expected 2 per update")
+    per_utt = torch.cat([srmr_fn(b, SRMR_FS) for (b,) in dev_batches]).cpu().numpy()
+    check(bool(np.all(np.isfinite(per_utt))) and per_utt.shape == (SRMR_UTTERANCES,), f"{label}: scores {per_utt}")
+    check(abs(float(value) - float(np.mean(per_utt, dtype=np.float64))) <= 1e-5 * abs(float(value)),
+          f"{label}: the metric {float(value)} vs the mean of its scores {per_utt.mean()}")
+    clean_scores = srmr_fn(torch.from_numpy(clean[:SRMR_BATCH]).cuda(), SRMR_FS).cpu().numpy()
+    check(bool(np.all(clean_scores > per_utt[:SRMR_BATCH])),
+          f"{label}: clean {clean_scores} not above reverberant {per_utt[:SRMR_BATCH]}")
+
+    # the card against the CPU on short utterances, both normalisations
+    short = reverb[:SRMR_CPU_UTTERANCES, : SRMR_CPU_SECONDS * SRMR_FS]
+    cpu_rel = {}
+    for norm in (False, True):
+        got = srmr_fn(torch.from_numpy(short).cuda(), SRMR_FS, norm=norm).cpu().numpy().astype(np.float64)
+        want = srmr_fn(torch.from_numpy(short), SRMR_FS, norm=norm).numpy().astype(np.float64)
+        cpu_rel[f"norm={norm}"] = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(cpu_rel[f"norm={norm}"] <= SRMR_CPU_RTOL, f"{label}: card {got} vs CPU {want} (norm={norm})")
+
+    syncs = steady_host_syncs(torch, col["srmr"], dev_batches[0])
+    check(syncs == 0, f"{label}: {syncs} host syncs in a steady update")
+    print(
+        f"srmr phase: {label}: {len(dev_batches)} batches of {SRMR_BATCH} (made on the host from the seed in"
+        f" {t_gen:.1f} s, RT60 {SRMR_RT60} s); reduced: {SRMR_UTTERANCES} utterances at a fixed 8 s, a subset of"
+        f" the evaluation set; SRMR (norm=False) {float(value):.6f} (per utterance {per_utt.min():.4f} to"
+        f" {per_utt.max():.4f}), norm=True on one batch {float(value_norm):.6f}; clean above reverberant in every"
+        f" utterance of a batch (clean {clean_scores.mean():.4f} vs {per_utt[:SRMR_BATCH].mean():.4f}); card vs CPU on"
+        f" {SRMR_CPU_UTTERANCES} utterances of {SRMR_CPU_SECONDS} s, worst relative difference {cpu_rel} (tolerance"
+        f" {SRMR_CPU_RTOL}); biquad_cascade launches {launches} (2 per update); host syncs in a steady update"
+        f" {syncs}; update first {update_ms[0]:.3f} ms, steady median {np.median(update_ms[1:]):.3f} ms",
+        flush=True,
+    )
+    profile_step(torch, col, dev_batches[1], label)
+    del col
+    fused = fused_pair(torch, label, lambda f: collection("cuda", f), dev_batches)
+    return {"launches": 0, "biquad_launches": launches, "update_ms": update_ms, "value": float(value),
+            "value_norm": float(value_norm), "clean_vs_reverb": [float(clean_scores.mean()), float(per_utt[:SRMR_BATCH].mean())],
+            "cpu_rel": cpu_rel, "host_syncs": syncs,
+            "reduced": f"{SRMR_UTTERANCES} utterances of a fixed 8 s, a subset of the evaluation set", "fused": fused}
 
 
 def sync_phase(torch, bc, smi: str) -> dict:
@@ -3025,7 +3606,7 @@ def sync_phase(torch, bc, smi: str) -> dict:
             # the fused phase: every compute() synced over the NCCL group; the tensor
             # kwarg (value=) keys no graph, so every update after the first runs eagerly
             set_default_backend(forced)
-            fused = fused_pair(torch, bc, label, collection, dev_batches, update_of)
+            fused = fused_pair(torch, label, collection, dev_batches, update_of)
             modes = fused["modes"]
             check(
                 modes["unfused"] == sum(modes.values()) - modes["groups"] and modes["groups"] == 1 and fused["graphs"] == 0,
@@ -3109,12 +3690,14 @@ def profile_step(torch, col, batch, label: str) -> None:
         top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:5]
         parts = "; ".join(f"{e.key[:48]} x{e.count} {e.device_time_total:.1f} us" for e in top)
         ours = sum(e.device_time_total for e in kernels if "count_kernel" in e.key or "rank_kernel" in e.key)
+        iir = sum(e.device_time_total for e in kernels if "biquad_cascade_kernel" in e.key)
+        iir_part = f" biquad_cascade kernels {iir:.1f} us ({iir / 10 / busy_ms:.1f}% of the union);" if iir else ""
         print(
             f"profile: {label}: steady {step} {wall_ms:.3f} ms wall unprofiled; profiled run {profiled_ms:.3f} ms wall,"
             f" device busy (union of {len(device)} device intervals) {busy_ms:.3f} ms"
             f" = {100 * busy_ms / profiled_ms:.1f}% of it, first-to-last device span {span_ms:.3f} ms;"
             f" peak device memory above resident {scratch_mb:.1f} MiB;"
-            f" binned_confusion kernels (rank + count) {ours:.1f} us;"
+            f" binned_confusion kernels (rank + count) {ours:.1f} us;{iir_part}"
             f" top: {parts or 'the profiler saw no device time'}",
             flush=True,
         )
@@ -3130,6 +3713,7 @@ def main() -> None:
     try:
         from tpumetrics_torch.ops import _build
         from tpumetrics_torch.ops import binned_confusion as bc
+        from tpumetrics_torch.ops import biquad as bq
     except ImportError as err:
         fail(f"the port's package is not beside this script: {err}")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsum must count exactly
@@ -3154,6 +3738,7 @@ def main() -> None:
                 print(f"build: {lib.name}: {line}", flush=True)
 
     kern = kernel_phase(torch, bc)
+    iir = biquad_kernel_phase(torch, bq)
     paths = {
         "imagenet": slice_phase(
             torch, bc, "ImageNet-1k val 50000x1000 T=200, classification report", 50000, 1000, 200, 8192, extra=True
@@ -3168,6 +3753,8 @@ def main() -> None:
         "clustering": clustering_phase(torch, bc),
         "nominal": nominal_phase(torch, bc),
         "retrieval": retrieval_phase(torch, bc),
+        "separation": separation_phase(torch, bc),
+        "srmr": srmr_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
     pairwise = pairwise_phase(torch, bc)
@@ -3183,16 +3770,21 @@ def main() -> None:
             check(fused["modes"]["replayed"] >= 1 and fused["guarded_replay"], f"{path}: no checked graph replay")
     launches_by_path = {path: p["launches"] for path, p in paths.items()}
     for path, p in paths.items():
-        launches_by_path[f"{path} fused phase, unfused"] = p["fused"]["launches_plain"]
-        launches_by_path[f"{path} fused phase, fused (eager + replayed)"] = p["fused"]["launches_fused"]
+        launches_by_path[f"{path} fused phase, unfused"] = p["fused"]["kernel_launches"]["binned_confusion"]["plain"]
+        launches_by_path[f"{path} fused phase, fused (eager + replayed)"] = p["fused"]["kernel_launches"]["binned_confusion"]["fused"]
     fused_report = {
         path: {k: p["fused"][k] for k in (
             "modes", "plain_ms", "fused_ms", "plain_ms_all", "fused_ms_all", "gc_ms", "gc_runs", "new_segments",
-            "profile", "capture_s", "graphs", "launches_fused_eager", "launches_fused_replayed", "eager_leaders",
+            "profile", "capture_s", "graphs", "kernel_launches", "eager_leaders",
         )}
         for path, p in paths.items()
     }
     main_shape = kern["timed"]["main path 8192x1000x200"]
+    iir_by_path = {path: p.get("biquad_launches", 0) for path, p in paths.items()}
+    for path, p in paths.items():
+        iir_by_path[f"{path} fused phase, unfused"] = p["fused"]["kernel_launches"]["biquad_cascade"]["plain"]
+        iir_by_path[f"{path} fused phase, fused (eager + replayed)"] = p["fused"]["kernel_launches"]["biquad_cascade"]["fused"]
+    iir_shape = iir["timed"]["gammatone"]
     report = {
         "kernels": [
             {
@@ -3212,7 +3804,25 @@ def main() -> None:
                 "shape": [main_shape["n"], main_shape["c"], main_shape["t"]],
                 "timed_shapes": kern["timed"],
                 "card": smi,
-            }
+            },
+            {
+                "name": "biquad_cascade",
+                "route": "cuda",
+                "source": "tpumetrics_torch/csrc/biquad_cascade.cu",
+                "replaces": "tpumetrics/functional/audio/srmr.py:143",
+                "launches": sum(iir_by_path.values()),
+                "launches_by_path": {k: v for k, v in iir_by_path.items() if v},
+                "max_abs_err": iir["max_abs_err"],
+                "ms": iir_shape["ms"],
+                "plain_ms": iir_shape["plain_ms"],  # the plain loop at the same shape, one call: a launch per op and step
+                "bound_ms": iir_shape["bound_ms"],
+                "bound_by": iir_shape["bound_by"],
+                "one_lane_ms": iir_shape["one_lane_ms"],  # the sequential chain of one thread per lane at the full T
+                "library_ms": None,  # no PyTorch call runs an IIR recurrence (torchaudio's lfilter is not installed)
+                "shape": [iir_shape["lanes"], iir_shape["t"], iir_shape["stages"]],
+                "timed_shapes": iir["timed"],
+                "card": smi,
+            },
         ],
         "fused_update": fused_report,
         "ece_err": ECE_ERR,
@@ -3240,6 +3850,12 @@ def main() -> None:
             "reduced": "none",
         },
         "pairwise": pairwise,
+        "audio": {
+            "separation": {k: paths["separation"][k] for k in (
+                "oracle_worst", "state_err", "host_syncs", "three_speakers", "values", "oracle", "reduced")},
+            "srmr": {k: paths["srmr"][k] for k in (
+                "value", "value_norm", "clean_vs_reverb", "cpu_rel", "host_syncs", "reduced")},
+        },
     }
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)

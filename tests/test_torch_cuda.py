@@ -10,7 +10,11 @@ and pairwise slice: the retrieval sort's permutation on the card against
 the CPU's (NaN, +-inf, +-0.0 among the scores), a retrieval ``compute()``
 twice with the same bits, the full-float32 product under the caller's
 ``set_float32_matmul_precision("medium")``, and a buffered retrieval
-leader replayed with no host sync.
+leader replayed with no host sync; and the audio slice: the biquad
+kernel against its plain version, the separation members on the card
+against the CPU, SDR's host syncs and its eager place beside a graph,
+audio collections replayed in graphs, and three-speaker PIT eagerly and
+under capture.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -1098,3 +1102,225 @@ def test_buffered_retrieval_leader_replays_without_a_host_sync(cuda):
     assert step.leaders == ["cap_map"] and step.counts["replayed"] >= 3
     for key, val in cols[False].compute().items():
         assert torch.equal(cols[True].compute()[key], val), key
+
+
+# ------------------------------------------------------------------ audio: the IIR kernel and the streams
+
+
+def _biquad_case(kind, lanes_per, t, seed=0):
+    """``(x, b, a, clamp)`` on the card as SRMR's call sites give them at 16 kHz
+    for 8 utterances: the gammatone bank (184 lanes, 4 stages, clipped) or
+    the modulation bank (1,472 lanes, 1 stage)."""
+    from tpumetrics_torch.functional.audio import srmr
+
+    rng = np.random.default_rng(seed)
+    const = srmr._constants(16000, 23, 125, 4, 128.0, "cuda")
+    if kind == "gammatone":
+        x = np.repeat(rng.uniform(-1, 1, (8, 1, t)), 23, axis=1).reshape(-1, t)
+        b, a, clamp = const["as_"].repeat(1, 8, 1), const["bs"].repeat(1, 8, 1), True
+    else:
+        x = np.repeat(np.abs(rng.standard_normal((184, 1, t))) * 1e-3, 8, axis=1).reshape(-1, t)
+        b, a, clamp = const["mb"].repeat(184, 1)[None], const["ma"].repeat(184, 1)[None], False
+    x = torch.from_numpy(x.astype(np.float32)).cuda()
+    return x[:lanes_per] if lanes_per else x, (b[:, :lanes_per] if lanes_per else b), (a[:, :lanes_per] if lanes_per else a), clamp
+
+
+@pytest.mark.parametrize(
+    "kind,lanes,t,edit",
+    [
+        ("gammatone", 0, 2048, None), ("gammatone", 0, 4096, None), ("modulation", 0, 2048, None),
+        ("modulation", 0, 4096, None), ("gammatone", 0, 1, None), ("gammatone", 1, 4096, None),
+        ("gammatone", 0, 1000, "zeros"), ("gammatone", 0, 1000, "loud"), ("gammatone", 0, 1000, "nan"),
+        ("modulation", 0, 1000, "nan"),
+    ],
+)
+def test_biquad_kernel_matches_plain_version(cuda, kind, lanes, t, edit):
+    """The kernel against its plain version on the card, bit for bit (NaN
+    where the plain version has NaN): both call sites at short T, T=1, one
+    lane, silence, lanes driven into the clip, and NaN and inf inputs."""
+    from tpumetrics_torch.ops import biquad as bq
+
+    x, b, a, clamp = _biquad_case(kind, lanes, t)
+    if edit == "zeros":
+        x = torch.zeros_like(x)
+    elif edit == "loud":
+        x = x.clone()
+        x[::7] *= 3e4
+    elif edit == "nan":
+        x = x.clone()
+        x[3, 100] = float("nan")
+        x[10, 500:] = float("nan")
+        x[11, 0] = float("inf")
+    before = bq.launches
+    got = bq.biquad_cascade(x, b, a, clamp)
+    torch.cuda.synchronize()
+    assert bq.launches == before + 1
+    want = bq.biquad_cascade_plain(x, b, a, clamp)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
+    if edit == "loud":  # the clip between the stages acted: the output is not the unclipped cascade's
+        assert not torch.equal(got, bq.biquad_cascade_plain(x, b, a, False))
+
+
+def _separation_batch(seed, n=8, spk=2, t=8000):
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((n, spk, t)).astype(np.float32)
+    est = src + 0.2 * rng.standard_normal(src.shape).astype(np.float32)
+    perm = np.stack([rng.permutation(spk) for _ in range(n)])
+    return np.take_along_axis(est, perm[:, :, None], 1), src, perm
+
+
+def test_separation_members_on_the_card_match_the_cpu(cuda):
+    """PIT (speaker-wise SI-SDR), pit_permutate, SI-SNR, SNR, SA-SDR, SDR
+    (filter 512) and C-SI-SNR on a 512-point STFT: the card's sums within
+    1e-5 relative of the CPU's (SDR's LU solves 1e-4), counts exact, the
+    permutations equal and the data's."""
+    import tpumetrics_torch.audio as au
+    from tpumetrics_torch.functional.audio import (
+        permutation_invariant_training,
+        pit_permutate,
+        scale_invariant_signal_distortion_ratio,
+    )
+
+    def members(dev):
+        return {"pit": au.PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, device=dev),
+                "si_snr": au.ScaleInvariantSignalNoiseRatio(device=dev), "snr": au.SignalNoiseRatio(device=dev),
+                "sa_sdr": au.SourceAggregatedSignalDistortionRatio(device=dev),
+                "sdr": au.SignalDistortionRatio(device=dev), "c_si_snr": au.ComplexScaleInvariantSignalNoiseRatio(device=dev)}
+
+    def spec(x):
+        win = torch.hann_window(512, device=x.device)
+        s = torch.stft(x.reshape(-1, x.shape[-1]), 512, hop_length=128, window=win, return_complex=True)
+        return s.reshape(*x.shape[:-1], *s.shape[-2:])
+
+    ms = {dev: members(dev) for dev in ("cpu", cuda)}
+    for i in range(3):
+        est, src, perm = _separation_batch(40 + i)
+        for dev, m in ms.items():
+            p, t = torch.from_numpy(est).to(dev), torch.from_numpy(src).to(dev)
+            m["pit"].update(p, t)
+            _, best = permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+            assert np.array_equal(best.cpu().numpy(), np.argsort(perm, axis=1))
+            q = pit_permutate(p, best)
+            for name in ("si_snr", "snr", "sa_sdr", "sdr"):
+                m[name].update(q, t)
+            m["c_si_snr"].update(spec(q), spec(t))
+    for name, metric in ms[cuda].items():
+        for state in metric._defaults:
+            got, want = getattr(metric, state).cpu().double(), getattr(ms["cpu"][name], state).double()
+            rtol = 1e-4 if name == "sdr" else 1e-5
+            assert float((got - want).abs()) <= rtol * float(want.abs()), (name, state, got, want)
+
+
+def test_sdr_update_syncs_nothing_and_stays_eager_in_a_fused_collection(cuda):
+    """SDR's steady update shows no host sync; its batched LU (MAGMA's, for
+    100 systems of 512) cannot be captured, so a fused collection keeps it
+    eager beside the graph of the other members and their states stay bit
+    for bit the unfused ones."""
+    import warnings
+
+    import tpumetrics_torch.audio as au
+
+    est, src, _ = _separation_batch(50, n=50, t=32000)
+    p, t = torch.from_numpy(est).to(cuda), torch.from_numpy(src).to(cuda)
+    sdr = au.SignalDistortionRatio(device=cuda)
+    sdr.update(p, t)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sdr.update(p, t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    assert syncs == []
+    assert sdr._update_reads_host
+
+    def make(f):
+        return MetricCollection({"sdr": au.SignalDistortionRatio(device=cuda), "snr": au.SignalNoiseRatio(device=cuda)},
+                                fused_update=f, device=cuda)
+
+    cols = {f: make(f) for f in (False, True)}
+    for _ in range(4):
+        for col in cols.values():
+            col.update(p, t)
+        got, want = export_state(cols[True]), export_state(cols[False])
+        assert all(np.array_equal(got[k][s], want[k][s]) for k in want for s in want[k])
+    step = cols[True]._fused_oo_step
+    assert step.leaders == ["snr"] and step.counts["replayed"] == 1
+
+
+def test_audio_collections_replay_in_graphs_with_the_kernel(cuda):
+    """A separation collection (SI-SNR, SNR, SA-SDR) and an SRMR one (16 kHz:
+    the biquad kernel twice an update) captured in graphs: replays raise
+    nothing with host syncs made errors, replay the kernel's two captured
+    calls, and leave the states bit for bit the unfused collections'."""
+    import tpumetrics_torch.audio as au
+
+    def separation(f):
+        return MetricCollection({"si_snr": au.ScaleInvariantSignalNoiseRatio(device=cuda),
+                                 "snr": au.SignalNoiseRatio(device=cuda),
+                                 "sa_sdr": au.SourceAggregatedSignalDistortionRatio(device=cuda)},
+                                fused_update=f, device=cuda)
+
+    def srmr(f):
+        return MetricCollection({"srmr": au.SpeechReverberationModulationEnergyRatio(16000, device=cuda)},
+                                fused_update=f, device=cuda)
+
+    est, src, _ = _separation_batch(52, n=4, t=8000)
+    rng = np.random.default_rng(51)
+    wave = torch.from_numpy(rng.standard_normal((2, 8000)).astype(np.float32) * 0.1).to(cuda)
+    for make, batch in ((separation, (torch.from_numpy(est).to(cuda), torch.from_numpy(src).to(cuda))), (srmr, (wave,))):
+        cols = {f: make(f) for f in (False, True)}
+        for i in range(5):
+            cols[False].update(*batch)
+            if i >= 3:  # the fourth and fifth updates are replays
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                cols[True].update(*batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got, want = export_state(cols[True]), export_state(cols[False])
+            assert all(np.array_equal(got[k][s], want[k][s]) for k in want for s in want[k])
+        step = cols[True]._fused_oo_step
+        assert step.counts["replayed"] == 2
+        if make is srmr:
+            # two calls captured, run by the capture's own replay and each replay after it
+            assert step.kernel_launches()["biquad_cascade"] == 2 * (step.counts["captured"] + step.counts["replayed"])
+        for k, v in cols[False].compute().items():
+            assert torch.equal(cols[True].compute()[k], v)
+
+
+def test_three_speakers_take_the_hungarian_path_eagerly_and_the_exhaustive_one_under_capture(cuda):
+    """Three speakers: eagerly the Hungarian assignment (it reads the metric
+    matrix on the host), under a CUDA graph capture the exhaustive search
+    (permutations decoded on the device); the same permutations, the data's,
+    and the same best metric."""
+    import warnings
+
+    from tpumetrics_torch.functional.audio import permutation_invariant_training, scale_invariant_signal_distortion_ratio
+
+    est, src, perm = _separation_batch(53, n=10, spk=3)
+    p, t = torch.from_numpy(est).to(cuda), torch.from_numpy(src).to(cuda)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eager_metric, eager_perm = permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert any("synchroniz" in str(w.message) and "prototype" not in str(w.message) for w in caught)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap_metric, cap_perm = permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert np.array_equal(eager_perm.cpu().numpy(), np.argsort(perm, axis=1))
+    assert torch.equal(cap_perm, eager_perm)
+    assert float((cap_metric - eager_metric).abs().max()) <= 1e-6 * float(eager_metric.abs().max())

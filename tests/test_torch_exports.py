@@ -20,8 +20,8 @@ import tpumetrics_torch
 import tpumetrics_torch.functional.classification as fc
 import tpumetrics_torch.utils
 
-DOMAINS = ["classification", "clustering", "nominal", "regression", "retrieval", "wrappers"]
-FUNCTIONAL_DOMAINS = ["classification", "clustering", "nominal", "pairwise", "regression", "retrieval"]
+DOMAINS = ["audio", "classification", "clustering", "nominal", "regression", "retrieval", "wrappers"]
+FUNCTIONAL_DOMAINS = ["audio", "classification", "clustering", "nominal", "pairwise", "regression", "retrieval"]
 PACKAGES = [*DOMAINS, *(f"functional.{d}" for d in FUNCTIONAL_DOMAINS), "utils"]
 CORE = {"Metric", "CompositionalMetric", "MetricCollection", "MaskedBuffer", "__version__", "CatMetric", "MaxMetric",
         "MeanMetric", "MinMetric", "RunningMean", "RunningSum", "SumMetric"}

@@ -1,7 +1,9 @@
 """Functional metrics of the port (counterpart of ``tpumetrics/functional``):
 the classification functions and their task-string dispatchers, and the
-clustering, nominal, pairwise, regression and retrieval functions."""
+audio, clustering, nominal, pairwise, regression and retrieval functions."""
 
+from tpumetrics_torch.functional.audio import *  # noqa: F401,F403
+from tpumetrics_torch.functional.audio import __all__ as _audio_all
 from tpumetrics_torch.functional.classification import *  # noqa: F401,F403
 from tpumetrics_torch.functional.classification import __all__ as _classification_all
 from tpumetrics_torch.functional.clustering import *  # noqa: F401,F403
@@ -16,5 +18,5 @@ from tpumetrics_torch.functional.retrieval import *  # noqa: F401,F403
 from tpumetrics_torch.functional.retrieval import __all__ as _retrieval_all
 
 __all__ = sorted(
-    [*_classification_all, *_clustering_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all]
+    [*_audio_all, *_classification_all, *_clustering_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all]
 )

@@ -135,11 +135,29 @@ class Metric(ABC):
             when omitted.
     """
 
+    # every kwarg Metric.__init__ itself consumes (the JAX package's set and the
+    # port's ``device``): wrappers that split base kwargs from passthrough
+    # kwargs filter against it
+    _BASE_KWARGS = frozenset(
+        (
+            "device",
+            "compute_on_cpu",
+            "dist_sync_on_step",
+            "process_group",
+            "dist_sync_fn",
+            "distributed_available_fn",
+            "sync_on_compute",
+            "compute_with_cache",
+            "sync_backend",
+        )
+    )
+
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = None
-    # an update that reads the host by its semantics (a boolean row selection):
-    # a fused collection keeps it eager instead of capturing it
+    # an update that reads the host by its semantics (a boolean row selection),
+    # or runs a library call that a CUDA graph cannot capture (SDR's batched
+    # LU): a fused collection keeps it eager instead of capturing it
     _update_reads_host: bool = False
 
     def __init__(self, **kwargs: Any) -> None:

@@ -67,7 +67,7 @@ from typing import Any, Dict, Hashable, Iterator, List, Optional, Tuple
 import torch
 
 from tpumetrics_torch.buffers import MaskedBuffer
-from tpumetrics_torch.ops import binned_confusion as _bc
+from tpumetrics_torch.ops import COUNTED_KERNELS
 from tpumetrics_torch.utils.exceptions import TPUMetricsUserError
 from tpumetrics_torch.utils.prints import rank_zero_warn
 
@@ -428,10 +428,10 @@ class FusedCollectionStep:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
-                before = _bc.captured
+                before = {name: wrapper.captured for name, wrapper in COUNTED_KERNELS.items()}
                 with torch.cuda.graph(graph, pool=self._pool):
                     self._write_back(self._transition(state, static, kwargs))
-                kernel_calls["binned_confusion"] = _bc.captured - before
+                kernel_calls = {name: wrapper.captured - before[name] for name, wrapper in COUNTED_KERNELS.items()}
             self.capture_seconds.append(time.perf_counter() - t0)
         program = self._programs[key] = _Program(static, graph, kwargs, kernel_calls)
         if len(self._programs) == _PROGRAM_CACHE_WARN:

@@ -16,13 +16,13 @@ EXACT_F32_COUNT = 1 << 24
 
 
 @contextmanager
-def _ieee_float32_matmul() -> Iterator[None]:
-    """Inside it, float32 matmuls on the card (cuBLAS) and the CPU (oneDNN)
-    run in full float32, whatever ``torch.set_float32_matmul_precision`` or
-    the backends' ``fp32_precision`` say; the caller's settings come back on
-    exit. The settings are process-wide: a matmul that another thread
-    dispatches meanwhile runs in full float32 too."""
-    backends = [torch.backends.cuda.matmul, torch.backends.mkldnn.matmul]
+def _ieee_float32(*backends) -> Iterator[None]:
+    """Inside it, the float32 work of ``backends`` (``fp32_precision``
+    settings such as ``torch.backends.cuda.matmul`` for cuBLAS or
+    ``torch.backends.cudnn.conv`` for cuDNN) runs in full float32, whatever
+    ``torch.set_float32_matmul_precision`` or the backends' settings say; the
+    caller's settings come back on exit. The settings are process-wide: work
+    that another thread dispatches meanwhile runs in full float32 too."""
     saved = [b.fp32_precision for b in backends]
     for b in backends:
         b.fp32_precision = "ieee"
@@ -31,6 +31,11 @@ def _ieee_float32_matmul() -> Iterator[None]:
     finally:
         for b, value in zip(backends, saved):
             b.fp32_precision = value
+
+
+def _ieee_float32_matmul():
+    """``_ieee_float32`` for matmuls on the card (cuBLAS) and the CPU (oneDNN)."""
+    return _ieee_float32(torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
 
 
 def _safe_matmul(x: Tensor, y: Tensor) -> Tensor:
