@@ -124,15 +124,20 @@ Phases, each of which passes or exits non-zero:
    compute's parts (the two sorts, ``sort_queries``, a segment sum, the PR
    grid), and a graded stream at TREC DL 2019 passage geometry (43 x 1,000,
    grades 0-3) through nDCG@10;
-5g. audio: the kernel phase of ``biquad_cascade`` (SRMR's IIR filterbanks)
-   against its plain torch version on the card, bit for bit, at both call
-   sites' shapes at T=2048 and 4096, at edge cases (T=1, one lane,
-   silence, lanes driven into the clip, NaN and inf inputs) and at the
-   SRMR stream's full shapes (184 and 1,472 lanes x 128,000 samples, the
-   shapes its main path gives the kernel), with its time at those shapes
-   (events, L2 flushed), a one-lane launch's at the full T (the sequential
-   chain of one thread per lane), the plain version's at the full shapes
-   and at T=2048, and the bytes bound; then a separation
+5g. audio: the kernel phase of ``biquad_cascade`` (SRMR's IIR filterbanks,
+   a chunked scan over T) held to its contract beside its plain torch
+   version on the same inputs: against the cascade in float64 on the host,
+   rel(kernel) <= 2 rel(plain) + 1e-6 (rel: a lane's max abs error over its
+   peak, the worst lane), non-finite outputs where the plain loop's are,
+   exact zeros on silent lanes, two calls bit for bit; at both call sites'
+   shapes at T=2048 and 4096, at the chunk and tile edges (T = 15, 17,
+   1000, 4095, 4096, 4097, 12293), at edge cases (T=1, one lane, silence,
+   lanes driven into the clip, NaN and inf inputs), a graph replay bit for
+   bit the eager call, and at the SRMR stream's full shapes (184 and 1,472
+   lanes x 128,000 samples, the shapes its main path gives the kernel),
+   with its time at those shapes (events, L2 flushed), a one-lane launch's
+   at the full T (the carry chain's latency), the plain version's at the
+   full shapes and at T=2048, and the bytes bound; then a separation
    stream at WSJ0-2mix test geometry (3,000 two-speaker mixtures of 4 s at
    8 kHz, made from the seed as speech-like modulated noise with estimates
    at 15 dB and the speakers swapped in about half; batches of 50; made
@@ -2922,23 +2927,61 @@ def biquad_call_inputs(torch, kind: str, batch: int, t: int, seed: int):
     return x.contiguous(), const["mb"].repeat(lanes, 1)[None], const["ma"].repeat(lanes, 1)[None], False
 
 
-def same_with_nan(torch, got, want) -> bool:
-    """Equal values, NaN where the other has NaN."""
-    nan = torch.isnan(want)
-    return bool(torch.equal(nan, torch.isnan(got)) and torch.equal(got[~nan], want[~nan]))
+BIQUAD_CHUNK, BIQUAD_TILE = 16, 4096  # samples a thread and a block of the kernel run (csrc/biquad_cascade.cu)
+
+
+def biquad_check(torch, bq, label: str, x, b, a, clamp: bool, want=None) -> dict:
+    """One case of the kernel's contract on the card: two calls bit for bit
+    equal, the non-finite outputs where the plain loop's are, exact zeros on
+    silent lanes, and ``rel(kernel) <= REL_SLACK rel(plain) + REL_FLOOR``
+    against the float64 reference on the host (``bq.biquad_cascade_reference``).
+    ``want`` is the plain loop's output when the caller has it."""
+    got = bq.biquad_cascade(x, b, a, clamp)
+    again = bq.biquad_cascade(x, b, a, clamp)
+    torch.cuda.synchronize()
+    check(same_bits(torch, got, again), f"biquad_cascade at {label}: two calls differ")
+    if want is None:
+        want = bq.biquad_cascade_plain(x, b, a, clamp)
+    bad_got, bad_want = ~torch.isfinite(got), ~torch.isfinite(want)
+    check(torch.equal(bad_got, bad_want), f"biquad_cascade at {label}: non-finite outputs at other positions than the"
+          f" plain loop's ({int(bad_got.sum())} against {int(bad_want.sum())})")
+    kinds_differ = int((torch.isnan(got) != torch.isnan(want)).sum())  # NaN in one where the other has +-inf
+    silent = (x == 0).all(dim=1)
+    check(bool((got[silent] == 0).all()), f"biquad_cascade at {label}: a silent lane gave a non-zero output")
+    ref = bq.biquad_cascade_reference(x, b, a, clamp)
+    rel, rel_plain = bq.relative_error(got, ref), bq.relative_error(want, ref)
+    check(rel <= bq.REL_SLACK * rel_plain + bq.REL_FLOOR,
+          f"biquad_cascade at {label}: rel {rel:.3e} against the float64 reference, the plain loop's {rel_plain:.3e}")
+    fin = ~bad_got & ~bad_want
+    max_abs = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return {"rel": rel, "rel_plain": rel_plain, "max_abs_err": max_abs, "nonfinite": int(bad_got.sum()),
+            "nan_vs_inf": kinds_differ, "silent_lanes": int(silent.sum())}
+
+
+def same_bits(torch, u, v) -> bool:
+    """The same float32 bits (NaN payloads and signed zeros included)."""
+    return bool(torch.equal(u.view(torch.int32), v.view(torch.int32)))
 
 
 def biquad_kernel_phase(torch, bq) -> dict:
-    """``biquad_cascade`` against its plain version on the card, bit for bit,
-    at both call sites' shapes at short T, at edge cases, and at the SRMR
-    stream's full shapes (the shapes its main path gives the kernel, on the
-    inputs that are timed); its time at the full shapes, a one-lane launch's
-    at the full T (the sequential chain of this design), and the plain
-    version's at the full T (one call) and at T=2048."""
+    """``biquad_cascade`` on the card held to its contract (``biquad_check``)
+    beside its plain version on the same inputs: both call sites' shapes at
+    short T, the chunk and tile edges, edge cases (T=1, one lane, silence,
+    lanes driven into the clip, NaN and inf), a graph replay against the eager
+    call bit for bit, and the SRMR stream's full shapes (the shapes its main
+    path gives the kernel, on the inputs that are timed); its time at the full
+    shapes, a one-lane launch's at the full T (the carry chain's latency), and
+    the plain version's at the full T (one call) and at T=2048."""
     cases = []
     for kind in ("gammatone", "modulation"):
         for t in (2048, 4096):
             cases.append((f"{kind} {SRMR_BATCH} utterances T={t}", biquad_call_inputs(torch, kind, SRMR_BATCH, t, SEED + t)))
+    # the chunk and tile edges (T % 4 != 0 takes the kernel's 4-byte loads), both banks
+    edges = (BIQUAD_CHUNK - 1, BIQUAD_CHUNK + 1, 1000, BIQUAD_TILE - 1, BIQUAD_TILE, BIQUAD_TILE + 1, 3 * BIQUAD_TILE + 5)
+    for t in edges:
+        cases.append((f"gammatone T={t}", biquad_call_inputs(torch, "gammatone", SRMR_BATCH, t, SEED + 5)))
+    for t in (BIQUAD_CHUNK + 1, BIQUAD_TILE - 1, BIQUAD_TILE + 1, 3 * BIQUAD_TILE + 5):
+        cases.append((f"modulation T={t}", biquad_call_inputs(torch, "modulation", 1, t, SEED + 6)))
     x, b, a, _ = biquad_call_inputs(torch, "gammatone", SRMR_BATCH, 4096, SEED + 1)
     cases.append(("gammatone T=1", (x[:, :1].contiguous(), b, a, True)))
     cases.append(("gammatone one lane L=1", (x[:1].contiguous(), b[:, :1].contiguous(), a[:, :1].contiguous(), True)))
@@ -2950,34 +2993,55 @@ def biquad_kernel_phase(torch, bq) -> dict:
     nan[3, 100] = float("nan")
     nan[10, 4000:] = float("nan")
     nan[11, 0] = float("inf")
+    nan[12] = 0.0  # a silent lane beside them
     cases.append(("gammatone NaN and inf inputs", (nan, b, a, True)))
     xm, bm, am, _ = biquad_call_inputs(torch, "modulation", 1, 4096, SEED + 2)
     xm = xm.clone()
     xm[5, 2000] = float("nan")
-    cases.append(("modulation NaN input", (xm, bm, am, False)))
-    max_err = 0.0
+    xm[6, 3000] = float("-inf")
+    cases.append(("modulation NaN and inf inputs", (xm, bm, am, False)))
+    max_err, worst, results = 0.0, {}, {}
     for label, (x, b, a, clamp) in cases:
-        got = bq.biquad_cascade(x, b, a, clamp)
-        torch.cuda.synchronize()
-        want = bq.biquad_cascade_plain(x, b, a, clamp)
-        fin = torch.isfinite(want) & torch.isfinite(got)
-        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
-        max_err = max(max_err, err)
-        check(same_with_nan(torch, got, want), f"biquad_cascade != plain version at {label} (err {err})")
+        res = biquad_check(torch, bq, label, x, b, a, clamp)
+        results[label] = res
+        max_err = max(max_err, res["max_abs_err"])
+        kind = label.split()[0]
+        worst[kind] = max(worst.get(kind, 0.0), res["rel"] / (bq.REL_SLACK * res["rel_plain"] + bq.REL_FLOOR))
         loud_case = label.endswith("driven into the clamp")
-        if loud_case:  # the clip between the stages acts where the output differs from the unclipped cascade's
-            check(not torch.equal(got, bq.biquad_cascade_plain(x, b, a, False)), f"biquad_cascade at {label}: the clip never acted")
+        if loud_case:  # the clip between the stages acts where the reference differs from the unclipped cascade's
+            check(not np.array_equal(bq.biquad_cascade_reference(x, b, a, True), bq.biquad_cascade_reference(x, b, a, False)),
+                  f"biquad_cascade at {label}: the clip never acted")
         print(f"kernel phase: biquad_cascade {label} ({tuple(x.shape)}, {b.shape[0]} stages, clamp {clamp}):"
-              f" bit for bit{', the clip between the stages acting' if loud_case else ''}", flush=True)
-    del cases, x, b, a, loud, nan, xm, bm, am
+              f" rel {res['rel']:.3e} against the float64 reference, plain loop {res['rel_plain']:.3e}; max abs"
+              f" difference from the plain loop {res['max_abs_err']:.3e}; non-finite outputs {res['nonfinite']} where"
+              f" the plain loop's are ({res['nan_vs_inf']} NaN against +-inf); silent lanes {res['silent_lanes']}"
+              f" exact zeros; two calls bit for bit{', the clip between the stages acting' if loud_case else ''}",
+              flush=True)
+    # a graph replay gives the eager call's bits; its scratch is zeroed inside the graph
+    x, b, a, clamp = cases[0][1]
+    eager = bq.biquad_cascade(x, b, a, clamp)
+    captured_before = bq.captured
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bq.biquad_cascade(x, b, a, clamp)  # warm the allocator on the side stream
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        replayed = bq.biquad_cascade(x, b, a, clamp)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(same_bits(torch, replayed, eager), f"biquad_cascade at {cases[0][0]}: a graph replay differs from the eager call")
+    check(bq.captured == captured_before + 1, f"biquad_cascade: {bq.captured - captured_before} calls captured, expected 1")
+    print(f"kernel phase: biquad_cascade {cases[0][0]}: three graph replays bit for bit the eager call", flush=True)
+    del cases, x, b, a, loud, nan, xm, bm, am, eager, replayed, graph
     flush = l2_flush(torch)
     timed = {}
     for kind, lanes in (("gammatone", SRMR_BATCH * GAMMATONE_CHANNELS), ("modulation", SRMR_BATCH * GAMMATONE_CHANNELS * MOD_BANDS)):
         x, b, a, clamp = biquad_call_inputs(torch, kind, SRMR_BATCH, SRMR_T, SEED + 3)
         ms, host_ms = cuda_ms(torch, lambda: bq.biquad_cascade(x, b, a, clamp), reps=5, ahead=flush)
         one_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade(x[:1], b[:, :1], a[:, :1], clamp), reps=3, ahead=flush)
-        # the main path's shape: the kernel against the plain version on the timed inputs, bit for bit
-        got = bq.biquad_cascade(x, b, a, clamp)
+        # the main path's shape: the plain loop's full call on the timed inputs, then the contract against both
         flush()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -2986,34 +3050,36 @@ def biquad_kernel_phase(torch, bq) -> dict:
         end.record()
         end.synchronize()
         plain_full_ms, plain_full_wall_s = start.elapsed_time(end), time.perf_counter() - t0
-        fin = torch.isfinite(want) & torch.isfinite(got)
-        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
-        max_err = max(max_err, err)
-        check(same_with_nan(torch, got, want), f"biquad_cascade != plain version at the {kind} main-path shape (err {err})")
+        res = biquad_check(torch, bq, f"the {kind} main-path shape", x, b, a, clamp, want=want)
+        max_err = max(max_err, res["max_abs_err"])
+        worst[kind] = max(worst[kind], res["rel"] / (bq.REL_SLACK * res["rel_plain"] + bq.REL_FLOOR))
         print(f"kernel phase: biquad_cascade {kind} at the main path's shape ({tuple(x.shape)}, {b.shape[0]} stages,"
-              f" clamp {clamp}): bit for bit with the plain version on the card ({plain_full_ms:.1f} ms of device"
-              f" time, {plain_full_wall_s:.1f} s on the host clock)", flush=True)
-        del got, want, fin
+              f" clamp {clamp}): rel {res['rel']:.3e} against the float64 reference, the plain loop's"
+              f" {res['rel_plain']:.3e} (tolerance {bq.REL_SLACK:g} x plain + {bq.REL_FLOOR:g}); max abs difference"
+              f" from the plain loop {res['max_abs_err']:.3e}; two calls bit for bit; plain loop {plain_full_ms:.1f} ms"
+              f" of device time, {plain_full_wall_s:.1f} s on the host clock", flush=True)
+        del want
         xs, bs, as_ = x[:, :2048].contiguous(), b, a
         plain_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade_plain(xs, bs, as_, clamp), reps=1, ahead=flush)
         kern_short_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade(xs, bs, as_, clamp), reps=5, ahead=flush)
         bound = biquad_bound(lanes, SRMR_T, b.shape[0], clamp)
         timed[kind] = {"lanes": lanes, "t": SRMR_T, "stages": b.shape[0], "ms": ms, "host_ms": host_ms,
                        "one_lane_ms": one_ms, "plain_ms": plain_full_ms, "plain_ms_t2048": plain_ms,
-                       "ms_t2048": kern_short_ms, **bound}
+                       "ms_t2048": kern_short_ms, "rel": res["rel"], "rel_plain": res["rel_plain"],
+                       "max_abs_err": res["max_abs_err"], **bound}
         print(
             f"kernel phase: biquad_cascade {kind} {lanes} lanes x {SRMR_T} samples, {b.shape[0]} stages:"
-            f" kernel {ms:.3f} ms on the device ({ms / bound['bound_ms']:.1f}x its bound; {host_ms:.4f} ms of host"
-            f" time to make the call); plain {plain_full_ms:.1f} ms; one lane at the full T {one_ms:.3f} ms (the"
-            f" sequential chain); at T=2048"
-            f" kernel {kern_short_ms:.4f} ms, plain {plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms by"
+            f" kernel {ms:.4f} ms on the device ({ms / bound['bound_ms']:.2f}x its bound; {host_ms:.4f} ms of host"
+            f" time to make the call; 4 device launches: the wrapper's two divisions by a0, the scratch's zero fill"
+            f" and the scan); plain {plain_full_ms:.1f} ms; one lane at the full T {one_ms:.4f} ms (the carry chain's"
+            f" latency); at T=2048 kernel {kern_short_ms:.4f} ms, plain {plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms by"
             f" {bound['bound_by']} (bytes {bound['bytes']} -> {bound['bytes_ms']:.4f} ms at 3.35 TB/s;"
             f" ops {bound['ops']} -> {bound['ops_ms']:.4f} ms at 67 TFLOP/s fp32); library call: none",
             flush=True,
         )
         del x, b, a, xs, bs, as_
         torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "timed": timed}
+    return {"max_abs_err": max_err, "worst_share": worst, "cases": results, "timed": timed}
 
 
 # WSJ0-2mix (Hershey et al. 2016), its test set as Conv-TasNet (Luo & Mesgarani 2019) evaluates it: 3,000
@@ -3691,7 +3757,8 @@ def profile_step(torch, col, batch, label: str) -> None:
         parts = "; ".join(f"{e.key[:48]} x{e.count} {e.device_time_total:.1f} us" for e in top)
         ours = sum(e.device_time_total for e in kernels if "count_kernel" in e.key or "rank_kernel" in e.key)
         iir = sum(e.device_time_total for e in kernels if "biquad_cascade_kernel" in e.key)
-        iir_part = f" biquad_cascade kernels {iir:.1f} us ({iir / 10 / busy_ms:.1f}% of the union);" if iir else ""
+        iir_n = sum(e.count for e in kernels if "biquad_cascade_kernel" in e.key)
+        iir_part = f" biquad_cascade kernels x{iir_n} {iir:.1f} us ({iir / 10 / busy_ms:.1f}% of the union);" if iir else ""
         print(
             f"profile: {label}: steady {step} {wall_ms:.3f} ms wall unprofiled; profiled run {profiled_ms:.3f} ms wall,"
             f" device busy (union of {len(device)} device intervals) {busy_ms:.3f} ms"
@@ -3812,12 +3879,15 @@ def main() -> None:
                 "replaces": "tpumetrics/functional/audio/srmr.py:143",
                 "launches": sum(iir_by_path.values()),
                 "launches_by_path": {k: v for k, v in iir_by_path.items() if v},
-                "max_abs_err": iir["max_abs_err"],
+                "max_abs_err": iir["max_abs_err"],  # against the plain loop, over every case (a scan reassociates)
+                "rel": iir_shape["rel"],  # against the float64 reference: at most 2 x rel_plain + 1e-6
+                "rel_plain": iir_shape["rel_plain"],
+                "rel_worst_share": iir["worst_share"],  # rel over its tolerance, the worst case of each bank
                 "ms": iir_shape["ms"],
                 "plain_ms": iir_shape["plain_ms"],  # the plain loop at the same shape, one call: a launch per op and step
                 "bound_ms": iir_shape["bound_ms"],
                 "bound_by": iir_shape["bound_by"],
-                "one_lane_ms": iir_shape["one_lane_ms"],  # the sequential chain of one thread per lane at the full T
+                "one_lane_ms": iir_shape["one_lane_ms"],  # one lane at the full T: the carry chain's latency
                 "library_ms": None,  # no PyTorch call runs an IIR recurrence (torchaudio's lfilter is not installed)
                 "shape": [iir_shape["lanes"], iir_shape["t"], iir_shape["stages"]],
                 "timed_shapes": iir["timed"],

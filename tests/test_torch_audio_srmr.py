@@ -8,7 +8,10 @@ Tolerances:
 
 - the float64 filter design equals the JAX arrays exactly (a copy of it);
 - the plain cascade equals a float32 numpy loop of the same steps bit for
-  bit; against the JAX ``_biquad_cascade`` (a ``lax.scan`` whose step XLA
+  bit; the float32 steps and the JAX ``_biquad_cascade`` are within
+  ``CASCADE_RTOL`` of the output's peak of the float64 reference
+  (``biquad_cascade_reference``, scipy's ``lfilter``), the yardstick the
+  card's kernel is held to; against the JAX ``_biquad_cascade`` (a ``lax.scan`` whose step XLA
   rounds differently, from the second sample on) within ``CASCADE_RTOL`` of
   the output's peak: 1e-4 for the gammatone bank and 2e-3 for the
   modulation bank, whose poles lie closer to the unit circle and carry a
@@ -17,6 +20,8 @@ Tolerances:
   7e-5): the cascades above, and FFTs and a strided correlation summed in
   another order.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -104,13 +109,70 @@ def _numpy_cascade(x, b, a, clamp):
     return out
 
 
+@functools.cache
+def _jax_cascade(kind):
+    x, b, a, clamp = _cascade_inputs(kind)
+    return np.asarray(jax_srmr._biquad_cascade(jnp.asarray(x), jnp.asarray(b), jnp.asarray(a), clamp=clamp))
+
+
+@functools.cache
+def _numpy_steps(kind):
+    return _numpy_cascade(*_cascade_inputs(kind))
+
+
 @pytest.mark.parametrize("kind", ["gammatone", "modulation"])
 def test_plain_cascade_is_the_float32_steps_and_matches_jax(kind):
     x, b, a, clamp = _cascade_inputs(kind)
     got = biquad.biquad_cascade(torch.from_numpy(x), torch.from_numpy(b), torch.from_numpy(a), clamp).numpy()
-    assert np.array_equal(got, _numpy_cascade(x, b, a, clamp))
-    want = np.asarray(jax_srmr._biquad_cascade(jnp.asarray(x), jnp.asarray(b), jnp.asarray(a), clamp=clamp))
+    assert np.array_equal(got, _numpy_steps(kind))
+    want = _jax_cascade(kind)
     assert np.max(np.abs(got - want)) <= CASCADE_RTOL[kind] * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("kind", ["gammatone", "modulation"])
+def test_float64_reference_holds_the_float32_steps_and_jax(kind):
+    """The yardstick of the card's kernel, the cascade in float64 on the
+    host: the float32 numpy steps and the JAX scan lie within
+    ``CASCADE_RTOL`` of its peak, and the plain loop's ``rel`` (which sets the
+    kernel's tolerance, twice it plus 1e-6) is positive and below that."""
+    x, b, a, clamp = _cascade_inputs(kind)
+    ref = biquad.biquad_cascade_reference(torch.from_numpy(x), torch.from_numpy(b), torch.from_numpy(a), clamp)
+    assert ref.dtype == np.float64 and ref.shape == x.shape
+    steps = _numpy_steps(kind)
+    peak = np.max(np.abs(ref))
+    assert np.max(np.abs(steps - ref)) <= CASCADE_RTOL[kind] * peak
+    assert np.max(np.abs(_jax_cascade(kind) - ref)) <= CASCADE_RTOL[kind] * peak
+    rel_plain = biquad.relative_error(torch.from_numpy(steps), ref)
+    assert 0 < rel_plain <= CASCADE_RTOL[kind]
+
+
+def test_float64_reference_clips_between_stages_and_propagates_nan():
+    """The reference follows the cascade's semantics: an impulse through one
+    pole gives its powers exactly, the clip acts between the stages and not
+    in a stage's recursion, and NaN passes it."""
+    impulse = torch.tensor([[1.0, 0.0, 0.0, 0.0]])
+    one_pole = (torch.tensor([[[1.0, 0.0, 0.0]]]), torch.tensor([[[1.0, -0.5, 0.0]]]))
+    assert biquad.biquad_cascade_reference(impulse, *one_pole).tolist() == [[1.0, 0.5, 0.25, 0.125]]
+    x = torch.tensor([[2.0, 0.0, 0.0, float("nan"), 0.0]])
+    b = torch.tensor([[[1.0, 0.0, 0.0]], [[1.0, 0.0, 0.0]]])
+    a = torch.tensor([[[1.0, -0.5, 0.0]], [[1.0, 0.0, 0.0]]])
+    got = biquad.biquad_cascade_reference(x, b, a, clamp=True)
+    assert got[0, :3].tolist() == [1.0, 1.0, 0.5] and np.isnan(got[0, 3:]).all()
+    assert biquad.biquad_cascade_reference(x, b, a, clamp=False)[0, :3].tolist() == [2.0, 1.0, 0.5]
+
+
+def test_relative_error_and_the_kernels_scratch():
+    """``rel`` is the worst lane's max abs error over its peak, on the
+    positions finite in both; a silent lane counts 0, or inf where the other
+    is not silent there. The scratch: a 2-float carry per tile, lane and
+    stage, and the ticket and one flag per tile and lane."""
+    want = np.array([[1.0, -4.0, np.nan], [0.0, 0.0, 0.0], [2.0, 2.0, 2.0]])
+    got = torch.tensor([[1.5, -4.0, 7.0], [0.0, 0.0, 0.0], [2.0, 2.0, float("inf")]])
+    assert biquad.relative_error(got, want) == 0.125
+    assert biquad.relative_error(torch.tensor([[0.0, 1e-30]]), np.zeros((1, 2))) == np.inf
+    assert biquad.relative_error(torch.zeros(0, 4), np.zeros((0, 4))) == 0.0
+    assert biquad.scratch_shapes(184, 128_000, 4, 4096) == (32, 2 * 32 * 184 * 4, 1 + 32 * 184)
+    assert [biquad.scratch_shapes(3, t, 1, 4096)[0] for t in (1, 4095, 4096, 4097, 3 * 4096 + 5)] == [1, 1, 1, 2, 4]
 
 
 def test_plain_cascade_clips_between_stages_keeps_the_recursion_and_propagates_nan():
@@ -146,6 +208,13 @@ def test_cascade_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="cpu or cuda"):
         biquad.biquad_cascade(x.to("meta"), good.to("meta"), good.to("meta"))
     assert biquad.launches == 0  # the CPU path launches nothing
+    # the float64 reference refuses what the wrapper refuses
+    with pytest.raises(ValueError, match="stages, 3, 3"):
+        biquad.biquad_cascade_reference(x, torch.zeros(1, 2, 3), torch.zeros(1, 2, 3))
+    with pytest.raises(TypeError, match="float32"):
+        biquad.biquad_cascade_reference(x.double(), good, good)
+    with pytest.raises(ValueError, match="at least 1 stage"):
+        biquad.biquad_cascade_reference(x, torch.zeros(0, 3, 3), torch.zeros(0, 3, 3))
 
 
 def test_hilbert_envelope_and_energy_normalization_match_jax():

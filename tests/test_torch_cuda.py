@@ -11,7 +11,8 @@ the CPU's (NaN, +-inf, +-0.0 among the scores), a retrieval ``compute()``
 twice with the same bits, the full-float32 product under the caller's
 ``set_float32_matmul_precision("medium")``, and a buffered retrieval
 leader replayed with no host sync; and the audio slice: the biquad
-kernel against its plain version, the separation members on the card
+kernel against a float64 reference beside its plain version (at the
+chunk and tile edges too), two calls and a graph replay bit for bit, the separation members on the card
 against the CPU, SDR's host syncs and its eager place beside a graph,
 audio collections replayed in graphs, and three-speaker PIT eagerly and
 under capture.
@@ -1125,6 +1126,24 @@ def _biquad_case(kind, lanes_per, t, seed=0):
     return x[:lanes_per] if lanes_per else x, (b[:, :lanes_per] if lanes_per else b), (a[:, :lanes_per] if lanes_per else a), clamp
 
 
+# the kernel's chunk (K = 16 samples a thread) and tile (4,096 samples a block): csrc/biquad_cascade.cu
+_K, _TILE = 16, 4096
+
+
+def _biquad_edit(x, edit):
+    if edit == "zeros":
+        return torch.zeros_like(x)
+    x = x.clone()
+    if edit == "loud":
+        x[::7] *= 3e4
+    elif edit == "nan":
+        x[3, 100] = float("nan")
+        x[10, 500:] = float("nan")
+        x[11, 0] = float("inf")
+        x[12] = 0.0  # a silent lane beside them
+    return x
+
+
 @pytest.mark.parametrize(
     "kind,lanes,t,edit",
     [
@@ -1132,34 +1151,66 @@ def _biquad_case(kind, lanes_per, t, seed=0):
         ("modulation", 0, 4096, None), ("gammatone", 0, 1, None), ("gammatone", 1, 4096, None),
         ("gammatone", 0, 1000, "zeros"), ("gammatone", 0, 1000, "loud"), ("gammatone", 0, 1000, "nan"),
         ("modulation", 0, 1000, "nan"),
+        # the chunk and tile edges, and T not a multiple of K (T % 4 != 0 takes the kernel's 4-byte loads)
+        ("gammatone", 0, _K - 1, None), ("gammatone", 0, _K + 1, None), ("gammatone", 0, 1001, None),
+        ("gammatone", 0, _TILE - 1, None), ("gammatone", 0, _TILE + 1, None), ("gammatone", 0, 3 * _TILE + 5, None),
+        ("modulation", 0, _K + 1, None), ("modulation", 0, _TILE - 1, None), ("modulation", 0, _TILE + 1, None),
+        ("modulation", 0, 3 * _TILE + 5, None),
     ],
 )
 def test_biquad_kernel_matches_plain_version(cuda, kind, lanes, t, edit):
-    """The kernel against its plain version on the card, bit for bit (NaN
-    where the plain version has NaN): both call sites at short T, T=1, one
-    lane, silence, lanes driven into the clip, and NaN and inf inputs."""
+    """The kernel against the float64 reference beside its plain version on
+    the same inputs: ``rel(kernel) <= 2 rel(plain) + 1e-6`` (a scan
+    reassociates the recurrence, so not bit for bit), the non-finite outputs
+    where the plain loop's are, exact zeros on silent lanes; at both call
+    sites at short T, the chunk and tile edges, T=1, one lane, silence, lanes
+    driven into the clip, and NaN and inf inputs."""
     from tpumetrics_torch.ops import biquad as bq
 
     x, b, a, clamp = _biquad_case(kind, lanes, t)
-    if edit == "zeros":
-        x = torch.zeros_like(x)
-    elif edit == "loud":
-        x = x.clone()
-        x[::7] *= 3e4
-    elif edit == "nan":
-        x = x.clone()
-        x[3, 100] = float("nan")
-        x[10, 500:] = float("nan")
-        x[11, 0] = float("inf")
+    x = _biquad_edit(x, edit)
     before = bq.launches
     got = bq.biquad_cascade(x, b, a, clamp)
     torch.cuda.synchronize()
     assert bq.launches == before + 1
     want = bq.biquad_cascade_plain(x, b, a, clamp)
-    nan = torch.isnan(want)
-    assert torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    silent = (x == 0).all(dim=1)
+    assert bool((got[silent] == 0).all())
+    ref = bq.biquad_cascade_reference(x, b, a, clamp)
+    rel, rel_plain = bq.relative_error(got, ref), bq.relative_error(want, ref)
+    assert rel <= bq.REL_SLACK * rel_plain + bq.REL_FLOOR, (rel, rel_plain)
     if edit == "loud":  # the clip between the stages acted: the output is not the unclipped cascade's
-        assert not torch.equal(got, bq.biquad_cascade_plain(x, b, a, False))
+        assert not np.array_equal(ref, bq.biquad_cascade_reference(x, b, a, False))
+    if edit == "zeros":
+        assert bool(silent.all()) and not bool(got.any())
+
+
+@pytest.mark.parametrize("kind,t", [("gammatone", 3 * _TILE + 5), ("modulation", 2 * _TILE)])
+def test_biquad_kernel_is_deterministic_and_replays_bit_for_bit(cuda, kind, t):
+    """The carries between tiles compose in one fixed order: two calls give
+    the same bits, and a CUDA graph's replays (the scratch zeroed inside the
+    graph) give the eager call's."""
+    from tpumetrics_torch.ops import biquad as bq
+
+    x, b, a, clamp = _biquad_case(kind, 0, t, seed=3)
+    first = bq.biquad_cascade(x, b, a, clamp)
+    second = bq.biquad_cascade(x, b, a, clamp)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bq.biquad_cascade(x, b, a, clamp)
+    torch.cuda.current_stream().wait_stream(side)
+    captured, graph = bq.captured, torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = bq.biquad_cascade(x, b, a, clamp)
+    assert bq.captured == captured + 1
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed.view(torch.int32), first.view(torch.int32))
 
 
 def _separation_batch(seed, n=8, spk=2, t=8000):

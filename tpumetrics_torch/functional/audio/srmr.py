@@ -14,7 +14,9 @@
 The filters are designed on the host in float64 (a copy of the JAX
 package's design, so the coefficients are the same bits) and cached. Both
 filterbanks run through :func:`tpumetrics_torch.ops.biquad.biquad_cascade`:
-the hand-written kernel on a card, a loop over time on the CPU. The
+the hand-written kernel on a card (a chunked scan over time, deterministic,
+within a stated tolerance of a float64 reference), a loop over time on the
+CPU. The
 constants an update needs (coefficients, the window, the bandwidths) are
 copied to the device once per device and configuration, by the first call
 there, which must be eager; later calls copy nothing from the host, so a
