@@ -155,6 +155,25 @@ Phases, each of which passes or exits non-zero:
    utterances of 2 s, clean utterances scoring above their reverberant
    copies, the kernel's launches (2 an update) and its share of the
    update's device time; each stream with its fused phase;
+5h. image streams, each inside torch's own TF32 defaults (cuDNN may run
+   float32 convolutions in TF32; the library must keep its own in full
+   float32): a restoration stream at DIV2K validation size as NTIRE, EDSR
+   and SwinIR evaluate it (100 8-bit RGB images of a fixed 2040 x 1356,
+   made from the seed as 1/f textures in worker processes; each prediction
+   its target blurred and noisy; batches of 4) through an RGB collection
+   (PSNR, SSIM, MS-SSIM, UQI, VIF), the predictions' total variation, and a
+   BT.601 Y collection (PSNR, SSIM, PSNR-B); each of the first two batches
+   on the card against the port's CPU path in a worker process (float32
+   sums within CANCEL_EPS of their cancelling moments' terms carried
+   through each score, counts exact), the values on the first two images
+   against float64 numpy/scipy oracles (worker processes), host syncs of
+   each member's steady update, the convolutions' share of an update's
+   device time; and a pan-sharpening stream at PanCollection's WorldView-3
+   test geometry: 20 reduced-resolution images (8 x 256 x 256) through
+   ERGAS (ratio 4), SAM and its capacity copy, RASE and RMSE-SW (window 8),
+   and 20 full-resolution outputs (8 x 512 x 512) against their 8 x 128 x
+   128 multispectral inputs through D-lambda and its capacity copy; the
+   same checks; each collection with its fused phase;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -191,7 +210,9 @@ Run alone, a phase is a function of this module, called from a script that
 guards its own entry point (``if __name__ == "__main__":``; the separation
 phase starts worker processes with ``spawn``) after ``_build.build()``:
 ``chip_smoke.separation_phase(torch, bc)``, ``chip_smoke.srmr_phase(torch,
-bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``.
+bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``,
+``chip_smoke.restoration_phase(torch, bc)``,
+``chip_smoke.pansharpening_phase(torch, bc)``.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -2084,14 +2105,18 @@ def intrinsic_members(device) -> dict:
     }
 
 
-def buffered(metric, rows: int = CLUSTER_N):
+def buffered(metric, rows: int = CLUSTER_N, shapes: dict = None):
     """``metric`` with its list states in MaskedBuffers of ``rows`` rows (the
-    stream's), installed as its live states: its update appends to them with
-    no host read, and a fused collection captures it."""
+    stream's) of ``shapes[state]`` (every state, the clustering data's rows
+    ``CLUSTER_D`` wide and the rest scalars, when omitted), installed as its
+    live states: its update appends to them with no host read, and a fused
+    collection captures it."""
     from tpumetrics_torch.interop import load_state
 
-    for name in metric._defaults:
-        metric.set_state_capacity(name, rows, feature_shape=(CLUSTER_D,) if name == "data" else ())
+    if shapes is None:
+        shapes = {name: (CLUSTER_D,) if name == "data" else () for name in metric._defaults}
+    for name, shape in shapes.items():
+        metric.set_state_capacity(name, rows, feature_shape=shape)
     load_state(metric, metric.init_state())
     return metric
 
@@ -3484,6 +3509,750 @@ def srmr_phase(torch, bc) -> dict:
             "reduced": f"{SRMR_UTTERANCES} utterances of a fixed 8 s, a subset of the evaluation set", "fused": fused}
 
 
+# ---------------------------------------------------------------------------------------------------- image streams
+
+# DIV2K validation (Agustsson & Timofte 2017), as NTIRE, EDSR and SwinIR evaluate it: 100 8-bit RGB HR images;
+# made from the seed as 1/f-spectrum textures (natural images' amplitude spectrum), each at a fixed 2040 x 1356,
+# and each prediction its target blurred (a seeded Gaussian) with Gaussian noise of 0.02, clipped, stored as 8-bit
+DIV2K_IMAGES, DIV2K_H, DIV2K_W, DIV2K_BATCH = 100, 1356, 2040, 4
+DIV2K_NOISE, DIV2K_BLUR = 0.02, (0.6, 1.2)  # the noise's sigma; the range of the blur's sigma in pixels
+DIV2K_ORACLE_IMAGES = 2  # the images held against the float64 oracle (its separable correlations take seconds each)
+DIV2K_CPU_BATCHES = 2  # the batches held card against CPU, one CPU worker each (full-size depthwise convolutions)
+BT601 = (16.0, 65.481, 128.553, 24.966)  # the Y of BT.601 on [0, 1] RGB, as SR papers' rgb2ycbcr takes it
+# WorldView-3 at the geometry of PanCollection's test sets (Deng et al., IEEE GRSM 2022): 20 reduced-resolution
+# images (8 bands x 256 x 256 ground truth) and 20 full-resolution ones (8 x 512 x 512 fused outputs, 8 x 128 x 128
+# multispectral inputs), made from the seed as band-correlated smooth fields with a band-correlated error
+WV3_IMAGES, WV3_BANDS, WV3_RR, WV3_FR, WV3_MS, WV3_BATCH = 20, 8, 256, 512, 128, 4
+WV3_RATIO = 4  # the pan / multispectral resolution ratio: ERGAS's ratio
+# values against the float64 oracles (absolute in their own units, or relative)
+IMAGE_ORACLE_TOL = {
+    "psnr": (0.0, 1e-4), "psnr_y": (0.0, 1e-4), "psnrb_y": (0.0, 1e-4),  # dB
+    "ssim": (0.0, 1e-5), "ssim_y": (0.0, 1e-5), "ms_ssim": (0.0, 1e-5), "uqi": (0.0, 1e-5), "d_lambda": (0.0, 1e-5),
+    "vif": (1e-4, 0.0), "tv": (1e-5, 0.0), "ergas": (1e-5, 0.0), "rase": (1e-5, 0.0), "rmse_sw": (1e-5, 0.0),
+    "sam": (1e-5, 0.0), "cap_sam": (1e-5, 0.0), "cap_d_lambda": (0.0, 1e-5),
+}
+CANCEL_EPS = 1e-6  # card vs CPU: a moment E[x²] - mu² differs by up to this share of its terms (the port's rule)
+F32_U = 2.0**-24  # float32's unit roundoff: SSIM-type scores against float64 within one of it in their moments' terms
+F32_EPS = float(np.finfo(np.float32).eps)  # UQI's stabilizer, the float32 machine epsilon in both packages
+
+
+def natural_field(rng, h: int, w: int) -> np.ndarray:
+    """A float32 ``(h, w)`` field of unit variance with a 1/f amplitude spectrum (made on an FFT-friendly
+    grid, then cropped)."""
+    from scipy import fft
+
+    fh, fw = fft.next_fast_len(h, real=True), fft.next_fast_len(w, real=True)
+    fy = np.fft.fftfreq(fh).astype(np.float32)[:, None]
+    fx = np.fft.rfftfreq(fw).astype(np.float32)[None, :]
+    f = np.sqrt(fx * fx + fy * fy)
+    f[0, 0] = 1.0
+    amp = 1.0 / f
+    amp[0, 0] = 0.0
+    spec = (rng.standard_normal(amp.shape, dtype=np.float32) + 1j * rng.standard_normal(amp.shape, dtype=np.float32))
+    x = fft.irfft2((spec * amp).astype(np.complex64), s=(fh, fw))[:h, :w]
+    return ((x - x.mean()) / x.std()).astype(np.float32)
+
+
+def div2k_image(index: int):
+    """Image ``index`` of the stream: the target and the prediction, ``(3, H, W)`` uint8."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng([SEED + 31, index])
+    lum = natural_field(rng, DIV2K_H, DIV2K_W)
+    chroma = [natural_field(rng, DIV2K_H, DIV2K_W) for _ in range(2)]
+    mix = rng.uniform(-0.35, 0.35, (3, 2)).astype(np.float32)
+    level = rng.uniform(0.4, 0.6, 3).astype(np.float32)
+    contrast = np.float32(rng.uniform(0.09, 0.14))
+    rgb = level[:, None, None] + contrast * (lum[None] + np.einsum("cj,jhw->chw", mix, np.stack(chroma)))
+    target = np.round(np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+    blur = rng.uniform(*DIV2K_BLUR)
+    pred = gaussian_filter(target.astype(np.float32) / 255, sigma=(0, blur, blur), mode="reflect")
+    pred += DIV2K_NOISE * rng.standard_normal(pred.shape, dtype=np.float32)
+    return target, np.round(np.clip(pred, 0, 1) * 255).astype(np.uint8)
+
+
+def div2k_batch(index: int):
+    """Batch ``index``: preds and targets ``(B, 3, H, W)`` uint8 (run in worker processes)."""
+    pairs = [div2k_image(index * DIV2K_BATCH + i) for i in range(DIV2K_BATCH)]
+    return np.stack([p for _, p in pairs]), np.stack([t for t, _ in pairs])
+
+
+def gauss64(n: int, sigma: float) -> np.ndarray:
+    x = np.arange(n) - (n - 1) / 2
+    g = np.exp(-((x / sigma) ** 2) / 2)
+    return g / g.sum()
+
+
+def corr_valid(x: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
+    """Valid correlation of ``x`` with the odd-length 1-D ``k`` along ``axis``, float64, as direct sums
+    (``scipy.ndimage.correlate1d``, its border cut off)."""
+    from scipy.ndimage import correlate1d
+
+    half = k.size // 2
+    out = correlate1d(np.asarray(x, np.float64), k, axis=axis, mode="constant")
+    keep = [slice(None)] * x.ndim
+    keep[axis] = slice(half, x.shape[axis] - half)
+    return out[tuple(keep)]
+
+
+def blur64(x: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """The separable valid correlation of ``(..., H, W)`` with ``k`` along both axes."""
+    return corr_valid(corr_valid(x, k, -2), k, -1)
+
+
+def moments64(p: np.ndarray, t: np.ndarray, sigma: float = 1.5) -> tuple:
+    """``((mu_p, mu_t, var_p, var_t, cov), border)`` of ``(..., H, W)`` float64 images over the Gaussian window
+    of SSIM (and UQI's default, the same), after a reflect border of the window's half width."""
+    pad = int(3.5 * sigma + 0.5)
+    k = gauss64(2 * pad + 1, sigma)
+    width = [(0, 0)] * (p.ndim - 2) + [(pad, pad), (pad, pad)]
+    p, t = np.pad(p, width, mode="reflect"), np.pad(t, width, mode="reflect")
+    mu_p, mu_t = blur64(p, k), blur64(t, k)
+    var_p, var_t = blur64(p * p, k) - mu_p**2, blur64(t * t, k) - mu_t**2
+    return (mu_p, mu_t, var_p, var_t, blur64(p * t, k) - mu_p * mu_t), pad
+
+
+def ssim_from64(moments: tuple, pad: int, data_range: float = 1.0) -> tuple:
+    """SSIM and contrast sensitivity, the means of their maps cropped by the border as the port crops them."""
+    mu_p, mu_t, var_p, var_t, cov = moments
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    cs = (2 * cov + c2) / (var_p + var_t + c2)
+    ssim = (2 * mu_p * mu_t + c1) / (mu_p**2 + mu_t**2 + c1) * cs
+    crop = (Ellipsis, slice(pad, -pad), slice(pad, -pad))
+    return float(ssim[crop].mean()), float(cs[crop].mean())
+
+
+def condition64(moments: tuple, pad: int, c: float) -> float:
+    """The mean over the cropped map of K = (E[p²] + mu_p² + E[t²] + mu_t² + 2|E[pt]| + 2|mu_p mu_t|) /
+    (var_p + var_t + c): what an SSIM-type score (c = c2, or UQI's epsilon) moves by per unit of relative
+    error in its moments' terms."""
+    mu_p, mu_t, var_p, var_t, cov = moments
+    terms = var_p + 2 * mu_p**2 + var_t + 2 * mu_t**2 + 2 * np.abs(cov + mu_p * mu_t) + 2 * np.abs(mu_p * mu_t)
+    return float((terms / (var_p + var_t + c))[..., pad:-pad, pad:-pad].mean())
+
+
+def ssim64(p: np.ndarray, t: np.ndarray) -> tuple:
+    """SSIM and contrast sensitivity of one ``(C, H, W)`` float64 image (data range 1)."""
+    return ssim_from64(*moments64(p, t))
+
+
+def uqi_from64(moments: tuple, pad: int) -> np.ndarray:
+    """The UQI map from the moments, cropped by the border."""
+    mu_p, mu_t, var_p, var_t, cov = moments
+    q = (2 * mu_p * mu_t) * (2 * cov) / ((mu_p**2 + mu_t**2) * (var_p + var_t + F32_EPS))
+    return q[..., pad:-pad, pad:-pad]
+
+
+def uqi_map64(p: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """The UQI map of ``(..., H, W)`` float64 images (window 11, sigma 1.5)."""
+    return uqi_from64(*moments64(p, t))
+
+
+def ms_ssim64(p: np.ndarray, t: np.ndarray, first: tuple, betas=(0.0448, 0.2856, 0.3001, 0.2363, 0.1333)) -> float:
+    """MS-SSIM (relu-normalized, data range 1) of one ``(C, H, W)`` image, 2x2 means between scales;
+    ``first`` is scale 0's ``(ssim, cs)``."""
+    value = 1.0
+    for i, beta in enumerate(betas):
+        ssim, cs = first if i == 0 else ssim64(p, t)
+        value *= max(ssim if i == len(betas) - 1 else cs, 0.0) ** beta
+        h, w = p.shape[1] // 2 * 2, p.shape[2] // 2 * 2
+        p, t = (x[:, :h, :w].reshape(x.shape[0], h // 2, 2, w // 2, 2).mean(axis=(2, 4)) for x in (p, t))
+    return value
+
+
+def vif64(p: np.ndarray, t: np.ndarray, sigma_n_sq: float = 2.0) -> float:
+    """Pixel-domain VIF of one ``(H, W)`` float64 channel over four scales."""
+    eps = 1e-10
+    num = den = 0.0
+    for scale in range(4):
+        n = 2 ** (4 - scale) + 1
+        k = gauss64(n, n / 5)  # exp(-(x² + y²) / 2s²) normalized is the outer product of this with itself
+        if scale > 0:
+            p, t = blur64(p, k)[::2, ::2], blur64(t, k)[::2, ::2]
+        mu_p, mu_t = blur64(p, k), blur64(t, k)
+        var_t = np.maximum(blur64(t * t, k) - mu_t**2, 0.0)
+        var_p = np.maximum(blur64(p * p, k) - mu_p**2, 0.0)
+        cov = blur64(t * p, k) - mu_t * mu_p
+        g = cov / (var_t + eps)
+        var_v = var_p - g * cov
+        low_t, low_p = var_t < eps, var_p < eps
+        g = np.where(low_t | low_p, 0.0, g)
+        var_v = np.where(low_t, var_p, var_v)
+        var_t = np.where(low_t, 0.0, var_t)
+        var_v = np.where(low_p, 0.0, var_v)
+        neg = g < 0
+        var_v = np.maximum(np.where(neg, var_p, var_v), eps)
+        g = np.where(neg, 0.0, g)
+        num += np.log10(1.0 + g**2 * var_t / (var_v + sigma_n_sq)).sum()
+        den += np.log10(1.0 + var_t / sigma_n_sq).sum()
+    return num / den
+
+
+def luma64(rgb: np.ndarray) -> np.ndarray:
+    """BT.601 Y of ``(..., 3, H, W)`` RGB in [0, 1], keeping the channel axis."""
+    off, r, g, b = BT601
+    return (off + r * rgb[..., 0:1, :, :] + g * rgb[..., 1:2, :, :] + b * rgb[..., 2:3, :, :]) / 255.0
+
+
+def psnrb64(p: np.ndarray, t: np.ndarray, block: int = 8) -> float:
+    """PSNR-B of one grayscale batch ``(B, 1, H, W)`` in float64, its blocked effect over the batch as the port
+    takes it (one update)."""
+    h, w = p.shape[-2:]
+    dh = (p[..., :, :-1] - p[..., :, 1:]) ** 2
+    dv = (p[..., :-1, :] - p[..., 1:, :]) ** 2
+    on_h = np.arange(w - 1) % block == block - 1
+    on_v = np.arange(h - 1) % block == block - 1
+    d_b = dh[..., on_h].sum() + dv[..., on_v, :].sum()
+    d_bc = dh[..., ~on_h].sum() + dv[..., ~on_v, :].sum()
+    n_hb, n_vb = h * (w / block) - 1, w * (h / block) - 1
+    d_b /= n_hb + n_vb
+    d_bc /= h * (w - 1) - n_hb + w * (h - 1) - n_vb
+    bef = (np.log2(block) / np.log2(min(h, w)) if d_b > d_bc else 0.0) * (d_b - d_bc)
+    mse = ((p - t) ** 2).mean() + bef
+    data_range = t.max() - t.min()
+    return float(10 * np.log10((data_range**2 if data_range > 2 else 1.0) / mse))
+
+
+def restoration_oracle(index: int) -> dict:
+    """float64 values of the restoration members over image ``index`` alone (run in worker processes)."""
+    target, pred = (x.astype(np.float64) / 255 for x in div2k_image(index))
+    moments, pad = moments64(pred, target)  # SSIM's, MS-SSIM's first scale's and UQI's: one window
+    first = ssim_from64(moments, pad)
+    uqi = uqi_from64(moments, pad)
+    k_ssim, k_uqi = condition64(moments, pad, 0.03**2), condition64(moments, pad, F32_EPS)
+    del moments
+    py, ty = luma64(pred), luma64(target)
+    moments_y, _ = moments64(py, ty)
+    return {
+        "k_ssim": k_ssim, "k_uqi": k_uqi, "ssim_y": ssim_from64(moments_y, pad)[0],
+        "k_ssim_y": condition64(moments_y, pad, 0.03**2),
+        "sse": float(((pred - target) ** 2).sum()), "n": pred.size, "ssim": first[0],
+        "ms_ssim": ms_ssim64(pred, target, first), "uqi_sum": float(uqi.sum()), "uqi_n": uqi.size,
+        "vif": [vif64(pred[c], target[c]) for c in range(3)],
+        "tv": float(np.abs(np.diff(pred, axis=1)).sum() + np.abs(np.diff(pred, axis=2)).sum()),
+        "sse_y": float(((py - ty) ** 2).sum()), "n_y": py.size,
+        "y": (py, ty),
+    }
+
+
+def restoration_oracle_tolerances(parts: list) -> dict:
+    """``IMAGE_ORACLE_TOL`` with the SSIM-type scores' bounds widened to one float32 rounding of their moments'
+    terms carried through the score, ``F32_U x`` the images' mean condition (``condition64``), where that is
+    wider: the float32 formula's own error (MS-SSIM takes its first scale's)."""
+    tol = dict(IMAGE_ORACLE_TOL)
+    for key, cond in (("ssim", "k_ssim"), ("ms_ssim", "k_ssim"), ("uqi", "k_uqi"), ("ssim_y", "k_ssim_y")):
+        tol[key] = (0.0, max(tol[key][1], F32_U * float(np.mean([o[cond] for o in parts]))))
+    return tol
+
+
+def restoration_oracle_values(parts: list) -> dict:
+    """The oracle's values over the images of ``parts`` as one batch (PSNR-B's blocked effect is per update)."""
+    py = np.concatenate([o["y"][0][None] for o in parts])
+    ty = np.concatenate([o["y"][1][None] for o in parts])
+    return {
+        "psnr": 10 * np.log10(sum(o["n"] for o in parts) / sum(o["sse"] for o in parts)),
+        "ssim": np.mean([o["ssim"] for o in parts]), "ms_ssim": np.mean([o["ms_ssim"] for o in parts]),
+        "uqi": sum(o["uqi_sum"] for o in parts) / sum(o["uqi_n"] for o in parts),
+        "vif": np.mean([v for o in parts for v in o["vif"]]), "tv": sum(o["tv"] for o in parts),
+        "psnr_y": 10 * np.log10(sum(o["n_y"] for o in parts) / sum(o["sse_y"] for o in parts)),
+        "ssim_y": np.mean([o["ssim_y"] for o in parts]), "psnrb_y": psnrb64(py, ty),
+    }
+
+
+def restoration_members(device) -> dict:
+    """The three collections of the restoration stream: RGB pairs, the predictions alone (total variation
+    takes one image batch, so it cannot share the pairs' positional arguments) and Y pairs."""
+    import tpumetrics_torch.image as im
+
+    return {
+        "rgb": {"psnr": im.PeakSignalNoiseRatio(data_range=1.0, device=device),
+                "ssim": im.StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+                "ms_ssim": im.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+                "uqi": im.UniversalImageQualityIndex(device=device),
+                "vif": im.VisualInformationFidelity(device=device)},
+        # TotalVariation registers a per-image list state even under reduction="sum", where it stays empty; held
+        # in a MaskedBuffer it keeps TV out of the eager list leaders, so a fused collection captures it
+        "pred": {"tv": buffered(im.TotalVariation(device=device), DIV2K_IMAGES, {"score_list": ()})},
+        "y": {"psnr_y": im.PeakSignalNoiseRatio(data_range=1.0, device=device),
+              "ssim_y": im.StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+              "psnrb_y": im.PeakSignalNoiseRatioWithBlockedEffect(device=device)},
+    }
+
+
+def image_batch(torch, preds_u8, target_u8, device):
+    """The float32 RGB pair in [0, 1] and its BT.601 Y pair, on ``device``: ``{"rgb": (p, t), "pred": (p,),
+    "y": (py, ty)}``. Y is taken in float64 and rounded once, so the card and the CPU get the same bits."""
+    off, r, g, b = BT601
+    out = {}
+    for name, u8 in (("p", preds_u8), ("t", target_u8)):
+        x = torch.from_numpy(u8).to(device)
+        out[name] = x.float() / 255
+        x64 = x.double()
+        out[name + "y"] = ((off + (r * x64[:, 0:1] + g * x64[:, 1:2] + b * x64[:, 2:3]) / 255) / 255).float()
+    return {"rgb": (out["p"], out["t"]), "pred": (out["p"],), "y": (out["py"], out["ty"])}
+
+
+def restoration_cpu_states(index: int) -> dict:
+    """The port's CPU path over batch ``index`` alone: each collection's exported states and values (run in
+    worker processes, a few threads each)."""
+    import torch
+
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.interop import export_state
+
+    torch.set_num_threads(4)
+    data = image_batch(torch, *div2k_batch(index), "cpu")
+    out = {}
+    for kind, members in restoration_members("cpu").items():
+        col = MetricCollection(members, device="cpu")
+        col.update(*data[kind])
+        out[kind] = {"states": {name: export_state(m) for name, m in col.items()},
+                     "values": {k: v.numpy() for k, v in col.compute().items()}}
+    return out
+
+
+def moment_condition(torch, p, t, c: float, pad: int = 5, sigma: float = 1.5) -> tuple:
+    """How far an SSIM-type score moves per unit of relative error in its moments' terms, on the card in
+    float32: per pixel K = (E[p²] + mu_p² + E[t²] + mu_t² + 2|E[pt]| + 2|mu_p mu_t|) / (var_p + var_t + c) + 4
+    (the structure term's derivative, and at most 4 from the luminance term's), over the cropped maps of
+    ``(B, C, H, W)``: the sum over images of each one's mean, and the sum over pixels."""
+    from tpumetrics_torch.functional.image.helper import _depthwise_conv2d, _gaussian_kernel_2d, _reflect_pad_2d
+
+    k = _gaussian_kernel_2d(p.shape[1], (2 * pad + 1,) * 2, (sigma,) * 2, device=p.device)
+    pp, tt = _reflect_pad_2d(p, pad, pad), _reflect_pad_2d(t, pad, pad)
+    mu_p, mu_t, e_pp, e_tt, e_pt = _depthwise_conv2d(torch.cat((pp, tt, pp * pp, tt * tt, pp * tt)), k).split(p.shape[0])
+    terms = e_pp + mu_p**2 + e_tt + mu_t**2 + 2 * e_pt.abs() + 2 * (mu_p * mu_t).abs()
+    cond = (terms / ((e_pp - mu_p**2) + (e_tt - mu_t**2) + c) + 4)[..., pad:-pad, pad:-pad].double()
+    return float(cond.reshape(p.shape[0], -1).mean(1).sum()), float(cond.sum())
+
+
+def blocked_effect_terms(torch, x) -> float:
+    """PSNR-B's ``t (d_b + d_bc)`` of a grayscale batch in float64: the terms its blocked effect
+    ``t (d_b - d_bc)`` takes the difference of."""
+    h, w = x.shape[-2:]
+    x = x.double()
+    dh = (x[..., :, :-1] - x[..., :, 1:]) ** 2
+    dv = (x[..., :-1, :] - x[..., 1:, :]) ** 2
+    on_h = torch.arange(w - 1, device=x.device) % 8 == 7
+    on_v = (torch.arange(h - 1, device=x.device) % 8 == 7)[:, None]
+    n_hb, n_vb = h * (w / 8) - 1, w * (h / 8) - 1
+    d_b = float(torch.where(on_h, dh, 0.0).sum() + torch.where(on_v, dv, 0.0).sum()) / (n_hb + n_vb)
+    d_bc = float(torch.where(on_h, 0.0, dh).sum() + torch.where(on_v, 0.0, dv).sum()) / (
+        h * (w - 1) - n_hb + w * (h - 1) - n_vb)
+    return math.log2(8) / math.log2(min(h, w)) * (d_b + d_bc)
+
+
+def restoration_tolerances(torch, data: dict) -> dict:
+    """Card-vs-CPU bounds of one batch's float32 sum states, by collection, member and state (the rest of the
+    states, counts and tracked extrema, must be equal): the port's rule on cancelling sums, CANCEL_EPS of
+    their terms, carried through each score. SSIM's per-image sum: CANCEL_EPS x the sum of per-image mean K
+    (``moment_condition``, c = c2); MS-SSIM twice that (its five factors' exponents sum to 1 and each factor
+    stays above one half: an assumption, printed with the measured error); UQI's sum over pixels: CANCEL_EPS x
+    the sum of K with c = the float32 epsilon; PSNR-B's blocked effect: CANCEL_EPS x its two means' terms; VIF
+    1e-4 relative (its gain and noise variances come from cancelling moments, through clips and masks);
+    sums of squares and of absolute differences 1e-6 relative."""
+    p, t = data["rgb"]
+    py, ty = data["y"]
+    k_rgb, _ = moment_condition(torch, p, t, 0.03**2)
+    _, k_uqi = moment_condition(torch, p, t, F32_EPS)
+    k_y, _ = moment_condition(torch, py, ty, 0.03**2)
+    rel = ("rel", 1e-6)
+    return {
+        "rgb": {"psnr": {"sum_squared_error": rel}, "ssim": {"similarity": ("abs", CANCEL_EPS * k_rgb)},
+                "ms_ssim": {"similarity": ("abs", 2 * CANCEL_EPS * k_rgb)}, "uqi": {"sum_uqi": ("abs", CANCEL_EPS * k_uqi)},
+                "vif": {"vif_score": ("rel", 1e-4)}},
+        "pred": {"tv": {"score": rel}},
+        "y": {"psnr_y": {"sum_squared_error": rel}, "ssim_y": {"similarity": ("abs", CANCEL_EPS * k_y)},
+              "psnrb_y": {"sum_squared_error": rel, "bef": ("abs", CANCEL_EPS * blocked_effect_terms(torch, py))}},
+    }
+
+
+class tf32_defaults:
+    """Inside it, torch's own TF32 defaults (cuDNN convolutions may run in TF32, cuBLAS matmuls not), whatever
+    the script set for the phases before; the script's settings come back on exit."""
+
+    def __init__(self, torch):
+        self.torch, self.saved = torch, None
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = True, False
+        return self
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.saved
+        return False
+
+
+def check_image_states(label: str, got: dict, want: dict, tol: dict) -> float:
+    """One collection's states (by member) on the card against the CPU's: the float32 sums named in ``tol``
+    (``(member: {state: ("rel" | "abs", bound)})``) within their bounds, every other state (counts, tracked
+    extrema, list states) equal. Returns the worst share of a bound used."""
+    worst = 0.0
+    for member, states in want.items():
+        check(sorted(got[member]) == sorted(states), f"{label}: {member} states {sorted(got[member])}")
+        for name, ref in states.items():
+            val = got[member][name]
+            if isinstance(ref, (list, tuple)):  # a list state, or a MaskedBuffer's fields: the inputs, exactly
+                check(type(val) is type(ref) and len(val) == len(ref) and all(
+                    v.dtype == r.dtype and np.array_equal(v, r) for v, r in zip(val, ref)),
+                      f"{label}: list state {member}.{name} differs card vs CPU")
+                continue
+            check(val.dtype == ref.dtype and val.shape == ref.shape, f"{label}: {member}.{name} {val.dtype} vs {ref.dtype}")
+            if name not in tol.get(member, {}):
+                check(np.array_equal(val, ref), f"{label}: {member}.{name} card {val} vs CPU {ref}")
+                continue
+            kind, bound = tol[member][name]
+            allowed = bound * float(np.abs(ref).max()) if kind == "rel" else bound
+            diff = float(np.abs(val.astype(np.float64) - ref.astype(np.float64)).max())
+            check(diff <= allowed, f"{label}: {member}.{name} card {val} vs CPU {ref} (diff {diff:.3e}, bound {allowed:.3e})")
+            worst = max(worst, diff / allowed)
+    return worst
+
+
+def conv_kernels(prof) -> tuple:
+    """Device time (us) and count of the convolution kernels (cuDNN's, or torch's own depthwise ones) in a profile."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    pattern = re.compile(r"conv|cudnn|xmma|implicit|depthwise|winograd|fprop", re.IGNORECASE)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and pattern.search(e.key)]
+    return sum(e.device_time_total for e in kernels), sum(e.count for e in kernels), sorted({e.key[:60] for e in kernels})
+
+
+def restoration_phase(torch, bc) -> dict:
+    """Image restoration scored as SR papers report it, at DIV2K validation size (see the module note), with
+    torch's TF32 defaults: an RGB collection, the predictions' total variation and a Y collection on the card;
+    each batch's states against the CPU path's for the first batches; the values on the first images against
+    float64 oracles; host syncs; the convolutions' share of an update's device time; and the fused phases."""
+    import contextlib
+    from unittest import mock
+
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.image import helper
+    from tpumetrics_torch.functional.image import structural_similarity_index_measure as ssim_fn
+    from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.ops import biquad as bq
+
+    label = f"restoration DIV2K val {DIV2K_IMAGES} x 3 x {DIV2K_H} x {DIV2K_W}"
+    num_batches = DIV2K_IMAGES // DIV2K_BATCH
+
+    def collections():
+        return {kind: MetricCollection(m, device="cuda") for kind, m in restoration_members("cuda").items()}
+
+    def states(cols):
+        return {kind: {name: export_state(m) for name, m in col.items()} for kind, col in cols.items()}
+
+    with tf32_defaults(torch):
+        check(torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+              f"{label}: torch's TF32 defaults are not in force")
+        cols = collections()
+        dev, card_single, syncs = [], [], {}
+        update_ms = {kind: [] for kind in cols}
+        workers = min(8, os.cpu_count() or 1)
+        t_gen = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            # the CPU path of the first batches and the oracle's images first, so they run beside the stream
+            cpu_jobs = [pool.apply_async(restoration_cpu_states, (i,)) for i in range(DIV2K_CPU_BATCHES)]
+            oracle_jobs = [pool.apply_async(restoration_oracle, (i,)) for i in range(DIV2K_ORACLE_IMAGES)]
+            made = pool.imap(div2k_batch, range(num_batches))
+            torch.cuda.synchronize()
+            bc.launches, bq.launches = 0, 0
+            for i, batch in enumerate(made):
+                data = image_batch(torch, *batch, "cuda")
+                torch.cuda.synchronize()
+                if i < DIV2K_CPU_BATCHES:  # this batch alone on the card, for the CPU worker's states
+                    single = collections()
+                    for kind, col in single.items():
+                        col.update(*data[kind])
+                    card_single.append((states(single), restoration_tolerances(torch, data)))
+                    del single
+                if i == 2:  # each member's steady update, on a warmed copy
+                    syncs = {name: steady_host_syncs(torch, m, data[kind])
+                             for kind, col in cols.items() for name, m in col.items()}
+                for kind, col in cols.items():
+                    t0 = time.perf_counter()
+                    if i == 1:  # a steady update with host syncs made errors
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        col.update(*data[kind])
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize()
+                    update_ms[kind].append((time.perf_counter() - t0) * 1e3)
+                dev.append(data)
+            t_stream = time.perf_counter() - t_gen
+            cpu = [job.get() for job in cpu_jobs]
+            oracle_parts = [job.get() for job in oracle_jobs]
+            pool.close()
+            pool.join()
+        t_gen = time.perf_counter() - t_gen
+        t0 = time.perf_counter()
+        values = {k: v for col in cols.values() for k, v in col.compute().items()}
+        torch.cuda.synchronize()
+        compute_ms = (time.perf_counter() - t0) * 1e3
+        check(bc.launches == 0 and bq.launches == 0, f"{label}: kernel launches {bc.launches}, {bq.launches}, expected none")
+        check(all(bool(torch.isfinite(v).all()) and v.ndim == 0 for v in values.values()), f"{label}: values {values}")
+        check(not any(syncs.values()), f"{label}: host syncs in a steady update {syncs}")
+
+        # each of the first batches on the card against the CPU path
+        state_worst = {}
+        for i, ((card, tol), ref) in enumerate(zip(card_single, cpu)):
+            for kind in card:
+                share = check_image_states(f"{label} batch {i} {kind}", card[kind], ref[kind]["states"], tol[kind])
+                state_worst[kind] = max(state_worst.get(kind, 0.0), share)
+
+        # the first images against the float64 oracle, as one batch
+        oracle = restoration_oracle_values(oracle_parts)
+        first = {kind: tuple(x[:DIV2K_ORACLE_IMAGES] for x in args) for kind, args in dev[0].items()}
+        small = collections()
+        for kind, col in small.items():
+            col.update(*first[kind])
+        got = {k: v for col in small.values() for k, v in col.compute().items()}
+        oracle_tol = restoration_oracle_tolerances(oracle_parts)
+        oracle_worst = check_values(label, got, oracle, oracle_tol)
+        # the same SSIM with the library's float32 guard taken out: what TF32 would cost, if cuDNN uses it here
+        with mock.patch.object(helper, "_ieee_float32", lambda *backends: contextlib.nullcontext()):
+            unguarded = float(ssim_fn(*first["rgb"], data_range=1.0))
+        unguarded_err = abs(unguarded - oracle["ssim"])
+        del small
+
+        print(
+            f"restoration phase: {label}: {num_batches} batches of {DIV2K_BATCH} (8-bit, made from the seed in"
+            f" {workers} worker processes beside the stream, {t_stream:.1f} s to the last update); reduced: every image"
+            f" a fixed {DIV2K_W} x {DIV2K_H} (DIV2K's heights vary); TF32 at torch's defaults (cudnn.allow_tf32"
+            f" {torch.backends.cudnn.allow_tf32}); values: " + ", ".join(f"{k} {float(v):.6f}" for k, v in values.items())
+            + f"; against float64 oracles on {DIV2K_ORACLE_IMAGES} images, worst share of the tolerance"
+            f" {max(oracle_worst.values()):.3f} ({max(oracle_worst, key=oracle_worst.get)}): "
+            + ", ".join(f"{k} {float(got[k]):.6f} (oracle {oracle[k]:.6f})" for k in oracle)
+            + f"; SSIM with the float32 guard taken out: {unguarded:.8f}, {unguarded_err:.2e} from the oracle;"
+            f" card vs CPU on {DIV2K_CPU_BATCHES} batches, worst share of a bound {state_worst}; host syncs in a steady"
+            f" update {syncs}; update median (first, steady) by collection: "
+            + ", ".join(f"{k} {v[0]:.3f} / {np.median(v[2:]):.3f} ms" for k, v in update_ms.items())
+            + f"; compute() {compute_ms:.3f} ms",
+            flush=True,
+        )
+        prof = {kind: profile_step(torch, col, dev[2][kind], f"{label} {kind}") for kind, col in cols.items()}
+        del cols
+        fused = {kind: fused_pair(torch, f"{label} {kind}",
+                                  lambda f, kind=kind: MetricCollection(restoration_members("cuda")[kind], fused_update=f,
+                                                                        device="cuda"),
+                                  [d[kind] for d in dev])
+                 for kind in ("rgb", "pred", "y")}
+        del dev
+        torch.cuda.empty_cache()
+    for kind, f in fused.items():
+        check(f["eager_leaders"] == [], f"{label} {kind}: eager leaders {f['eager_leaders']}")
+        check(f["modes"]["replayed"] >= 1 and f["guarded_replay"], f"{label} {kind}: no checked graph replay")
+        check(not any(n["plain"] or n["fused"] for n in f["kernel_launches"].values()), f"{label} {kind}: kernel launches")
+    return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "values": {k: float(v) for k, v in values.items()},
+            "oracle": oracle, "oracle_tol": {k: oracle_tol[k] for k in oracle}, "oracle_worst": oracle_worst,
+            "state_worst": state_worst, "host_syncs": syncs, "unguarded_ssim_err": unguarded_err, "profile": prof, "seconds": t_gen,
+            "reduced": f"every image a fixed {DIV2K_W} x {DIV2K_H}; DIV2K's heights vary", "fused": fused["rgb"],
+            "fused_all": fused}
+
+
+def wv3_image(index: int, full: bool):
+    """Image ``index`` of a PanCollection-like WorldView-3 test set, float32: ``(fused, ground truth)`` at
+    8 x 256 x 256 (reduced resolution), or ``(fused 8 x 512 x 512, multispectral input 8 x 128 x 128)``
+    (full resolution, the input the ground truth's 4 x 4 means)."""
+    rng = np.random.default_rng([SEED + 37, index, int(full)])
+    size = WV3_FR if full else WV3_RR
+    # reflectance-like bands: a shared brightness field and a vegetation field, mixed by band signatures
+    bright, veg, err = (natural_field(rng, size, size) for _ in range(3))
+    base = np.array([0.18, 0.16, 0.15, 0.16, 0.15, 0.22, 0.30, 0.28], np.float32)
+    veg_sig = np.array([-0.02, -0.02, 0.01, -0.01, -0.04, 0.08, 0.15, 0.14], np.float32)
+    err_sig = rng.uniform(0.6, 1.4, WV3_BANDS).astype(np.float32)
+    truth = base[:, None, None] * (1 + 0.35 * bright) + veg_sig[:, None, None] * veg
+    truth = np.maximum(truth, 0.01).astype(np.float32)
+    noise = 0.004 * rng.standard_normal(truth.shape, dtype=np.float32)
+    fused = np.maximum(truth + 0.012 * err_sig[:, None, None] * err + noise, 0.005).astype(np.float32)
+    if not full:
+        return fused, truth
+    r = WV3_RATIO
+    return fused, truth.reshape(WV3_BANDS, WV3_MS, r, WV3_MS, r).mean(axis=(2, 4)).astype(np.float32)
+
+
+def wv3_batches(full: bool) -> list:
+    out = []
+    for start in range(0, WV3_IMAGES, WV3_BATCH):
+        pairs = [wv3_image(i, full) for i in range(start, start + WV3_BATCH)]
+        out.append((np.stack([p for p, _ in pairs]), np.stack([t for _, t in pairs])))
+    return out
+
+
+def uniform_filter64(x: np.ndarray, size: int) -> np.ndarray:
+    """scipy's mean filter over the last two axes (reflect border), float64."""
+    from scipy.ndimage import uniform_filter
+
+    return uniform_filter(x.astype(np.float64), size=(1,) * (x.ndim - 2) + (size, size), mode="reflect")
+
+
+def pansharpening_oracle(_: int = 0) -> dict:
+    """float64 values of the pan-sharpening members over the first images (run in a worker process)."""
+    n = DIV2K_ORACLE_IMAGES
+    pairs = [wv3_image(i, False) for i in range(n)]
+    p = np.stack([x for x, _ in pairs]).astype(np.float64)
+    t = np.stack([y for _, y in pairs]).astype(np.float64)
+    rmse_band = np.sqrt(((p - t) ** 2).mean(axis=(2, 3)))
+    ergas = 100 * WV3_RATIO * np.sqrt(((rmse_band / t.mean(axis=(2, 3))) ** 2).mean(axis=1))
+    cos = (p * t).sum(1) / (np.linalg.norm(p, axis=1) * np.linalg.norm(t, axis=1))
+    sam = np.arccos(np.clip(cos, -1, 1))
+    rmse_map = np.sqrt(uniform_filter64((p - t) ** 2, 8))
+    crop = round(8 / 2)
+    target_mean = (uniform_filter64(t, 8) / 64).mean(axis=0).mean(axis=0)
+    rase_map = 100 / target_mean * np.sqrt((rmse_map.mean(axis=0) ** 2).mean(axis=0))
+    fr = [wv3_image(i, True) for i in range(n)]
+    fused = np.stack([x for x, _ in fr]).astype(np.float64)
+    ms = np.stack([y for _, y in fr]).astype(np.float64)
+    bands = fused.shape[1]
+    ii, jj = np.triu_indices(bands, 1)
+    q_fused = np.array([uqi_map64(fused[:, i], fused[:, j]).mean() for i, j in zip(ii, jj)])
+    q_ms = np.array([uqi_map64(ms[:, i], ms[:, j]).mean() for i, j in zip(ii, jj)])
+    return {
+        "ergas": ergas.mean(), "sam": sam.mean(),
+        "rmse_sw": rmse_map[:, :, crop:-crop, crop:-crop].mean(axis=(1, 2, 3)).mean(),
+        "rase": rase_map[crop:-crop, crop:-crop].mean(),
+        "d_lambda": 2 * np.abs(q_fused - q_ms).sum() / (bands * (bands - 1)),
+    }
+
+
+def pansharpening_members(device) -> dict:
+    """The reduced-resolution collection (ERGAS, SAM and its capacity copy, RASE, RMSE-SW) and the
+    full-resolution one (D-lambda and its capacity copy)."""
+    import tpumetrics_torch.image as im
+
+    rr = (WV3_BANDS, WV3_RR, WV3_RR)
+    return {
+        "reduced": {"ergas": im.ErrorRelativeGlobalDimensionlessSynthesis(ratio=WV3_RATIO, device=device),
+                    "sam": im.SpectralAngleMapper(device=device),
+                    "cap_sam": buffered(im.SpectralAngleMapper(reduction="none", device=device), WV3_IMAGES,
+                                             {"preds": rr, "target": rr}),
+                    "rase": im.RelativeAverageSpectralError(device=device),
+                    "rmse_sw": im.RootMeanSquaredErrorUsingSlidingWindow(window_size=8, device=device)},
+        "full": {"d_lambda": im.SpectralDistortionIndex(device=device),
+                 "cap_d_lambda": buffered(im.SpectralDistortionIndex(device=device), WV3_IMAGES,
+                                               {"preds": (WV3_BANDS, WV3_FR, WV3_FR), "target": (WV3_BANDS, WV3_MS, WV3_MS)})},
+    }
+
+
+def pansharpening_phase(torch, bc) -> dict:
+    """Pan-sharpening scored as PanCollection reports it, with WorldView-3's geometry (see the module note), with
+    torch's TF32 defaults: the reduced- and full-resolution collections on the card, their states against the
+    CPU path's on the first batches, the values on the first images against float64 oracles, host syncs, and
+    the fused phases (the full-resolution one on the capacity copy, whose state stays at the set's 20 images)."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.functional.image.sam import _sam_compute
+    from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.ops import biquad as bq
+
+    label = f"pansharpening WorldView-3 {WV3_IMAGES} x {WV3_BANDS} x {WV3_RR}^2 and {WV3_IMAGES} x {WV3_BANDS} x {WV3_FR}^2"
+    with tf32_defaults(torch):
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            oracle_job = pool.apply_async(pansharpening_oracle, (0,))
+            t0 = time.perf_counter()
+            host = {"reduced": wv3_batches(False), "full": wv3_batches(True)}
+            t_gen = time.perf_counter() - t0
+            dev = {k: [tuple(torch.from_numpy(x).cuda() for x in b) for b in v] for k, v in host.items()}
+            cols = {k: MetricCollection(m, device="cuda") for k, m in pansharpening_members("cuda").items()}
+            torch.cuda.synchronize()
+            bc.launches, bq.launches = 0, 0
+            update_ms = {k: [] for k in cols}
+            syncs = {}
+            for kind, col in cols.items():
+                for i, batch in enumerate(dev[kind]):
+                    if i == 2:
+                        syncs.update({name: steady_host_syncs(torch, m, batch) for name, m in col.items()})
+                    t1 = time.perf_counter()
+                    if i == 1:
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        col.update(*batch)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize()
+                    update_ms[kind].append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            values = {k: v for col in cols.values() for k, v in col.compute().items()}
+            torch.cuda.synchronize()
+            compute_ms = (time.perf_counter() - t1) * 1e3
+            check(bc.launches == 0 and bq.launches == 0, f"{label}: kernel launches {bc.launches}, {bq.launches}")
+            check(not any(syncs.values()), f"{label}: host syncs in a steady update {syncs}")
+            check(torch.equal(values["cap_d_lambda"], values["d_lambda"]), f"{label}: the capacity copy's D-lambda differs")
+            check(torch.equal(values["cap_sam"].mean(), _sam_compute(*(torch.cat([b[i] for b in dev["reduced"]]) for i in (0, 1)),
+                                                                     "elementwise_mean")), f"{label}: the capacity SAM differs")
+            values["cap_sam"] = values["cap_sam"].mean()  # the per-pixel angles' mean, SAM's value
+
+            # the first batches on the card against the CPU path (D-lambda's states are its inputs: exact)
+            t_cpu = time.perf_counter()
+            state_worst = 0.0
+            for i in range(2):
+                card = {k: MetricCollection(m, device="cuda") for k, m in pansharpening_members("cuda").items()}
+                cpu = {k: MetricCollection(m, device="cpu") for k, m in pansharpening_members("cpu").items()}
+                for kind in card:
+                    card[kind].update(*dev[kind][i])
+                    cpu[kind].update(*(torch.from_numpy(x) for x in host[kind][i]))
+                p, t = dev["reduced"][i]
+                cos = (p * t).sum(1) / (torch.linalg.norm(p, dim=1) * torch.linalg.norm(t, dim=1))
+                sam_cond = float((1 / torch.sqrt(torch.clamp(1 - cos.double() ** 2, min=1e-30))).sum())
+                tol = {"reduced": {"sam": {"sum_sam": ("abs", CANCEL_EPS * sam_cond)},
+                                   "rmse_sw": {"rmse_val_sum": ("rel", 1e-6)}}, "full": {}}
+                for kind in card:
+                    share = check_image_states(f"{label} batch {i} {kind}", {n: export_state(m) for n, m in card[kind].items()},
+                                               {n: export_state(m) for n, m in cpu[kind].items()}, tol[kind])
+                    state_worst = max(state_worst, share)
+            del card, cpu
+            t_cpu = time.perf_counter() - t_cpu
+
+            # the first images against the float64 oracle
+            oracle = oracle_job.get()
+            pool.close()
+            pool.join()
+        n = DIV2K_ORACLE_IMAGES
+        small = {k: MetricCollection(m, device="cuda") for k, m in pansharpening_members("cuda").items()}
+        for kind, col in small.items():
+            col.update(*(x[:n] for x in dev[kind][0]))
+        got = {k: v for col in small.values() for k, v in col.compute().items()}
+        got["cap_sam"] = got["cap_sam"].mean()
+        oracle_values = {k: oracle[k.removeprefix("cap_")] for k in got}
+        oracle_worst = check_values(label, got, oracle_values, IMAGE_ORACLE_TOL)
+        del small
+        print(
+            f"pansharpening phase: {label}: batches of {WV3_BATCH} (made from the seed on the host in {t_gen:.1f} s);"
+            f" reduced: none (PanCollection's WorldView-3 test sets hold 20 images of each kind); values: "
+            + ", ".join(f"{k} {float(v):.6f}" for k, v in values.items())
+            + f"; against float64 oracles on {n} images, worst share of the tolerance {max(oracle_worst.values()):.3f}"
+            f" ({max(oracle_worst, key=oracle_worst.get)}): "
+            + ", ".join(f"{k} {float(got[k]):.6f} (oracle {oracle_values[k]:.6f})" for k in oracle_values)
+            + f"; card vs CPU on 2 batches each ({t_cpu:.1f} s), worst share of a bound {state_worst:.3f}; host syncs in a steady"
+            f" update {syncs}; update first / steady median: "
+            + ", ".join(f"{k} {v[0]:.3f} / {np.median(v[1:]):.3f} ms" for k, v in update_ms.items())
+            + f"; compute() {compute_ms:.3f} ms",
+            flush=True,
+        )
+        prof = {kind: profile_step(torch, col, dev[kind][1], f"{label} {kind}") for kind, col in cols.items()}
+        del cols
+        fused = {
+            "reduced": fused_pair(torch, f"{label} reduced", lambda f: MetricCollection(
+                pansharpening_members("cuda")["reduced"], fused_update=f, device="cuda"), dev["reduced"]),
+            "full": fused_pair(torch, f"{label} full (capacity copy)", lambda f: MetricCollection(
+                {"cap_d_lambda": pansharpening_members("cuda")["full"]["cap_d_lambda"]}, fused_update=f, device="cuda"),
+                dev["full"]),
+        }
+        del dev
+        torch.cuda.empty_cache()
+    check(fused["reduced"]["eager_leaders"] == ["ergas"], f"{label}: eager leaders {fused['reduced']['eager_leaders']}")
+    for kind, f in fused.items():
+        check(f["modes"]["replayed"] >= 1 and f["guarded_replay"], f"{label} {kind}: no checked graph replay")
+        check(not any(n["plain"] or n["fused"] for n in f["kernel_launches"].values()), f"{label} {kind}: kernel launches")
+    return {"launches": 0, "update_ms": update_ms, "compute_ms": compute_ms, "values": {k: float(v) for k, v in values.items()},
+            "oracle": oracle_values, "oracle_worst": oracle_worst, "state_worst": state_worst, "host_syncs": syncs,
+            "profile": prof, "reduced": "none", "fused": fused["reduced"], "fused_all": fused}
+
+
 def sync_phase(torch, bc, smi: str) -> dict:
     """The ImageNet-size collection synced over NCCL at world size 1 (see the module note)."""
     import tempfile
@@ -3722,15 +4491,18 @@ def busy_union_us(intervals) -> float:
     return total
 
 
-def profile_step(torch, col, batch, label: str) -> None:
+def profile_step(torch, col, batch, label: str) -> dict:
     """After every check: one steady (leaders-only) update and one compute,
     timed on the host clock, then each again under ``torch.profiler``. From
     that one profiled run: its wall time (host clock, from the call to the
     end of ``torch.cuda.synchronize()``), the union of its device activity
     intervals from the trace, their share of that wall time (the rest is the
-    device idle, waiting on the host), and the kernels that take most."""
+    device idle, waiting on the host), the kernels that take most, and the
+    convolutions' time; those numbers are returned by step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    stats = {}
 
     def run(step: str) -> float:
         t0 = time.perf_counter()
@@ -3759,15 +4531,21 @@ def profile_step(torch, col, batch, label: str) -> None:
         iir = sum(e.device_time_total for e in kernels if "biquad_cascade_kernel" in e.key)
         iir_n = sum(e.count for e in kernels if "biquad_cascade_kernel" in e.key)
         iir_part = f" biquad_cascade kernels x{iir_n} {iir:.1f} us ({iir / 10 / busy_ms:.1f}% of the union);" if iir else ""
+        conv_us, conv_n, conv_names = conv_kernels(prof)
+        conv_part = (f" convolution kernels x{conv_n} {conv_us:.1f} us ({conv_us / 10 / busy_ms:.1f}% of the union:"
+                     f" {conv_names});" if conv_us else "")
+        stats[step] = {"wall_ms": wall_ms, "profiled_ms": profiled_ms, "busy_ms": busy_ms, "conv_us": conv_us,
+                       "conv_launches": conv_n, "scratch_mb": scratch_mb}
         print(
             f"profile: {label}: steady {step} {wall_ms:.3f} ms wall unprofiled; profiled run {profiled_ms:.3f} ms wall,"
             f" device busy (union of {len(device)} device intervals) {busy_ms:.3f} ms"
             f" = {100 * busy_ms / profiled_ms:.1f}% of it, first-to-last device span {span_ms:.3f} ms;"
             f" peak device memory above resident {scratch_mb:.1f} MiB;"
-            f" binned_confusion kernels (rank + count) {ours:.1f} us;{iir_part}"
+            f" binned_confusion kernels (rank + count) {ours:.1f} us;{iir_part}{conv_part}"
             f" top: {parts or 'the profiler saw no device time'}",
             flush=True,
         )
+    return stats
 
 
 def main() -> None:
@@ -3822,6 +4600,8 @@ def main() -> None:
         "retrieval": retrieval_phase(torch, bc),
         "separation": separation_phase(torch, bc),
         "srmr": srmr_phase(torch, bc),
+        "restoration": restoration_phase(torch, bc),
+        "pansharpening": pansharpening_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
     pairwise = pairwise_phase(torch, bc)
@@ -3925,6 +4705,17 @@ def main() -> None:
                 "oracle_worst", "state_err", "host_syncs", "three_speakers", "values", "oracle", "reduced")},
             "srmr": {k: paths["srmr"][k] for k in (
                 "value", "value_norm", "clean_vs_reverb", "cpu_rel", "host_syncs", "reduced")},
+        },
+        "image": {
+            path: {
+                **{k: paths[path][k] for k in (
+                    "update_ms", "compute_ms", "values", "oracle", "oracle_tol", "oracle_worst", "state_worst",
+                    "host_syncs", "profile", "reduced") if k in paths[path]},
+                **({"unguarded_ssim_err": paths[path]["unguarded_ssim_err"]} if path == "restoration" else {}),
+                "fused": {kind: {k: f[k] for k in ("modes", "plain_ms", "fused_ms", "profile", "capture_s", "eager_leaders")}
+                          for kind, f in paths[path]["fused_all"].items()},
+            }
+            for path in ("restoration", "pansharpening")
         },
     }
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)

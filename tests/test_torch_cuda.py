@@ -15,7 +15,11 @@ kernel against a float64 reference beside its plain version (at the
 chunk and tile edges too), two calls and a graph replay bit for bit, the separation members on the card
 against the CPU, SDR's host syncs and its eager place beside a graph,
 audio collections replayed in graphs, and three-speaker PIT eagerly and
-under capture.
+under capture; and the image slice: SSIM, UQI and VIF under torch's
+default TF32 settings against float64 oracles (the library's own float32
+guard), 3-D SSIM through ``conv3d``, and restoration and pan-sharpening
+collections replayed in graphs bit for bit with no host sync (the float64
+oracles and the texture generator come from ``chip_smoke.py``).
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -1375,3 +1379,122 @@ def test_three_speakers_take_the_hungarian_path_eagerly_and_the_exhaustive_one_u
     assert np.array_equal(eager_perm.cpu().numpy(), np.argsort(perm, axis=1))
     assert torch.equal(cap_perm, eager_perm)
     assert float((cap_metric - eager_metric).abs().max()) <= 1e-6 * float(eager_metric.abs().max())
+
+
+def _textures(seed, n, c, h, w):
+    """``(preds, target)`` float32 ``(n, c, h, w)`` in [0, 1]: 1/f-spectrum textures (the restoration
+    stream's generator in ``chip_smoke.py``) and their copies with noise of 0.02, both 8-bit."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    target = np.stack([[0.5 + 0.12 * chip_smoke.natural_field(rng, h, w) for _ in range(c)] for _ in range(n)])
+    target = np.round(np.clip(target, 0, 1) * 255) / 255
+    preds = np.round(np.clip(target + 0.02 * rng.standard_normal(target.shape), 0, 1) * 255) / 255
+    return preds.astype(np.float32), target.astype(np.float32)
+
+
+def test_image_convolutions_under_torch_default_tf32_match_float64_oracles(cuda):
+    """With torch's TF32 defaults (cuDNN may run float32 convolutions in TF32), SSIM, UQI and VIF on the card
+    stay within their float64 oracles' bounds (``chip_smoke.py``'s: SSIM and UQI one float32 rounding of their
+    moments' terms times the images' condition, at least 1e-5; VIF 1e-4 relative): the library runs its
+    convolutions in full float32 by itself."""
+    import chip_smoke
+    from tpumetrics_torch.functional.image import (
+        structural_similarity_index_measure,
+        universal_image_quality_index,
+        visual_information_fidelity,
+    )
+
+    preds, target = _textures(60, 2, 3, 192, 256)
+    p64, t64 = preds.astype(np.float64), target.astype(np.float64)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        p, t = torch.from_numpy(preds).to(cuda), torch.from_numpy(target).to(cuda)
+        ssim = float(structural_similarity_index_measure(p, t, data_range=1.0))
+        uqi = float(universal_image_quality_index(p, t))
+        vif = float(visual_information_fidelity(p, t))
+        assert torch.backends.cudnn.allow_tf32  # the library's guard restored the caller's setting
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    moments, pad = chip_smoke.moments64(p64, t64)
+    want_ssim = np.mean([chip_smoke.ssim64(p64[i], t64[i])[0] for i in range(2)])
+    want_uqi = chip_smoke.uqi_from64(moments, pad).mean()
+    want_vif = np.mean([chip_smoke.vif64(p64[i, c], t64[i, c]) for i in range(2) for c in range(3)])
+    k_ssim = chip_smoke.condition64(moments, pad, 0.03**2)
+    k_uqi = chip_smoke.condition64(moments, pad, chip_smoke.F32_EPS)
+    assert abs(ssim - want_ssim) <= max(1e-5, chip_smoke.F32_U * k_ssim)
+    assert abs(uqi - want_uqi) <= max(1e-5, chip_smoke.F32_U * k_uqi)
+    assert abs(vif - want_vif) <= 1e-4 * abs(want_vif)
+
+
+def test_ssim_3d_runs_conv3d_on_the_card_as_on_the_cpu(cuda):
+    """3-D SSIM through ``conv3d`` on the card equals the CPU's within 1e-5 (the moments cancel as in 2-D),
+    and the unequal-sigma crop that empties the map gives NaN there too."""
+    from tpumetrics_torch.functional.image import structural_similarity_index_measure as ssim
+
+    rng = np.random.default_rng(61)
+    target = rng.random((2, 1, 32, 32, 32)).astype(np.float32)
+    preds = np.clip(target + 0.05 * rng.standard_normal(target.shape), 0, 1).astype(np.float32)
+    p, t = torch.from_numpy(preds), torch.from_numpy(target)
+    got = ssim(p.to(cuda), t.to(cuda), data_range=1.0, reduction="none").cpu()
+    want = ssim(p, t, data_range=1.0, reduction="none")
+    assert torch.isfinite(want).all() and float((got - want).abs().max()) <= 1e-5
+    nan = ssim(p[:, :, :16, :16, :16].to(cuda), t[:, :, :16, :16, :16].to(cuda), sigma=(1.5, 1.0, 0.5))
+    assert torch.isnan(nan)
+
+
+def test_restoration_collection_replays_bit_for_bit_without_host_syncs(cuda):
+    """An RGB restoration collection (PSNR, SSIM, MS-SSIM, UQI, VIF) and a pan-sharpening one (ERGAS, SAM and
+    its capacity copy, RASE, RMSE-SW) captured in graphs: replays raise nothing with host syncs made errors,
+    the list leaders update eagerly beside the graph, and the states stay bit for bit the unfused ones'."""
+    import tpumetrics_torch.image as im
+    from tpumetrics_torch.interop import load_state
+
+    def capacity_sam():
+        sam = im.SpectralAngleMapper(reduction="none", device=cuda)
+        for state in ("preds", "target"):
+            sam.set_state_capacity(state, 16, feature_shape=(8, 64, 64))
+        load_state(sam, sam.init_state())
+        return sam
+
+    def rgb(f):
+        return MetricCollection({"psnr": im.PeakSignalNoiseRatio(data_range=1.0, device=cuda),
+                                 "ssim": im.StructuralSimilarityIndexMeasure(data_range=1.0, device=cuda),
+                                 "ms_ssim": im.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=cuda),
+                                 "uqi": im.UniversalImageQualityIndex(device=cuda),
+                                 "vif": im.VisualInformationFidelity(device=cuda)}, fused_update=f, device=cuda)
+
+    def spectral(f):
+        return MetricCollection({"ergas": im.ErrorRelativeGlobalDimensionlessSynthesis(device=cuda),
+                                 "sam": im.SpectralAngleMapper(device=cuda), "cap_sam": capacity_sam(),
+                                 "rase": im.RelativeAverageSpectralError(device=cuda),
+                                 "rmse_sw": im.RootMeanSquaredErrorUsingSlidingWindow(device=cuda)},
+                                fused_update=f, device=cuda)
+
+    preds, target = _textures(62, 2, 3, 192, 192)
+    rng = np.random.default_rng(63)
+    spec_t = (0.1 + rng.random((2, 8, 64, 64))).astype(np.float32)
+    spec_p = (spec_t + 0.01 * rng.standard_normal(spec_t.shape)).astype(np.float32)
+    for make, batch in ((rgb, (preds, target)), (spectral, (spec_p, spec_t))):
+        args = tuple(torch.from_numpy(x).to(cuda) for x in batch)
+        cols = {f: make(f) for f in (False, True)}
+        for i in range(5):
+            cols[False].update(*args)
+            if i >= 3:  # the fourth and fifth updates are replays
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                cols[True].update(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got, want = export_state(cols[True]), export_state(cols[False])
+            for leader, states in want.items():
+                for name, ref in states.items():
+                    refs, vals = (ref, got[leader][name]) if isinstance(ref, (list, tuple)) else ([ref], [got[leader][name]])
+                    assert all(np.array_equal(v, r) for v, r in zip(vals, refs, strict=True)), (leader, name)
+        step = cols[True]._fused_oo_step
+        assert step.counts["replayed"] == 2
+        if make is spectral:
+            assert sorted(step.leaders) == ["cap_sam", "rmse_sw", "sam"]
+        for k, v in cols[False].compute().items():
+            assert torch.equal(cols[True].compute()[k], v)

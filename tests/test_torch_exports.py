@@ -1,7 +1,9 @@
 """The port's public names held against the JAX package's.
 
 Every ported package's ``__all__`` equals the JAX one (the top level and
-``functional`` restricted to the ported domains), no exported name is a
+``functional`` restricted to the ported domains; ``image`` and
+``functional.image`` less the seven backbone metrics, which wait for the
+port of the backbones), no exported name is a
 module, the ``utilities`` alias serves the port's utils modules, and the
 task dispatchers of ``functional.classification`` are the functions.
 """
@@ -20,8 +22,20 @@ import tpumetrics_torch
 import tpumetrics_torch.functional.classification as fc
 import tpumetrics_torch.utils
 
-DOMAINS = ["audio", "classification", "clustering", "nominal", "regression", "retrieval", "wrappers"]
-FUNCTIONAL_DOMAINS = ["audio", "classification", "clustering", "nominal", "pairwise", "regression", "retrieval"]
+DOMAINS = ["audio", "classification", "clustering", "image", "nominal", "regression", "retrieval", "wrappers"]
+FUNCTIONAL_DOMAINS = [
+    "audio", "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval"
+]
+# the image metrics that run a backbone network (Inception, LPIPS's nets, a generator): not ported yet
+WAITING_FOR_BACKBONES = {
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "MemorizationInformedFrechetInceptionDistance",
+    "PerceptualPathLength",
+    "learned_perceptual_image_patch_similarity",
+}
 PACKAGES = [*DOMAINS, *(f"functional.{d}" for d in FUNCTIONAL_DOMAINS), "utils"]
 CORE = {"Metric", "CompositionalMetric", "MetricCollection", "MaskedBuffer", "__version__", "CatMetric", "MaxMetric",
         "MeanMetric", "MinMetric", "RunningMean", "RunningSum", "SumMetric"}
@@ -31,16 +45,29 @@ def _pair(name):
     return importlib.import_module(f"tpumetrics_torch.{name}"), importlib.import_module(f"tpumetrics.{name}")
 
 
+def _ported(names):
+    return set(names) - WAITING_FOR_BACKBONES
+
+
 @pytest.mark.parametrize("name", PACKAGES)
 def test_package_all_equals_the_jax_one(name):
     port, ref = _pair(name)
-    assert sorted(port.__all__) == sorted(ref.__all__)
+    assert sorted(port.__all__) == sorted(_ported(ref.__all__))
+
+
+def test_the_names_waiting_for_the_backbones_are_the_jax_image_ones():
+    """Each waiting name is a JAX image export that the port lacks, and the
+    image packages lack nothing else."""
+    jax_image = set(_pair("image")[1].__all__) | set(_pair("functional.image")[1].__all__)
+    port_image = set(_pair("image")[0].__all__) | set(_pair("functional.image")[0].__all__)
+    assert WAITING_FOR_BACKBONES == jax_image - port_image
+    assert not WAITING_FOR_BACKBONES & set(tpumetrics_torch.__all__)
 
 
 def test_top_level_all_is_the_jax_top_level_restricted_to_the_ported_domains():
     ported = set(CORE)
     for name in DOMAINS:
-        ported |= set(_pair(name)[1].__all__)
+        ported |= _ported(_pair(name)[1].__all__)
     want = [n for n in tpumetrics.__all__ if n in ported]
     assert tpumetrics_torch.__all__ == want
     assert set(tpumetrics_torch.__all__) <= set(tpumetrics.__all__)
@@ -49,7 +76,7 @@ def test_top_level_all_is_the_jax_top_level_restricted_to_the_ported_domains():
 def test_functional_all_is_the_jax_one_restricted_to_the_ported_domains():
     ported = set()
     for name in FUNCTIONAL_DOMAINS:
-        ported |= set(_pair(f"functional.{name}")[1].__all__)
+        ported |= _ported(_pair(f"functional.{name}")[1].__all__)
     jax_functional = importlib.import_module("tpumetrics.functional")
     port_functional = importlib.import_module("tpumetrics_torch.functional")
     assert sorted(port_functional.__all__) == sorted(n for n in jax_functional.__all__ if n in ported)

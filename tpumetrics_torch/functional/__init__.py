@@ -1,6 +1,6 @@
 """Functional metrics of the port (counterpart of ``tpumetrics/functional``):
 the classification functions and their task-string dispatchers, and the
-audio, clustering, nominal, pairwise, regression and retrieval functions."""
+audio, clustering, image, nominal, pairwise, regression and retrieval functions."""
 
 from tpumetrics_torch.functional.audio import *  # noqa: F401,F403
 from tpumetrics_torch.functional.audio import __all__ as _audio_all
@@ -8,6 +8,8 @@ from tpumetrics_torch.functional.classification import *  # noqa: F401,F403
 from tpumetrics_torch.functional.classification import __all__ as _classification_all
 from tpumetrics_torch.functional.clustering import *  # noqa: F401,F403
 from tpumetrics_torch.functional.clustering import __all__ as _clustering_all
+from tpumetrics_torch.functional.image import *  # noqa: F401,F403
+from tpumetrics_torch.functional.image import __all__ as _image_all
 from tpumetrics_torch.functional.nominal import *  # noqa: F401,F403
 from tpumetrics_torch.functional.nominal import __all__ as _nominal_all
 from tpumetrics_torch.functional.pairwise import *  # noqa: F401,F403
@@ -18,5 +20,14 @@ from tpumetrics_torch.functional.retrieval import *  # noqa: F401,F403
 from tpumetrics_torch.functional.retrieval import __all__ as _retrieval_all
 
 __all__ = sorted(
-    [*_audio_all, *_classification_all, *_clustering_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all]
+    [
+        *_audio_all,
+        *_classification_all,
+        *_clustering_all,
+        *_image_all,
+        *_nominal_all,
+        *_pairwise_all,
+        *_regression_all,
+        *_retrieval_all,
+    ]
 )
