@@ -174,6 +174,24 @@ Phases, each of which passes or exits non-zero:
    and 20 full-resolution outputs (8 x 512 x 512) against their 8 x 128 x
    128 multispectral inputs through D-lambda and its capacity copy; the
    same checks; each collection with its fused phase;
+5i. monitoring phase: a CTR model's online monitor over the Criteo display-advertising challenge training
+   log (Kaggle, 2014: 45,840,617 rows over 7 days; 13 integer count features with missing values), made on
+   the card from the seed in bulk and served in 700 updates of 65,536 rows (a ragged last 30,953, padded and
+   masked): a fused collection of the model's scores (``SketchQuantiles`` over a 100-update window in 10
+   panes and over all rows, PSI, KL and KS drift monitors against 1,000,000 training scores, windowed mean,
+   sum, max and min, a decayed mean), a fused collection of serving latencies (windowed quantiles, mean,
+   max) and 13 unfused PSI monitors of I1-I13 against day 1; from update 400 the scores' logits shift by 0.3
+   and I4's counts double; ``compute()`` every 10 updates under ``stream_scope("criteo-ctr")`` inside a
+   ledger capture. Checked against oracles on the card in float64/int64 (the bucket index by
+   ``searchsorted`` over the level bounds, itself held to the numpy ``sketch_index_oracle``, as the port's
+   index is): every window's and the cumulative sketch's counts bit for bit at every refresh, the quantiles
+   equal to the oracle sketch's and within 1/capacity of the exact ones, windowed sums within 1e-6, the
+   decayed mean within 1e-5, PSI/KL/KS within 1e-6; each monitor alerts once per crossing at the refresh
+   the oracle's latch predicts, as ``drift_alert`` ledger events and Prometheus series under the stream's
+   label that ``release_stream`` removes; the same stream on the CPU path in five worker processes fed
+   the card's data (sketches and counts identical, float sums within 1e-6; cut to the first 450 updates
+   and printed as reduced if it would take longer than 45 s); host syncs of every member's steady update;
+   and each collection's fused phase;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -182,7 +200,8 @@ Phases, each of which passes or exits non-zero:
    state back to its own tensor after ``compute()``, the collectives of one
    ``compute()`` (one ``all_reduce`` per (op, dtype) class of the group
    leaders' states, two gathers per list state) counted by a wrapper around
-   the backend and in ``torch.profiler``, the binned update free of host
+   the backend and in ``torch.profiler``, and in a ledger capture (the same
+   collectives and bytes, the members' tags), the binned update free of host
    syncs, and the sync's host-clock time per ``compute()``;
 6b. pairwise phase: 768-d embeddings (BERT-base width, as dense retrievers
    such as DPR use): cosine, linear and euclidean of 6,980 queries against
@@ -212,7 +231,8 @@ phase starts worker processes with ``spawn``) after ``_build.build()``:
 ``chip_smoke.separation_phase(torch, bc)``, ``chip_smoke.srmr_phase(torch,
 bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``,
 ``chip_smoke.restoration_phase(torch, bc)``,
-``chip_smoke.pansharpening_phase(torch, bc)``.
+``chip_smoke.pansharpening_phase(torch, bc)``, ``chip_smoke.criteo_phase(torch, bc)`` (no build needed; it
+starts worker processes with ``spawn``).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -226,8 +246,10 @@ import json
 import math
 import multiprocessing
 import os
+import queue
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -4253,6 +4275,582 @@ def pansharpening_phase(torch, bc) -> dict:
             "profile": prof, "reduced": "none", "fused": fused["reduced"], "fused_all": fused}
 
 
+def sketch_index_oracle(values, levels: int = 44, capacity: int = 64, unit=None) -> np.ndarray:
+    """The monitoring sketch's flat bucket index of each value, by its documented math in float64 numpy, in a
+    formulation of its own: the level is the number of level bounds ``unit * 2**k`` (k = 0 .. levels-2) at or
+    below ``|x|``, found by ``searchsorted``; the bucket ``floor((|x| - lo) * capacity / width)`` within it,
+    clipped to ``[0, capacity)`` (``+-inf`` to the top); negative values (not -0.0) on the mirrored side;
+    NaN as 0."""
+    unit = 2.0 ** (24 - levels) if unit is None else float(unit)
+    x = np.asarray(values, dtype=np.float64)
+    a = np.abs(x)
+    a = np.where(np.isnan(a), 0.0, a)
+    level = np.searchsorted(np.ldexp(unit, np.arange(levels - 1)), a, side="right")
+    lo = np.where(level == 0, 0.0, np.ldexp(unit, np.maximum(level - 1, 0)))
+    width = np.where(level == 0, unit, lo)
+    with np.errstate(invalid="ignore"):
+        j = np.clip(np.floor((a - lo) * capacity / width), 0, capacity - 1).astype(np.int64)
+    flat = level * capacity + j
+    return np.where(x < 0, flat + levels * capacity, flat)
+
+
+CRITEO_ROWS = 45_840_617  # the Criteo display-advertising challenge training log (Kaggle, 2014): 7 days
+CRITEO_BATCH = 65_536
+CRITEO_UPDATES = -(-CRITEO_ROWS // CRITEO_BATCH)  # 700: 699 full batches and a ragged one, padded and masked
+CRITEO_LAST = CRITEO_ROWS - (CRITEO_UPDATES - 1) * CRITEO_BATCH  # 30,953 rows
+CRITEO_SHIFT_AT = 400  # the update from which the scores' logits shift and one feature's counts double
+CRITEO_LOGIT = (-1.2, 0.6, 0.3)  # the model's latent: mean, sd (a click rate near 0.25) and the shift
+CRITEO_LATENCY = (math.log(12.0), 0.35, 1e-3, 20.0)  # serving latency (ms): log-median, log-sd, outliers, their factor
+# I1-I13: missing share, and the log-mean and log-sd of the counts (floor of a log-normal: heavy-tailed integers)
+CRITEO_FEATURES = [
+    (0.454, 0.6, 1.2), (0.0, 2.5, 1.8), (0.217, 1.8, 1.6), (0.224, 1.5, 1.0), (0.026, 7.5, 1.9),
+    (0.223, 3.5, 1.7), (0.043, 1.3, 1.5), (0.0005, 2.5, 1.0), (0.043, 3.9, 1.3), (0.454, 0.3, 0.6),
+    (0.043, 0.8, 1.0), (0.765, 0.2, 1.0), (0.224, 1.5, 1.1),
+]
+CRITEO_DRIFTED = 3  # I4: its counts double from CRITEO_SHIFT_AT on
+CRITEO_REF_SCORES = 1_000_000  # the drift monitors' reference: training scores
+CRITEO_REF_ROWS = 1_000_000  # the feature monitors' reference: day 1's first rows
+CRITEO_WINDOW, CRITEO_SLOTS, CRITEO_REFRESH = 100, 10, 10  # about a day in 10 panes; a dashboard refresh
+CRITEO_THRESHOLD, CRITEO_HYSTERESIS = 0.1, 0.02
+CRITEO_SCORE_QS, CRITEO_ALL_QS, CRITEO_LATENCY_QS = (0.5, 0.9, 0.99, 0.999), (0.5, 0.99), (0.5, 0.99, 0.999)
+CRITEO_STREAM = "criteo-ctr"
+CRITEO_CHECKPOINTS = (450, CRITEO_UPDATES)  # where the card's states are held against the CPU path's
+CRITEO_CPU_BUDGET_S = 45.0  # a CPU path projected to take longer for 700 updates stops at 450
+# the CPU path's worker processes (one thread each): the two collections, and the feature monitors in four groups
+CRITEO_CPU_PARTS = ("collections", (0, 1, 2), (3, 4, 5), (6, 7, 8), (9, 10, 11, 12))
+CRITEO_SCORE_RTOL = 1e-6  # windowed sums (float32 slots) against float64
+CRITEO_DECAYED_RTOL = 1e-5  # the decayed mean: 700 float32 multiply-adds against float64
+CRITEO_DRIFT_ATOL = 1e-6  # PSI, KL, KS against the float64 oracle
+
+
+def criteo_members(device, reference, window: int = None, slots: int = None) -> dict:
+    """The score and latency collections' members (the score collection's drift monitors against
+    ``reference``); the ring is ``CRITEO_WINDOW`` and ``CRITEO_SLOTS`` unless given."""
+    from tpumetrics_torch import monitoring as mon
+
+    window, slots = window or CRITEO_WINDOW, slots or CRITEO_SLOTS
+    ring = {"window": window, "slots": slots}
+    drift = {**ring, "threshold": CRITEO_THRESHOLD, "hysteresis": CRITEO_HYSTERESIS, "device": device}
+    return {
+        "score": {
+            "quantiles": mon.SketchQuantiles(CRITEO_SCORE_QS, **ring, device=device),
+            "quantiles_all": mon.SketchQuantiles(CRITEO_ALL_QS, device=device),
+            "psi": mon.PSI(reference, name="score_psi", **drift),
+            "kl": mon.KLDrift(reference, name="score_kl", **drift),
+            "ks": mon.KSDistance(reference, name="score_ks", **drift),
+            "mean": mon.WindowedMean(window, slots=slots, device=device),
+            "sum": mon.WindowedSum(window, slots=slots, device=device),
+            "max": mon.WindowedMax(window, slots=slots, device=device),
+            "min": mon.WindowedMin(window, slots=slots, device=device),
+            "decayed": mon.DecayedMean(half_life=50, device=device),
+        },
+        "latency": {
+            "quantiles": mon.SketchQuantiles(CRITEO_LATENCY_QS, **ring, device=device),
+            "mean": mon.WindowedMean(window, slots=slots, device=device),
+            "max": mon.WindowedMax(window, slots=slots, device=device),
+        },
+    }
+
+
+def criteo_feature_monitor(j: int, reference, device, window: int = None, slots: int = None):
+    from tpumetrics_torch import monitoring as mon
+
+    return mon.PSI(reference, name=f"I{j + 1}", window=window or CRITEO_WINDOW, slots=slots or CRITEO_SLOTS,
+                   threshold=CRITEO_THRESHOLD, hysteresis=CRITEO_HYSTERESIS, device=device)
+
+
+def criteo_data(torch, device="cuda") -> dict:
+    """The whole log on the card, made from the seed in bulk: per update ``(CRITEO_BATCH,)`` scores, latencies
+    and a float valid mask (the ragged last batch's padding 0), ``(13, CRITEO_BATCH)`` integer counts with NaN
+    where missing; the training scores of the reference."""
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 15)
+    u, b = CRITEO_UPDATES, CRITEO_BATCH
+    mu, sd, shift = CRITEO_LOGIT
+    drifted = (torch.arange(u, device=device) >= CRITEO_SHIFT_AT)[:, None]
+    latent = mu + sd * torch.randn((u, b), generator=g, device=device) + shift * drifted
+    scores = torch.sigmoid(latent)
+    lmu, lsd, share, factor = CRITEO_LATENCY
+    latency = torch.exp(lmu + lsd * torch.randn((u, b), generator=g, device=device))
+    latency = torch.where(torch.rand((u, b), generator=g, device=device) < share, latency * factor, latency)
+    miss, fmu, fsd = (torch.tensor([f[k] for f in CRITEO_FEATURES], device=device)[None, :, None] for k in range(3))
+    feats = torch.floor(torch.exp(fmu + fsd * torch.randn((u, 13, b), generator=g, device=device)))
+    feats[:, CRITEO_DRIFTED] = torch.where(drifted, 2 * feats[:, CRITEO_DRIFTED], feats[:, CRITEO_DRIFTED])
+    feats = torch.where(torch.rand((u, 13, b), generator=g, device=device) < miss, float("nan"), feats)
+    valid = torch.ones((u, b), device=device)
+    valid[-1, CRITEO_LAST:] = 0.0
+    reference = torch.sigmoid(mu + sd * torch.randn(CRITEO_REF_SCORES, generator=g, device=device))
+    return {"scores": scores, "latency": latency, "features": feats, "valid": valid, "reference": reference}
+
+
+def criteo_cpu_worker(part, spec: dict, inbox, outbox, threads: int) -> None:
+    """One part of the stream's CPU path, in a worker process: the score and latency collections
+    (``"collections"``) or the feature monitors of the given columns, fed the card's data batch by batch from
+    ``inbox`` (a pipe's receiving end); their states at each checkpoint go to ``outbox``. Past the first checkpoint, a run projected to
+    take longer than ``spec["budget_s"]`` for all ``spec["updates"]`` stops (the rest of the batches are
+    drained). ``spec`` also holds the ``checkpoints`` and the ``window`` and ``slots``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.interop import export_state
+
+    torch.set_num_threads(threads)
+    _, refs = inbox.recv()
+    ring = {"window": spec["window"], "slots": spec["slots"]}
+    if part == "collections":
+        members = criteo_members("cpu", torch.from_numpy(refs), **ring)
+        metrics = {k: MetricCollection(m, fused_update=True, device="cpu") for k, m in members.items()}
+    else:
+        metrics = {f"I{j + 1}": criteo_feature_monitor(j, torch.from_numpy(r), "cpu", **ring) for j, r in zip(part, refs)}
+    t0, done, states, stopped = time.perf_counter(), 0, {}, False
+    while True:
+        msg = inbox.recv()
+        if msg[0] == "end":
+            break
+        for cols in msg[1]:
+            if stopped:
+                continue
+            valid = torch.from_numpy(cols["valid"])
+            if part == "collections":
+                metrics["score"].update(torch.from_numpy(cols["scores"]), valid)
+                metrics["latency"].update(torch.from_numpy(cols["latency"]), valid)
+            else:
+                for j, x in zip(part, cols["features"]):
+                    metrics[f"I{j + 1}"].update(torch.from_numpy(x), valid)
+            done += 1
+            if done in spec["checkpoints"]:  # copies: on the CPU an export views the fused step's own buffers
+                states[done] = flat_states({k: export_state(m) for k, m in metrics.items()}, copy=True)
+            if done == spec["checkpoints"][0]:
+                stopped = (time.perf_counter() - t0) * spec["updates"] / done > spec["budget_s"]
+    outbox.put({"part": part, "states": states, "updates": done, "seconds": time.perf_counter() - t0})
+
+
+def flat_states(tree, prefix: str = "", copy: bool = False) -> dict:
+    """``{"a.b.c": array}`` of a nested dict of exported states (the arrays copied with ``copy``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_states(v, f"{prefix}{k}.", copy))
+        else:
+            out[f"{prefix}{k}"] = np.array(v) if copy else np.asarray(v)
+    return out
+
+
+def sketch_index_oracle_torch(torch, x, levels: int = 44, capacity: int = 64):
+    """``sketch_index_oracle`` on the card, in float64 (the same formulation, held to the numpy one in the
+    phase)."""
+    unit = 2.0 ** (24 - levels)
+    bounds = torch.from_numpy(np.ldexp(unit, np.arange(levels - 1))).to(x.device)
+    a = x.double().abs()
+    a = torch.where(torch.isnan(a), 0.0, a)
+    level = torch.searchsorted(bounds, a, right=True)
+    lo = torch.where(level == 0, 0.0, bounds[torch.clamp(level - 1, min=0)])
+    width = torch.where(level == 0, unit, lo)
+    j = torch.clamp(torch.floor((a - lo) * capacity / width), 0, capacity - 1).long()
+    flat = level * capacity + j
+    return torch.where(x < 0, flat + levels * capacity, flat)
+
+
+def ordered64(counts: np.ndarray, side: int) -> np.ndarray:
+    """Flat sketch counts (both signs) in ascending value order."""
+    return np.concatenate([counts[..., side:2 * side][..., ::-1], counts[..., :side]], axis=-1)
+
+
+def sketch_reps32(levels: int = 44, capacity: int = 64) -> np.ndarray:
+    """Each bucket's midpoint in ascending value order (float32), from the documented geometry."""
+    unit = 2.0 ** (24 - levels)
+    flat = np.arange(levels * capacity)
+    level, j = flat // capacity, flat % capacity
+    lo = np.where(level == 0, 0.0, np.ldexp(unit, np.maximum(level - 1, 0)))
+    width = np.where(level == 0, unit, lo)
+    reps = (lo + (j + 0.5) * width / capacity).astype(np.float32)
+    return np.concatenate([-reps[::-1], reps])
+
+
+def quantile_oracle(ordered: np.ndarray, total32: np.float32, lo: float, hi: float, qs, reps: np.ndarray) -> np.ndarray:
+    """The sketch's estimates from exact ordered counts: the first bucket whose cumulative count reaches
+    ``q * total`` (float32, as the sketch takes it), its midpoint clamped into [min, max]."""
+    rank = (np.float32(qs) * np.float32(total32)).astype(np.float64)
+    idx = np.clip(np.searchsorted(np.cumsum(ordered).astype(np.float64), rank, side="left"), 0, len(reps) - 1)
+    return np.minimum(np.maximum(reps[idx], np.float32(lo)), np.float32(hi))
+
+
+def drift_oracle(ref_ordered: np.ndarray, live_ordered: np.ndarray, bins: int = 10, eps: float = 1e-6) -> dict:
+    """PSI, KL and KS (float64) of exact live counts against exact reference counts, with the drift monitors'
+    documented score bins (equal reference mass, the midpoint-CDF rule over float32 masses)."""
+    ref_pmf = (ref_ordered.astype(np.float32) / np.float32(ref_ordered.sum())).astype(np.float32)
+    mid = np.cumsum(ref_pmf, dtype=np.float64) - 0.5 * ref_pmf
+    assign = np.clip((mid * bins).astype(np.int32), 0, bins - 1)
+    q = np.clip(np.bincount(assign, weights=ref_pmf, minlength=bins).astype(np.float32).astype(np.float64), eps, 1.0)
+    total = max(float(live_ordered.sum()), 1.0)
+    p = np.clip(np.bincount(assign, weights=live_ordered.astype(np.float64), minlength=bins) / total, eps, 1.0)
+    ks = np.abs(np.cumsum(live_ordered) / total - np.cumsum(ref_pmf, dtype=np.float64)).max()
+    if live_ordered.sum() == 0:
+        return {"psi": 0.0, "kl": 0.0, "ks": 0.0}
+    return {"psi": float(((p - q) * np.log(p / q)).sum()), "kl": float((p * np.log(p / q)).sum()), "ks": float(ks)}
+
+
+def latch_oracle(scores, threshold: float, hysteresis: float) -> tuple:
+    """The refreshes (0-based) at which a hysteresis latch fires on ``scores``, and those whose score lies
+    within CRITEO_DRIFT_ATOL of a latch bound (where the port and the oracle may fairly differ)."""
+    fired, close, active = [], [], False
+    for i, s in enumerate(scores):
+        if min(abs(s - threshold), abs(s - (threshold - hysteresis))) <= CRITEO_DRIFT_ATOL:
+            close.append(i)
+        if s >= threshold and not active:
+            active = True
+            fired.append(i)
+        elif active and s < threshold - hysteresis:
+            active = False
+    return fired, close
+
+
+def criteo_phase(torch, bc, device: str = "cuda") -> dict:
+    """The Criteo CTR monitoring stream (see the module note): the score and latency collections fused, the 13
+    feature monitors unfused, ``compute()`` every 10 updates under ``stream_scope``, against exact oracles,
+    the CPU path, the alerts in a ledger capture and the Prometheus text, then the fused phases. With
+    ``device="cpu"`` (a rehearsal at a smaller size, with the module's sizes patched) the card-only parts, host
+    syncs, the profile and the fused phases, are left out."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch import monitoring as mon
+    from tpumetrics_torch import telemetry
+    from tpumetrics_torch.interop import export_state
+    from tpumetrics_torch.ops import biquad as bq
+
+    label = f"Criteo CTR monitoring {CRITEO_ROWS} rows in {CRITEO_UPDATES} updates of {CRITEO_BATCH}"
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    check(CRITEO_WINDOW // CRITEO_SLOTS == CRITEO_REFRESH, f"{label}: the oracles read the windows pane by pane")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    data = criteo_data(torch, device)
+    sync()
+    t_gen = time.perf_counter() - t_phase
+    feats = data["features"]
+    feat_refs = feats[: -(-CRITEO_REF_ROWS // CRITEO_BATCH)].transpose(0, 1).reshape(13, -1)[:, :CRITEO_REF_ROWS]
+    host = {k: data[k].cpu().numpy() for k in ("scores", "latency", "features", "valid")}
+
+    # the CPU path, in worker processes beside the stream, fed the card's data batch by batch through
+    # pipes by a thread of this process (joined below; a worker that dies breaks its pipe and is reported)
+    ctx = multiprocessing.get_context("spawn")
+    outbox = ctx.Queue()
+    pipes, workers = [], []
+    spec = {"updates": CRITEO_UPDATES, "checkpoints": CRITEO_CHECKPOINTS, "budget_s": CRITEO_CPU_BUDGET_S,
+            "window": CRITEO_WINDOW, "slots": CRITEO_SLOTS}
+    for part in CRITEO_CPU_PARTS:
+        inbox, pipe = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=criteo_cpu_worker, args=(part, spec, inbox, outbox, 1), daemon=True)
+        proc.start()
+        inbox.close()  # the worker's end
+        pipes.append(pipe)
+        workers.append(proc)
+    refs = {part: data["reference"].cpu().numpy() if part == "collections" else [feat_refs[j].cpu().numpy() for j in part]
+            for part in CRITEO_CPU_PARTS}
+
+    def feed():
+        try:
+            for part, pipe in zip(CRITEO_CPU_PARTS, pipes):
+                pipe.send(("refs", refs[part]))
+            for start in range(0, CRITEO_UPDATES, 25):
+                for part, pipe in zip(CRITEO_CPU_PARTS, pipes):
+                    chunk = []
+                    for b in range(start, min(start + 25, CRITEO_UPDATES)):
+                        cols = {"valid": host["valid"][b]}
+                        if part == "collections":
+                            cols.update(scores=host["scores"][b], latency=host["latency"][b])
+                        else:
+                            cols["features"] = host["features"][b][list(part)]
+                        chunk.append(cols)
+                    pipe.send(("batches", chunk))
+            for pipe in pipes:
+                pipe.send(("end",))
+        except OSError:  # a worker died: its exit code is read while waiting for the results
+            pass
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+
+    members = criteo_members(device, data["reference"])
+    cols = {k: MetricCollection(m, fused_update=True, device=device) for k, m in members.items()}
+    monitors = [criteo_feature_monitor(j, feat_refs[j], device) for j in range(13)]
+    refresh_values, rows, events_at, snaps, compute_ms = [], [], [], {}, []
+    bc.launches, bq.launches = 0, 0
+    sync()
+    t_stream = time.perf_counter()
+    with telemetry.capture() as led, mon.stream_scope(CRITEO_STREAM):
+        for b in range(CRITEO_UPDATES):
+            valid = data["valid"][b]
+            cols["score"].update(data["scores"][b], valid)
+            cols["latency"].update(data["latency"][b], valid)
+            for j, m in enumerate(monitors):
+                m.update(feats[b, j], valid)
+            if (b + 1) % CRITEO_REFRESH == 0:
+                n_events = len(led.records)
+                t1 = time.perf_counter()
+                values = {f"score_{k}": v for k, v in cols["score"].compute().items()}
+                values.update({f"latency_{k}": v for k, v in cols["latency"].compute().items()})
+                values.update({m.monitor_name: m.compute() for m in monitors})
+                sync()
+                compute_ms.append((time.perf_counter() - t1) * 1e3)
+                refresh_values.append({k: v.double().cpu().numpy() for k, v in values.items()})
+                rows.append({
+                    "score": cols["score"]["quantiles"].merged_row().clone(),
+                    "score_all": cols["score"]["quantiles_all"].merged_row().clone(),
+                    "latency": cols["latency"]["quantiles"].merged_row().clone(),
+                    **{m.monitor_name: m.merged_row().clone() for m in monitors},
+                })
+                events_at.append([(r.extra["monitor"], r.extra["stream"]) for r in led.records[n_events:]
+                                  if r.kind == "drift_alert"])
+            if b + 1 in CRITEO_CHECKPOINTS:
+                snaps[b + 1] = flat_states({**{k: export_state(c) for k, c in cols.items()},
+                                            **{m.monitor_name: export_state(m) for m in monitors}}, copy=True)
+    sync()
+    stream_s = time.perf_counter() - t_stream
+    check(bc.launches == 0 and bq.launches == 0, f"{label}: kernel launches {bc.launches}, {bq.launches}")
+    steps = {k: dict(c._fused_oo_step.counts) for k, c in cols.items()}
+    check(all(s["replayed"] == CRITEO_UPDATES - 3 for s in steps.values()), f"{label}: fused updates by mode {steps}")
+    groups = [list(g) for g in cols["score"].compute_groups.values()]
+    check(["kl", "ks", "psi", "quantiles"] in [sorted(g) for g in groups], f"{label}: compute groups {groups}")
+
+    # the alerts: ledger events, Prometheus series, release
+    summary = led.summary()
+    text = telemetry.prometheus_text()
+    names = ["score_psi", "score_kl", "score_ks"] + [m.monitor_name for m in monitors]
+    for name in names:
+        check(f'tpumetrics_drift_score{{stream="{CRITEO_STREAM}",monitor="{name}"}}' in text,
+              f"{label}: no gauge series for {name} in prometheus_text()")
+    alerted = sorted({m for at in events_at for m, _ in at})
+    for name in alerted:
+        check(f'tpumetrics_drift_alerts_total{{stream="{CRITEO_STREAM}",monitor="{name}"}} 1' in text,
+              f"{label}: alert counter of {name} not 1 in prometheus_text()")
+    check(all(s == CRITEO_STREAM for at in events_at for _, s in at), f"{label}: an alert outside the stream's scope")
+    mon.release_stream(cols["score"], CRITEO_STREAM)
+    for m in monitors:
+        mon.release_stream(m, CRITEO_STREAM)
+    check(f'stream="{CRITEO_STREAM}"' not in telemetry.prometheus_text(), f"{label}: series left after release_stream")
+
+    # the exact oracles, on the card in float64 / int64 from the same data
+    t_oracle = time.perf_counter()
+    layout = members["score"]["quantiles"]._sketch_layout
+    side, reps = layout.side, sketch_reps32()
+    for name, x in (("scores", data["scores"][0]), ("latency", data["latency"][0]), ("I4", feats[0, 3]),
+                    ("I5", feats[0, 4]), ("edges", torch.from_numpy(np.concatenate([np.arange(70_000), -np.ldexp(
+                        1.0, np.arange(-22, 26)), np.ldexp(1.0, np.arange(-22, 26)), [np.inf, -0.0, np.nan]]).astype(
+                        np.float32)).to(device))):
+        want = sketch_index_oracle(x.cpu().numpy())
+        check(np.array_equal(sketch_index_oracle_torch(torch, x).cpu().numpy(), want),
+              f"{label}: the card's float64 oracle index differs from numpy's on {name}")
+        check(np.array_equal(layout.bucket_index(x).cpu().numpy(), want),
+              f"{label}: the port's bucket index on the card differs from the numpy oracle on {name}")
+    columns = {"score": data["scores"], "latency": data["latency"], **{f"I{j + 1}": feats[:, j] for j in range(13)}}
+    panes = CRITEO_UPDATES // CRITEO_REFRESH
+    pane_counts = {k: [] for k in columns}
+    pane_stats = {k: [] for k in ("score", "latency")}
+    batch_total32 = []
+    for p in range(panes):
+        sl = slice(p * CRITEO_REFRESH, (p + 1) * CRITEO_REFRESH)
+        live = data["valid"][sl] > 0
+        for k, x in columns.items():
+            keep = live & ~torch.isnan(x[sl])
+            idx = sketch_index_oracle_torch(torch, x[sl][keep])
+            pane_counts[k].append(torch.bincount(idx, minlength=2 * side).cpu().numpy())
+            if k in pane_stats:
+                v = x[sl].double()
+                pane_stats[k].append((
+                    (v * keep).sum(dim=1).cpu().numpy(), keep.sum(dim=1).cpu().numpy(),
+                    torch.where(keep, v, -math.inf).amax(dim=1).cpu().numpy(),
+                    torch.where(keep, v, math.inf).amin(dim=1).cpu().numpy()))
+        batch_total32.extend(live.sum(dim=1).cpu().numpy().tolist())
+    cum = {k: np.cumsum(np.stack(v), axis=0) for k, v in pane_counts.items()}
+
+    def window(k, r):  # exact counts of the window at refresh r (1-based), ordered
+        lo = max(0, r - CRITEO_SLOTS)
+        return ordered64(cum[k][r - 1] - (cum[k][lo - 1] if lo else 0), side)
+
+    ref_counts = {"score": ordered64(np.bincount(sketch_index_oracle_torch(torch, data["reference"]).cpu().numpy(),
+                                                 minlength=2 * side), side)}
+    for j in range(13):
+        r = feat_refs[j][~torch.isnan(feat_refs[j])]
+        ref_counts[f"I{j + 1}"] = ordered64(np.bincount(sketch_index_oracle_torch(torch, r).cpu().numpy(),
+                                                        minlength=2 * side), side)
+    worst = {"drift": 0.0, "window_sum": 0.0, "decayed": 0.0, "quantile_rel": 0.0, "quantile_all_rel": 0.0}
+    oracle_scores = {k: [] for k in names}
+    all_scores = data["scores"][:, :]
+    total32 = np.float32(0.0)
+    decayed_sum, decayed_weight, alpha = 0.0, 0.0, 2.0 ** (-1.0 / 50)
+    stats = {k: [np.concatenate(x) for x in zip(*v)] for k, v in pane_stats.items()}  # per batch: sum, n, max, min
+    for r in range(1, panes + 1):
+        got = refresh_values[r - 1]
+        row = {k: v.cpu().numpy() for k, v in rows[r - 1].items()}
+        for b in range((r - 1) * CRITEO_REFRESH, r * CRITEO_REFRESH):
+            total32 = np.float32(total32 + np.float32(batch_total32[b]))
+            decayed_sum = decayed_sum * alpha + stats["score"][0][b]
+            decayed_weight = decayed_weight * alpha + stats["score"][1][b]
+        first = max(0, r - CRITEO_SLOTS) * CRITEO_REFRESH
+        for k, key in (("score", "score"), ("latency", "latency"), *((f"I{j + 1}", f"I{j + 1}") for j in range(13))):
+            want = window(k, r)
+            have = ordered64(row[key][: 2 * side].astype(np.int64), side)
+            check(np.array_equal(have, want) and row[key][2 * side] == want.sum(),
+                  f"{label}: refresh {r}: the {k} window's sketch differs from the oracle's counts")
+        all_want = ordered64(cum["score"][r - 1], side)
+        check(np.array_equal(ordered64(row["score_all"][: 2 * side].astype(np.int64), side), all_want)
+              and row["score_all"][2 * side] == total32,
+              f"{label}: refresh {r}: the cumulative sketch differs from the oracle's counts (total {row['score_all'][2 * side]}"
+              f" vs {total32})")
+        for k, qs, key in (("score", CRITEO_SCORE_QS, "score_quantiles"), ("latency", CRITEO_LATENCY_QS, "latency_quantiles")):
+            s, n, hi, lo = (v[first: r * CRITEO_REFRESH] for v in stats[k])
+            est = quantile_oracle(window(k, r), np.float32(n.sum()), lo.min(), hi.max(), qs, reps)
+            check(np.array_equal(got[key].astype(np.float32), est), f"{label}: refresh {r}: {key} {got[key]} vs the oracle sketch's {est}")
+            vals = columns[k][first: r * CRITEO_REFRESH][data["valid"][first: r * CRITEO_REFRESH] > 0]
+            srt = torch.sort(vals).values.double().cpu().numpy()
+            exact = srt[np.maximum(np.ceil(np.array(qs) * srt.size).astype(np.int64) - 1, 0)]
+            rel = float(np.max(np.abs(got[key] - exact) / np.abs(exact)))
+            worst["quantile_rel"] = max(worst["quantile_rel"], rel)
+            check(rel <= 1 / layout.capacity, f"{label}: refresh {r}: {key} {got[key]} vs exact {exact}: rel {rel}")
+            wsum, wn = s.sum(), n.sum()
+            for member, want in (("mean", wsum / wn), ("sum", wsum), ("max", hi.max()), ("min", lo.min())):
+                name = f"{k}_{member}"
+                if name in got:
+                    if member in ("max", "min"):
+                        check(float(got[name]) == float(np.float32(want)), f"{label}: refresh {r}: {name} {got[name]} vs {want}")
+                    else:
+                        err = abs(float(got[name]) - want) / abs(want)
+                        worst["window_sum"] = max(worst["window_sum"], err)
+                        check(err <= CRITEO_SCORE_RTOL, f"{label}: refresh {r}: {name} {got[name]} vs {want} (rel {err:.2e})")
+        est = quantile_oracle(all_want, total32, stats["score"][3][: r * CRITEO_REFRESH].min(),
+                              stats["score"][2][: r * CRITEO_REFRESH].max(), CRITEO_ALL_QS, reps)
+        check(np.array_equal(got["score_quantiles_all"].astype(np.float32), est),
+              f"{label}: refresh {r}: quantiles_all {got['score_quantiles_all']} vs the oracle sketch's {est}")
+        if r % 10 == 0:  # the exact quantiles of everything so far
+            srt = torch.sort(all_scores[: r * CRITEO_REFRESH][data["valid"][: r * CRITEO_REFRESH] > 0]).values.double().cpu().numpy()
+            exact = srt[np.maximum(np.ceil(np.array(CRITEO_ALL_QS) * srt.size).astype(np.int64) - 1, 0)]
+            rel = float(np.max(np.abs(got["score_quantiles_all"] - exact) / exact))
+            worst["quantile_all_rel"] = max(worst["quantile_all_rel"], rel)
+            check(rel <= 1 / layout.capacity, f"{label}: refresh {r}: quantiles_all vs exact {exact}: rel {rel}")
+        err = abs(float(got["score_decayed"]) - decayed_sum / decayed_weight) / (decayed_sum / decayed_weight)
+        worst["decayed"] = max(worst["decayed"], err)
+        check(err <= CRITEO_DECAYED_RTOL, f"{label}: refresh {r}: decayed mean rel err {err:.2e}")
+        drift = drift_oracle(ref_counts["score"], window("score", r))
+        for k in ("psi", "kl", "ks"):
+            oracle_scores[f"score_{k}"].append(drift[k])
+            e = abs(float(got[f"score_{k}"]) - drift[k])
+            worst["drift"] = max(worst["drift"], e)
+            check(e <= CRITEO_DRIFT_ATOL, f"{label}: refresh {r}: score_{k} {got[f'score_{k}']} vs oracle {drift[k]}")
+        for j in range(13):
+            name = f"I{j + 1}"
+            want = drift_oracle(ref_counts[name], window(name, r))["psi"]
+            oracle_scores[name].append(want)
+            e = abs(float(got[name]) - want)
+            worst["drift"] = max(worst["drift"], e)
+            check(e <= CRITEO_DRIFT_ATOL, f"{label}: refresh {r}: {name} PSI {got[name]} vs oracle {want}")
+    alerts = {}
+    for name in names:
+        fired = [i for i, at in enumerate(events_at) for m, _ in at if m == name]
+        want, close = latch_oracle(oracle_scores[name], CRITEO_THRESHOLD, CRITEO_HYSTERESIS)
+        alerts[name] = {"refreshes": [(i + 1) * CRITEO_REFRESH for i in fired], "oracle": [(i + 1) * CRITEO_REFRESH for i in want],
+                        "close": close}
+        check(fired == want or set(fired) ^ set(want) <= set(close),
+              f"{label}: {name} alerted at updates {alerts[name]['refreshes']}, the oracle predicts {alerts[name]['oracle']}")
+    check(summary["drift_alerts"] == sum(len(a["refreshes"]) for a in alerts.values()),
+          f"{label}: {summary['drift_alerts']} drift_alert events in the capture")
+    for name in ("score_psi", "score_kl", "score_ks", f"I{CRITEO_DRIFTED + 1}"):
+        check(len(alerts[name]["refreshes"]) == 1, f"{label}: {name} alerts {alerts[name]}: expected one crossing")
+    t_oracle = time.perf_counter() - t_oracle
+
+    # the CPU path: states at the checkpoints it reached
+    t_wait = time.perf_counter()
+    results = []
+    while len(results) < len(workers):
+        try:
+            results.append(outbox.get(timeout=5))
+        except queue.Empty:
+            dead = [p.exitcode for p in workers if not p.is_alive() and p.exitcode]
+            check(not dead and time.perf_counter() - t_wait < 300, f"{label}: CPU path workers failed {dead}")
+    feeder.join(30)
+    for pipe in pipes:
+        pipe.close()
+    for proc in workers:
+        proc.join(30)
+    t_wait = time.perf_counter() - t_wait
+    cpu_updates = min(res["updates"] for res in results)
+    reduced = "none" if cpu_updates == CRITEO_UPDATES else (
+        f"the CPU path ran the first {cpu_updates} of {CRITEO_UPDATES} updates (day 1 to past the shift)")
+    check(cpu_updates >= CRITEO_CHECKPOINTS[0], f"{label}: the CPU path ran {cpu_updates} updates")
+    state_worst = 0.0
+    for at in CRITEO_CHECKPOINTS:
+        if at > cpu_updates:
+            continue
+        cpu_states = {k: v for res in results for k, v in res["states"][at].items()}
+        for name, v in snaps[at].items():
+            w = cpu_states[name]
+            if v.dtype.kind != "f" or name.endswith(("sketch", "slot_max", "slot_min")):
+                check(np.array_equal(v, w), f"{label}: update {at}: {name} on the card differs from the CPU's")
+            else:
+                err = float(np.max(np.abs(v - w.astype(np.float64)) / np.maximum(np.abs(w), 1e-30)))
+                state_worst = max(state_worst, err)
+                check(err <= STATE_RTOL, f"{label}: update {at}: {name} card vs CPU rel {err:.2e}")
+    cpu_s = max(res["seconds"] for res in results)
+
+    # host syncs of steady updates: every member of both collections and every feature monitor, unfused
+    syncs = {}
+    if on_card:
+        fresh = criteo_members(device, data["reference"])
+        syncs = {f"score.{n}": steady_host_syncs(torch, m, (data["scores"][5], data["valid"][5]))
+                 for n, m in fresh["score"].items()}
+        syncs.update({f"latency.{n}": steady_host_syncs(torch, m, (data["latency"][5], data["valid"][5]))
+                      for n, m in fresh["latency"].items()})
+        syncs.update({m.monitor_name: steady_host_syncs(torch, m, (feats[5, j], data["valid"][5]))
+                      for j, m in enumerate(monitors)})
+    check(not any(syncs.values()), f"{label}: host syncs in a steady update {syncs}")
+    print(
+        f"criteo phase: {label} (the last {CRITEO_LAST} rows, padded and masked); data made on the card from the seed in"
+        f" {t_gen:.2f} s; stream {stream_s:.2f} s ({1e3 * stream_s / CRITEO_UPDATES:.3f} ms an update: two fused"
+        f" collections and 13 unfused feature monitors), fused updates by mode {steps}; compute() of everything"
+        f" every {CRITEO_REFRESH} updates under stream_scope({CRITEO_STREAM!r}): median {np.median(compute_ms):.3f} ms"
+        f" (first {compute_ms[0]:.1f} ms); sketches at all {panes} refreshes bit for bit the exact oracle's counts"
+        f" (windows, the cumulative one with its float32 total {float(total32):.0f} of {CRITEO_ROWS} rows), quantiles"
+        f" equal to the oracle sketch's and within {worst['quantile_rel']:.5f} (windows) and"
+        f" {worst['quantile_all_rel']:.5f} (all rows) of the exact ones (bound {1 / layout.capacity}), windowed sums"
+        f" within {worst['window_sum']:.2e}, decayed mean {worst['decayed']:.2e}, drift scores {worst['drift']:.2e} of"
+        f" float64 (oracles {t_oracle:.1f} s); alerts (update: oracle) "
+        + ", ".join(f"{k} {v['refreshes']}: {v['oracle']}" for k, v in alerts.items() if v["refreshes"] or v["oracle"])
+        + f"; {summary['drift_alerts']} drift_alert ledger events, Prometheus series under stream={CRITEO_STREAM!r}"
+        f" present and gone after release_stream; CPU path ({len(workers)} worker processes, {cpu_s:.1f} s, waited"
+        f" {t_wait:.1f} s): reduced: {reduced}; card vs CPU at {[a for a in CRITEO_CHECKPOINTS if a <= cpu_updates]}:"
+        f" sketches, counts and extrema identical, float sums within {state_worst:.2e}; host syncs in a steady"
+        f" update {sum(syncs.values())} over {len(syncs)} members",
+        flush=True,
+    )
+    out = {"launches": 0, "stream_s": stream_s, "compute_ms": compute_ms, "alerts": alerts, "worst": worst,
+           "state_worst": state_worst, "cpu_updates": cpu_updates, "cpu_s": cpu_s, "reduced": reduced,
+           "host_syncs": syncs}
+    if not on_card:
+        return out
+    score_batches = [(data["scores"][b], data["valid"][b]) for b in (0, 1, 2)]
+    latency_batches = [(data["latency"][b], data["valid"][b]) for b in (0, 1, 2)]
+    prof = {"score": profile_step(torch, cols["score"], score_batches[1], f"{label} score collection"),
+            "latency": profile_step(torch, cols["latency"], latency_batches[1], f"{label} latency collection")}
+    del cols, monitors
+    ref = data["reference"]
+    fused = {
+        "score": fused_pair(torch, f"{label} score collection", lambda f: MetricCollection(
+            criteo_members("cuda", ref)["score"], fused_update=f, device="cuda"), score_batches),
+        "latency": fused_pair(torch, f"{label} latency collection", lambda f: MetricCollection(
+            criteo_members("cuda", ref)["latency"], fused_update=f, device="cuda"), latency_batches),
+    }
+    for kind, f in fused.items():
+        check(f["modes"]["replayed"] >= 1 and f["guarded_replay"] and not f["eager_leaders"],
+              f"{label} {kind}: fused phase {f['modes']}, eager leaders {f['eager_leaders']}")
+    del data, feats, feat_refs
+    torch.cuda.empty_cache()
+    print(f"criteo phase: {time.perf_counter() - t_phase:.1f} s in all", flush=True)
+    return {**out, "profile": prof, "fused": fused["score"], "fused_all": fused, "phase_s": time.perf_counter() - t_phase}
+
+
 def sync_phase(torch, bc, smi: str) -> dict:
     """The ImageNet-size collection synced over NCCL at world size 1 (see the module note)."""
     import tempfile
@@ -4261,7 +4859,7 @@ def sync_phase(torch, bc, smi: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpumetrics_torch import CatMetric, MeanMetric, MetricCollection
+    from tpumetrics_torch import CatMetric, MeanMetric, MetricCollection, telemetry
     from tpumetrics_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
     from tpumetrics_torch.parallel import (
         NoOpBackend,
@@ -4367,8 +4965,23 @@ def sync_phase(torch, bc, smi: str) -> dict:
             own = {k: m._copy_state_dict() for k, m in col.items(keep_base=True, copy_state=False)}
 
             forced.reset()
-            synced = col.compute()
+            with telemetry.capture() as led:
+                synced = col.compute()
             torch.cuda.synchronize()
+            # the ledger of that compute() against what the backend counted: every wire call one record
+            # ("backend" source), the bytes it sent, the ring model's wire bytes (0 at world 1), the members' tags
+            ledger = led.summary()
+            wire_records = [r for r in led.records if r.source == "backend"]
+            check(ledger["collectives_issued"] == forced.wire == len(wire_records)
+                  and ledger["payload_bytes_total"] == forced.wire_bytes
+                  and ledger["wire_bytes_total"] == sum(telemetry.reduce_wire_bytes(r.payload_bytes, 1) if r.kind == "all_reduce"
+                                                        else telemetry.gather_wire_bytes(r.payload_bytes, 1) for r in wire_records),
+                  f"{label}: ledger {ledger} vs the backend's {forced.wire} wire ops, {forced.wire_bytes} bytes")
+            ledger["backend_wire"], ledger["backend_bytes"] = forced.wire, forced.wire_bytes
+            tags = sorted({r.tag for r in led.records if r.source in ("backend", "reducer")})
+            member_tags = ["acc/MulticlassAccuracy", "auroc/MulticlassAUROC", "cat/CatMetric", "mean/MeanMetric"]
+            check(all(any(t in tag.split("+") for tag in tags) for t in member_tags) and ledger["flush_count"] == 1,
+                  f"{label}: ledger tags {tags}, flushes {ledger['flush_count']}")
             by_class = {}
             for op, dt, numel in forced.reduces:
                 by_class[f"{op}:{dt}"] = by_class.get(f"{op}:{dt}", 0) + numel
@@ -4456,7 +5069,10 @@ def sync_phase(torch, bc, smi: str) -> dict:
         f" {launches}; binned AUROC update free of host syncs; values and synced states equal to the unsynced ones"
         f" bit for bit, states back to their own tensors after compute(); collectives per compute(): all_reduce"
         f" by class (elements) {by_class}, {n_gathers} list-state gathers, {wire} NCCL ops"
-        f" ({len(classes)} + 2 x {n_gathers}), {wire_bytes} bytes sent by this rank; profiler: {len(nccl_ops)}"
+        f" ({len(classes)} + 2 x {n_gathers}), {wire_bytes} bytes sent by this rank; the ledger of one compute():"
+        f" {ledger['collectives_issued']} collectives and {ledger['payload_bytes_total']} payload bytes (the backend"
+        f" counted {ledger['backend_wire']} and {ledger['backend_bytes']}), {ledger['wire_bytes_total']} wire bytes"
+        f" (ring model, world 1), tags {tags}; profiler: {len(nccl_ops)}"
         f" NCCL ops {sorted(set(nccl_ops))}, {len(nccl_kernels)} NCCL device kernels; compute() median"
         f" {np.median(synced_ms):.3f} ms synced vs {np.median(local_ms):.3f} ms unsynced (host clock, 7 each),"
         f" the sync {sync_ms:.3f} ms; card {smi}",
@@ -4465,6 +5081,8 @@ def sync_phase(torch, bc, smi: str) -> dict:
     return {
         "launches": launches, "sync_ms": sync_ms, "compute_ms": synced_ms, "local_compute_ms": local_ms,
         "wire": wire, "wire_bytes": wire_bytes, "by_class": by_class, "gathers": n_gathers, "fused": fused,
+        "ledger": {k: ledger[k] for k in ("collectives_issued", "payload_bytes_total", "wire_bytes_total", "flush_count",
+                                          "backend_wire", "backend_bytes")},
     }
 
 
@@ -4602,6 +5220,7 @@ def main() -> None:
         "srmr": srmr_phase(torch, bc),
         "restoration": restoration_phase(torch, bc),
         "pansharpening": pansharpening_phase(torch, bc),
+        "criteo": criteo_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
     pairwise = pairwise_phase(torch, bc)
@@ -4716,6 +5335,14 @@ def main() -> None:
                           for kind, f in paths[path]["fused_all"].items()},
             }
             for path in ("restoration", "pansharpening")
+        },
+        "monitoring": {
+            **{k: paths["criteo"][k] for k in (
+                "stream_s", "compute_ms", "alerts", "worst", "state_worst", "cpu_updates", "cpu_s", "reduced", "host_syncs",
+                "profile", "phase_s")},
+            "fused": {kind: {k: f[k] for k in ("modes", "plain_ms", "fused_ms", "profile", "capture_s", "eager_leaders")}
+                      for kind, f in paths["criteo"]["fused_all"].items()},
+            "sync_ledger": paths["sync"]["ledger"],
         },
     }
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -19,7 +19,12 @@ under capture; and the image slice: SSIM, UQI and VIF under torch's
 default TF32 settings against float64 oracles (the library's own float32
 guard), 3-D SSIM through ``conv3d``, and restoration and pan-sharpening
 collections replayed in graphs bit for bit with no host sync (the float64
-oracles and the texture generator come from ``chip_smoke.py``).
+oracles and the texture generator come from ``chip_smoke.py``); and the
+monitoring slice: the sketch's bucket index on the card against the float64
+numpy oracle (``chip_smoke.sketch_index_oracle``) and a windowed sketch at
+the Criteo stream's batch shape bit for bit the CPU's, and every monitoring
+member in a fused collection replayed bit for bit its unfused twin with no
+host sync.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -1498,3 +1503,85 @@ def test_restoration_collection_replays_bit_for_bit_without_host_syncs(cuda):
             assert sorted(step.leaders) == ["cap_sam", "rmse_sw", "sam"]
         for k, v in cols[False].compute().items():
             assert torch.equal(cols[True].compute()[k], v)
+
+
+def _criteo_like_batch(seed, n=65_536, ragged=None):
+    """One monitoring batch at the Criteo stream's shape: scores in (0, 1),
+    integer counts with NaNs (bucket edges everywhere), and a valid mask
+    (a ragged batch's padding masked out)."""
+    rng = np.random.default_rng(seed)
+    scores = (1 / (1 + np.exp(-rng.normal(-1.2, 0.6, n)))).astype(np.float32)
+    counts = np.floor(rng.lognormal(1.0, 1.5, n)).astype(np.float32)
+    counts[rng.random(n) < 0.2] = np.nan
+    valid = np.ones(n, dtype=bool)
+    if ragged is not None:
+        valid[ragged:] = False
+    return scores, counts, valid
+
+
+def _monitoring_members(device, reference):
+    import tpumetrics_torch.monitoring as mon
+
+    return {
+        "q": mon.SketchQuantiles((0.5, 0.99), window=4, slots=2, device=device),
+        "cum": mon.SketchQuantiles((0.5,), device=device),
+        "psi": mon.PSI(reference, window=4, slots=2, threshold=0.1, device=device),
+        "ks": mon.KSDistance(reference, window=4, slots=2, threshold=0.1, device=device),
+        "mean": mon.WindowedMean(4, slots=2, device=device),
+        "sum": mon.WindowedSum(4, slots=2, device=device),
+        "max": mon.WindowedMax(4, slots=2, device=device),
+        "min": mon.WindowedMin(4, slots=2, device=device),
+        "decayed": mon.DecayedMean(half_life=2.0, device=device),
+    }
+
+
+def test_sketch_ingest_on_the_card_is_bit_for_bit_the_cpu_and_the_oracle(cuda):
+    """The bucket index on the card equals the float64 numpy oracle (level edges, one ulp either side, the
+    integers 0..69,999, the specials, a batch of each column), and a windowed sketch fed the stream's batch
+    shape (65,536 rows, a ragged last batch) holds on the card the CPU's state bit for bit."""
+    import chip_smoke
+    import tpumetrics_torch.monitoring as mon
+
+    layout = mon.SketchLayout()
+    bounds = (layout.unit * 2.0 ** np.arange(-1, layout.levels + 1)).astype(np.float32)
+    edges = np.concatenate([bounds, np.nextafter(bounds, np.float32(np.inf)), np.nextafter(bounds, np.float32(0)),
+                            np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38])])
+    scores, counts, _ = _criteo_like_batch(70)
+    for values in (np.concatenate([edges, -edges]), np.arange(70_000, dtype=np.float32), scores, counts):
+        got = layout.bucket_index(torch.from_numpy(values).to(cuda)).cpu().numpy()
+        np.testing.assert_array_equal(got, chip_smoke.sketch_index_oracle(values))
+    card = mon.SketchQuantiles((0.5, 0.9, 0.999), window=4, slots=2, device=cuda)
+    cpu = mon.SketchQuantiles((0.5, 0.9, 0.999), window=4, slots=2, device="cpu")
+    for i in range(6):
+        _, x, valid = _criteo_like_batch(71 + i, ragged=30_953 if i == 5 else None)
+        card.update(torch.from_numpy(x).to(cuda), torch.from_numpy(valid).to(cuda))
+        cpu.update(torch.from_numpy(x), torch.from_numpy(valid))
+        assert torch.equal(card.sketch.cpu(), cpu.sketch) and int(card.count) == int(cpu.count)
+    assert torch.equal(card.compute().cpu(), cpu.compute())
+
+
+def test_monitoring_collection_replays_bit_for_bit_without_host_syncs(cuda):
+    """Every monitoring member in one fused collection: a steady unfused update and the replays raise nothing
+    with host syncs made errors, and the fused states stay bit for bit the unfused ones'; the drift scores and
+    quantiles equal."""
+    scores, counts, _ = _criteo_like_batch(80)
+    reference = torch.from_numpy(_criteo_like_batch(81)[0][:100_000])
+    cols = {f: MetricCollection(_monitoring_members(cuda, reference), fused_update=f, device=cuda) for f in (False, True)}
+    for i in range(7):
+        s, _, valid = _criteo_like_batch(82 + i, ragged=30_953 if i == 6 else None)
+        args = (torch.from_numpy(s).to(cuda), torch.from_numpy(valid).to(cuda).float())
+        for fused in (False, True):
+            if i >= (3 if fused else 1):  # steady: unfused after the groups formed, fused the replays
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                cols[fused].update(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        got, want = export_state(cols[True]), export_state(cols[False])
+        for leader, states in want.items():
+            for name, ref in states.items():
+                assert np.array_equal(got[leader][name], ref), (leader, name)
+    step = cols[True]._fused_oo_step
+    assert step.counts["replayed"] == 4 and sorted(step.leaders) == sorted(g[0] for g in cols[True].compute_groups.values())
+    for k, v in cols[False].compute().items():
+        assert torch.equal(cols[True].compute()[k], v), k

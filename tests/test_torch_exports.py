@@ -3,7 +3,10 @@
 Every ported package's ``__all__`` equals the JAX one (the top level and
 ``functional`` restricted to the ported domains; ``image`` and
 ``functional.image`` less the seven backbone metrics, which wait for the
-port of the backbones), no exported name is a
+port of the backbones; ``telemetry`` and its ported modules less the names
+of the parts still to port: lockstep, spans, SLOs, the admin server,
+federation, timelines, the flight recorder and Perfetto traces), no
+exported name is a
 module, the ``utilities`` alias serves the port's utils modules, and the
 task dispatchers of ``functional.classification`` are the functions.
 """
@@ -22,7 +25,7 @@ import tpumetrics_torch
 import tpumetrics_torch.functional.classification as fc
 import tpumetrics_torch.utils
 
-DOMAINS = ["audio", "classification", "clustering", "image", "nominal", "regression", "retrieval", "wrappers"]
+DOMAINS = ["audio", "classification", "clustering", "image", "monitoring", "nominal", "regression", "retrieval", "wrappers"]
 FUNCTIONAL_DOMAINS = [
     "audio", "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval"
 ]
@@ -36,6 +39,16 @@ WAITING_FOR_BACKBONES = {
     "PerceptualPathLength",
     "learned_perceptual_image_patch_similarity",
 }
+# the JAX telemetry names whose modules are not ported yet: lockstep, spans, SLOs, the admin server,
+# federation, timelines, the flight recorder and Perfetto traces
+WAITING_FOR_TELEMETRY = {
+    "AdminServer", "FlightRecorder", "LockstepViolation", "SloEngine", "SloRule", "configure",
+    "disable_flight_recorder", "enable_flight_recorder", "end_span", "federate", "flight_dump", "flight_recorder",
+    "local_snapshot", "lockstep_verification_enabled", "merge_snapshots", "normalize_schedule", "note_incident",
+    "perfetto_trace", "record_span", "schedule_fingerprint", "serve", "should_verify", "slo", "span", "spans",
+    "spans_jsonl", "start_admin_server", "start_span", "timeline", "verify_lockstep",
+}
+TELEMETRY = ["telemetry", "telemetry.instruments", "telemetry.ledger", "telemetry.sinks", "telemetry.export"]
 PACKAGES = [*DOMAINS, *(f"functional.{d}" for d in FUNCTIONAL_DOMAINS), "utils"]
 CORE = {"Metric", "CompositionalMetric", "MetricCollection", "MaskedBuffer", "__version__", "CatMetric", "MaxMetric",
         "MeanMetric", "MinMetric", "RunningMean", "RunningSum", "SumMetric"}
@@ -53,6 +66,21 @@ def _ported(names):
 def test_package_all_equals_the_jax_one(name):
     port, ref = _pair(name)
     assert sorted(port.__all__) == sorted(_ported(ref.__all__))
+
+
+@pytest.mark.parametrize("name", TELEMETRY)
+def test_telemetry_all_is_the_jax_one_less_the_waiting_names(name):
+    port, ref = _pair(name)
+    assert port.__all__ == [n for n in ref.__all__ if n not in WAITING_FOR_TELEMETRY]
+    for attr in port.__all__:
+        assert hasattr(port, attr), attr
+
+
+def test_the_names_waiting_for_telemetry_are_the_jax_ones_the_port_lacks():
+    jax_names = set().union(*(_pair(name)[1].__all__ for name in TELEMETRY))
+    port_names = set().union(*(_pair(name)[0].__all__ for name in TELEMETRY))
+    assert WAITING_FOR_TELEMETRY == jax_names - port_names
+    assert not any(hasattr(_pair("telemetry")[0], n) for n in WAITING_FOR_TELEMETRY)
 
 
 def test_the_names_waiting_for_the_backbones_are_the_jax_image_ones():

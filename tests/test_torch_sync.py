@@ -24,7 +24,6 @@ rank adds in another order than the JAX sum over the whole data, and one
 float32 step at 31 is already 1.9e-6.
 """
 
-import time
 import warnings
 
 import jax
@@ -74,36 +73,10 @@ JOIN_TIMEOUT_S = 120
 def gloo(tmp_path_factory):
     """Every rank's results, ``{world: [rank0, rank1, ...]}``: one launch per
     world, both started before either is joined."""
-    import pickle
-
-    import torch.multiprocessing as tmp
-
-    launched = {}
     try:
-        for world in WORLDS:
-            d = tmp_path_factory.mktemp(f"gloo{world}")
-            ctx = tmp.start_processes(
-                w.run_rank, args=(world, str(d / "rendezvous"), str(d)), nprocs=world, join=False, start_method="spawn"
-            )
-            launched[world] = (ctx, d)
-        deadline = time.monotonic() + JOIN_TIMEOUT_S
-        for world, (ctx, _) in launched.items():
-            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-                if time.monotonic() >= deadline:
-                    pytest.fail(f"the {world}-rank gloo world did not finish within {JOIN_TIMEOUT_S} s")
-    finally:
-        for ctx, _ in launched.values():
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join(5)
-    out = {}
-    for world, (_, d) in launched.items():
-        out[world] = []
-        for r in range(world):
-            with open(d / f"rank{r}.pkl", "rb") as fh:
-                out[world].append(pickle.load(fh))
-    return out
+        return w.run_worlds(WORLDS, tmp_path_factory.mktemp("gloo"), None, JOIN_TIMEOUT_S)
+    except TimeoutError as err:
+        pytest.fail(str(err))
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -461,6 +461,99 @@ def scenario_backend(rank: int, world: int) -> Dict[str, Any]:
     }
 
 
+# ------------------------------------------- the ledger and the monitoring metrics
+
+
+MON_UPDATES, MON_BATCH = 7, 96  # every rank ticks every update: each batch is split across the ranks
+MON_WINDOW, MON_SLOTS = 4, 2
+
+
+def monitoring_batches(seed: int = 23) -> List[tuple]:
+    """MON_UPDATES batches of (values, valid): log-normal values with some on
+    bucket edges (integers), NaNs and a masked-out tail."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(MON_UPDATES):
+        x = rng.lognormal(1.0, 1.0, MON_BATCH).astype(np.float32)
+        x[::5] = np.round(x[::5])
+        x[i] = np.nan
+        valid = np.ones(MON_BATCH, dtype=bool)
+        valid[-3:] = False
+        out.append((x, valid))
+    return out
+
+
+def rank_rows(world: int, rank: int, n: int = MON_BATCH) -> slice:
+    """Rank ``rank``'s rows of every batch: contiguous, the last rank the rest."""
+    per = n // world
+    return slice(rank * per, n if rank == world - 1 else (rank + 1) * per)
+
+
+def monitoring_members(device: str = "cpu") -> Dict[str, Any]:
+    from tpumetrics_torch import monitoring as mon
+
+    ref = monitoring_batches(seed=29)[0][0]
+    return {
+        "quantiles": mon.SketchQuantiles((0.1, 0.5, 0.9), window=MON_WINDOW, slots=MON_SLOTS, device=device),
+        "cumulative": mon.SketchQuantiles((0.5,), device=device),
+        "psi": mon.PSI(ref, window=MON_WINDOW, slots=MON_SLOTS, device=device),
+        "mean": mon.WindowedMean(MON_WINDOW, slots=MON_SLOTS, device=device),
+        "max": mon.WindowedMax(MON_WINDOW, device=device),
+        "min": mon.WindowedMin(MON_WINDOW, device=device),
+        "decayed": mon.DecayedMean(half_life=2.0, device=device),
+    }
+
+
+def scenario_ledger(rank: int, world: int) -> Dict[str, Any]:
+    """The main-path collection with a MeanMetric and a CatMetric, its
+    ``compute()`` synced inside a ledger capture, beside a backend that
+    counts what it sends."""
+    from tpumetrics_torch import CatMetric, MeanMetric, MetricCollection, telemetry
+    from tpumetrics_torch import classification as cls
+    from tpumetrics_torch.parallel import set_default_backend
+
+    batches = multiclass_batches()
+    values = batch_values(batches)
+    mine = shards(len(batches), world)[rank]
+    col = MetricCollection(
+        {
+            "acc": cls.MulticlassAccuracy(C, average="micro", validate_args=False, device="cpu"),
+            "auroc": cls.MulticlassAUROC(C, thresholds=T, validate_args=False, device="cpu"),
+            "mean": MeanMetric(device="cpu"),
+            "cat": CatMetric(device="cpu"),
+        },
+        device="cpu",
+    )
+    for (p, y), v in zip(batches[mine], values[mine]):
+        col.update(preds=torch.from_numpy(p), target=torch.from_numpy(y), value=torch.from_numpy(v))
+    counting = _counting_backend()
+    set_default_backend(counting)
+    try:
+        with telemetry.capture() as led:
+            col.compute()
+    finally:
+        set_default_backend(None)
+    return {"records": [r.to_dict() for r in led.records], "summary": led.summary(), "wire": counting.wire,
+            "reduces": counting.reduces, "gathers": counting.gathers}
+
+
+def scenario_monitoring(rank: int, world: int) -> Dict[str, Any]:
+    """The monitoring members in one collection, each rank updating with its
+    rows of every batch (so the ranks tick together), ``compute()`` synced,
+    and the synced states through the functional path."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.parallel import TorchDistBackend
+
+    rows = rank_rows(world, rank)
+    col = MetricCollection(monitoring_members(), compute_groups=False, device="cpu")
+    for x, valid in monitoring_batches():
+        col.update(torch.from_numpy(x[rows]), torch.from_numpy(valid[rows]))
+    values = col.compute()
+    state = {name: m._copy_state_dict() for name, m in col.items(keep_base=True, copy_state=False)}
+    synced = col.sync_states(state, TorchDistBackend())
+    return {"values": _np(values), "synced": _np(synced)}
+
+
 SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "collection": scenario_collection,
     "binary_exact_auroc": scenario_binary_exact_auroc,
@@ -474,12 +567,21 @@ SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
 }
 
 
-def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
-    """Entry point of one rank (``torch.multiprocessing`` passes ``rank`` first)."""
+# run only by the worlds of the files that check them (tests/test_torch_{telemetry,monitoring}.py)
+OTHER_SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
+    "ledger": scenario_ledger,
+    "monitoring": scenario_monitoring,
+}
+
+
+def run_rank(rank: int, world: int, init_file: str, out_dir: str, names: Any = None) -> None:
+    """Entry point of one rank (``torch.multiprocessing`` passes ``rank``
+    first): every scenario of ``SCENARIOS``, or those named in ``names``."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    chosen = SCENARIOS if names is None else {n: {**SCENARIOS, **OTHER_SCENARIOS}[n] for n in names}
     try:
-        results = {name: fn(rank, world) for name, fn in SCENARIOS.items()}
+        results = {name: fn(rank, world) for name, fn in chosen.items()}
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -488,3 +590,41 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
     with open(path + ".tmp", "wb") as fh:
         pickle.dump(results, fh)
     os.replace(path + ".tmp", path)
+
+
+def run_worlds(worlds: Any, root: Any, names: Any, timeout_s: float = 120.0) -> Dict[int, List[Dict[str, Any]]]:
+    """Launch one gloo world per size in ``worlds`` (spawned ranks, a
+    ``file://`` rendezvous under ``root``), all started before any is joined,
+    running the scenarios ``names`` (``None``: every one of ``SCENARIOS``);
+    every rank's results by world size. Raises ``TimeoutError`` when a world
+    does not finish within ``timeout_s``."""
+    import time
+
+    import torch.multiprocessing as tmp
+
+    launched = {}
+    try:
+        for world in worlds:
+            d = os.path.join(str(root), f"gloo{world}")
+            os.makedirs(d, exist_ok=True)
+            ctx = tmp.start_processes(run_rank, args=(world, os.path.join(d, "rendezvous"), d, names),
+                                      nprocs=world, join=False, start_method="spawn")
+            launched[world] = (ctx, d)
+        deadline = time.monotonic() + timeout_s
+        for world, (ctx, _) in launched.items():
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"the {world}-rank gloo world did not finish within {timeout_s} s")
+    finally:
+        for ctx, _ in launched.values():
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+    out = {}
+    for world, (_, d) in launched.items():
+        out[world] = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as fh:
+                out[world].append(pickle.load(fh))
+    return out

@@ -120,8 +120,22 @@ def buffer_compact(stacked_values: Tensor, counts: Tensor) -> MaskedBuffer:
 
 def buffer_all_gather(buf: MaskedBuffer, backend: Any, group: Optional[Any] = None) -> MaskedBuffer:
     """Gather a buffer from every rank through a sync backend and compact it:
-    two gathers, of the values and of the packed (count, requested)."""
+    two gathers, of the values and of the packed (count, requested).
+
+    Both are reported to the collective ledger as logical ``"buffer_gather"``
+    records (``source="reducer"``, as a fused flush reports its classes), so
+    a buffer keeps its attribution through any backend; an instrumented
+    backend records its wire calls beside them."""
+    from tpumetrics_torch.parallel.backend import dtype_name
+    from tpumetrics_torch.telemetry import ledger as _telemetry
+
     packed = torch.stack([buf.count, buf.requested]).to(torch.int32)
+    if _telemetry.recording():
+        for arr in (buf.values, packed):
+            _telemetry.record_collective(
+                backend, "buffer_gather", "gather", tuple(arr.shape), dtype_name(arr.dtype), arr.element_size(),
+                int(backend.world_size()), source="reducer", capacity=buf.capacity,
+            )
     vals = backend.all_gather(buf.values, group)
     meta = torch.stack([m.reshape(2) for m in backend.all_gather(packed, group)])  # (W, 2)
     merged = buffer_compact(torch.stack(list(vals)), meta[:, 0])

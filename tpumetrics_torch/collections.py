@@ -29,6 +29,7 @@ from tpumetrics_torch.buffers import _BufferList
 from tpumetrics_torch.metric import Metric, _refuse_axis_name, _resolve_device
 from tpumetrics_torch.parallel.backend import DistributedBackend, get_default_backend
 from tpumetrics_torch.parallel.fuse import FusedReducer
+from tpumetrics_torch.telemetry import ledger as _telemetry
 from tpumetrics_torch.parallel.fuse_update import (
     FusedCollectionStep,
     UnhashableKwargsError,
@@ -337,19 +338,20 @@ class MetricCollection:
                 and m.process_group is None
             )
 
-        leaders: List[Tuple[Metric, List[Metric]]] = []
+        leaders: List[Tuple[str, Metric, List[Metric]]] = []
         for cg in self._groups.values():
             m0 = self._modules[cg[0]]
             if _eligible(m0):
-                leaders.append((m0, [self._modules[k] for k in cg[1:] if _eligible(self._modules[k])]))
+                leaders.append((cg[0], m0, [self._modules[k] for k in cg[1:] if _eligible(self._modules[k])]))
         parked: List[Metric] = []
         try:
             if leaders:
                 reducer = FusedReducer(get_default_backend())
                 finalizers: List[Callable[[], None]] = []
                 synced: List[Tuple[Metric, List[Metric]]] = []
-                for m0, members in leaders:
-                    fin = m0.sync(_reducer=reducer)
+                for key, m0, members in leaders:
+                    with _telemetry.attribution(key):  # the ledger's tag: "<key>/<MetricClass>"
+                        fin = m0.sync(_reducer=reducer)
                     if m0._is_synced:
                         parked.append(m0)
                         m0._to_sync = False
@@ -578,9 +580,10 @@ class MetricCollection:
         self, state: Dict[str, Dict[str, Any]], backend: DistributedBackend, reducer: FusedReducer, group: Any = None
     ) -> Callable[[], Dict[str, Dict[str, Any]]]:
         """First phase of a shared fused sync, shaped like the collection's
-        state (the closure protocol of ``Metric._sync_state_collect``)."""
-        finalizers = {
-            cg[0]: self._modules[cg[0]]._sync_state_collect(state[cg[0]], backend, reducer, group)
-            for cg in self._groups.values()
-        }
+        state (the closure protocol of ``Metric._sync_state_collect``). Each
+        leader's collectives carry its collection key as their ledger tag."""
+        finalizers = {}
+        for cg in self._groups.values():
+            with _telemetry.attribution(cg[0]):
+                finalizers[cg[0]] = self._modules[cg[0]]._sync_state_collect(state[cg[0]], backend, reducer, group)
         return lambda: {name: fin() for name, fin in finalizers.items()}

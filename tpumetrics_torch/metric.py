@@ -28,6 +28,7 @@ gathers; ``unsync`` restores the local states afterwards.
 
 from __future__ import annotations
 
+import copy
 import functools
 import inspect
 from abc import ABC, abstractmethod
@@ -40,6 +41,7 @@ from tpumetrics_torch.buffers import MaskedBuffer, _BufferList, buffer_all_gathe
 from tpumetrics_torch.parallel.backend import DistributedBackend, get_default_backend
 from tpumetrics_torch.parallel.backend import distributed_available as _default_distributed_available
 from tpumetrics_torch.parallel.fuse import FusedReducer
+from tpumetrics_torch.telemetry import ledger as _telemetry
 from tpumetrics_torch.utils.data import (
     _flatten,
     dim_zero_cat,
@@ -598,10 +600,15 @@ class Metric(ABC):
         """First phase of a (possibly multi-metric) fused sync: gathered
         states sync at once, reduce states register with the shared
         ``reducer``. Returns a closure to call after the reducer's one
-        ``flush``, which gives the synced state."""
+        ``flush``, which gives the synced state.
+
+        The collectives issued (or deferred to the reducer) here carry this
+        metric's class name as their ledger attribution tag, under any
+        enclosing collection or wrapper tag."""
         out: Dict[str, StateType] = {}
         pending: Dict[str, int] = {}
-        self._sync_state_collect_inner(state, backend, reducer, group, out, pending)
+        with _telemetry.attribution(type(self).__name__):
+            self._sync_state_collect_inner(state, backend, reducer, group, out, pending)
 
         def finalize() -> Dict[str, StateType]:
             out.update(reducer.resolve(pending))
@@ -780,6 +787,10 @@ class Metric(ABC):
             object.__setattr__(self, attr, [] if isinstance(default, list) else default)
         self._cache = None
         self._is_synced = False
+
+    def clone(self) -> "Metric":
+        """Deep copy of the metric."""
+        return copy.deepcopy(self)
 
     # ------------------------------------------------------------ persistence
 

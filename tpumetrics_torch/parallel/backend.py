@@ -13,6 +13,12 @@ A backend is the strategy object every cross-rank state sync goes through:
 Callers that know a state's reduce op use :meth:`DistributedBackend.all_reduce`,
 so that "sum"/"mean"/"max"/"min" states travel as one reduction instead of a
 gather and a local reduce.
+
+:class:`TorchDistBackend` reports every wire call to the collective ledger
+(:mod:`tpumetrics_torch.telemetry.ledger`) while one records, as the JAX
+package's eager backend does: each ``all_reduce``, each equal-shape gather
+(an uneven ``all_gather`` is two or three of them) and each host-object
+gather.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from tpumetrics_torch.telemetry import ledger as _telemetry
 
 Tensor = torch.Tensor
 
@@ -155,7 +163,12 @@ class TorchDistBackend(DistributedBackend):
 
     def _gather_equal(self, x: Tensor, group: Optional[Any]) -> List[Tensor]:
         """One ``all_gather`` of a tensor whose shape and dtype every rank shares."""
-        out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        world = dist.get_world_size(group)
+        if _telemetry.recording():  # every gather on the wire funnels through here
+            _telemetry.record_collective(
+                self, "all_gather", "gather", tuple(x.shape), dtype_name(x.dtype), x.element_size(), world
+            )
+        out = [torch.empty_like(x) for _ in range(world)]
         dist.all_gather(out, x.contiguous(), group=group)
         return out
 
@@ -192,6 +205,10 @@ class TorchDistBackend(DistributedBackend):
 
     def all_gather_object(self, obj: Any, group: Optional[Any] = None) -> List[Any]:
         group = self._group(group)
+        if _telemetry.recording():
+            import pickle
+
+            _telemetry.record_event(self, "all_gather_object", pickled_bytes=len(pickle.dumps(obj)))
         out: List[Any] = [None] * dist.get_world_size(group)
         dist.all_gather_object(out, obj, group=group)
         return out
@@ -205,6 +222,11 @@ class TorchDistBackend(DistributedBackend):
             raise ValueError(f"Unsupported all_reduce op {op}")
         group = self._group(group)
         self._check_device(x, group)
+        if _telemetry.recording():
+            _telemetry.record_collective(
+                self, "all_reduce", op, tuple(x.shape), dtype_name(x.dtype), x.element_size(),
+                dist.get_world_size(group),
+            )
         if op in ("max", "min") and x.is_floating_point():
             return self._all_reduce_nan_extreme(x, op, group)
         out = x.clone()
@@ -227,6 +249,12 @@ class TorchDistBackend(DistributedBackend):
 
     def barrier(self) -> None:
         dist.barrier(group=self.process_group)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The JAX package's name of a dtype (``"float32"`` for ``torch.float32``),
+    as the collective ledger records it."""
+    return str(dtype).removeprefix("torch.")
 
 
 def _numel(shape: tuple) -> int:

@@ -8,6 +8,7 @@ import torch
 
 from tpumetrics_torch.collections import MetricCollection
 from tpumetrics_torch.metric import Metric
+from tpumetrics_torch.telemetry import ledger as _telemetry
 from tpumetrics_torch.wrappers.abstract import WrapperMetric
 
 Tensor = torch.Tensor
@@ -108,7 +109,10 @@ class MultitaskWrapper(WrapperMetric):
     def _sync_state_collect(
         self, state: Dict[str, Any], backend: Any, reducer: Any, group: Any = None
     ) -> Callable[[], Dict[str, Any]]:
-        finalizers = {name: m._sync_state_collect(state[name], backend, reducer, group) for name, m in self.task_metrics.items()}
+        finalizers = {}
+        for name, m in self.task_metrics.items():
+            with _telemetry.attribution(name):  # the task's name tags its collectives in the ledger
+                finalizers[name] = m._sync_state_collect(state[name], backend, reducer, group)
         return lambda: {name: fin() for name, fin in finalizers.items()}
 
     sync_state = Metric.sync_state
