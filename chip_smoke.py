@@ -192,6 +192,21 @@ Phases, each of which passes or exits non-zero:
    the card's data (sketches and counts identical, float sums within 1e-6; cut to the first 450 updates
    and printed as reduced if it would take longer than 45 s); host syncs of every member's steady update;
    and each collection's fused phase;
+5j. the image metrics that run a backbone, with torch's TF32 defaults (the library keeps its own convolutions
+   and products in full float32): a generative stream at CIFAR-10 FID geometry (fid50k_full's 50,000 real and
+   50,000 generated 32 x 32 uint8 images, made on the card from the seed; FID over the first 20,000 of each, at
+   299 x 299 through InceptionV3 at full width with ``random_inception_params``, in batches of 256) through
+   ``FrechetInceptionDistance`` (its update one CUDA graph per batch signature; its extractor also sums the
+   features' float64 moments: FID against a float64 scipy ``sqrtm`` oracle within a bound scaled by the moments'
+   cancellation), and ``KernelInceptionDistance`` (100 subsets of 1,000), MiFID and ``InceptionScore`` over the
+   first 5,000 of each set on the one resident 2048-tap handle (KID and IS against float64 oracles on the card
+   over the same draws); the card's features for 32 images against the port's CPU path (a worker), streaming
+   against a single pass, host syncs, update and compute times, the bfloat16 policy's rate and gates; and a
+   perceptual stream: ``LearnedPerceptualImagePatchSimilarity`` over the restoration stream's 100 DIV2K pairs
+   (AlexNet; VGG-16 and SqueezeNet on the first 10; random convs, the bundled heads), the first 2 pairs against
+   the port's float64 CPU path (workers), and ``PerceptualPathLength`` at the JAX defaults (10,000 samples,
+   epsilon 1e-4, resize 64, VGG-16) over a seeded generator of 3 x 256 x 256 images, its first 256 distances
+   against a float64 oracle of the definition on the same latents;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -231,8 +246,9 @@ phase starts worker processes with ``spawn``) after ``_build.build()``:
 ``chip_smoke.separation_phase(torch, bc)``, ``chip_smoke.srmr_phase(torch,
 bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``,
 ``chip_smoke.restoration_phase(torch, bc)``,
-``chip_smoke.pansharpening_phase(torch, bc)``, ``chip_smoke.criteo_phase(torch, bc)`` (no build needed; it
-starts worker processes with ``spawn``).
+``chip_smoke.pansharpening_phase(torch, bc)``, ``chip_smoke.criteo_phase(torch, bc)``,
+``chip_smoke.generative_phase(torch, bc)`` and ``chip_smoke.perceptual_phase(torch, bc)`` (no build needed; they
+start worker processes with ``spawn``; run alone, the perceptual phase makes its DIV2K pairs anew).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -3972,7 +3988,7 @@ def restoration_phase(torch, bc) -> dict:
         check(torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
               f"{label}: torch's TF32 defaults are not in force")
         cols = collections()
-        dev, card_single, syncs = [], [], {}
+        dev, card_single, syncs, u8 = [], [], {}, []
         update_ms = {kind: [] for kind in cols}
         workers = min(8, os.cpu_count() or 1)
         t_gen = time.perf_counter()
@@ -3985,6 +4001,7 @@ def restoration_phase(torch, bc) -> dict:
             bc.launches, bq.launches = 0, 0
             for i, batch in enumerate(made):
                 data = image_batch(torch, *batch, "cuda")
+                u8.append(tuple(torch.from_numpy(x).to("cuda") for x in batch))  # the perceptual phase's pairs
                 torch.cuda.synchronize()
                 if i < DIV2K_CPU_BATCHES:  # this batch alone on the card, for the CPU worker's states
                     single = collections()
@@ -4074,7 +4091,7 @@ def restoration_phase(torch, bc) -> dict:
             "oracle": oracle, "oracle_tol": {k: oracle_tol[k] for k in oracle}, "oracle_worst": oracle_worst,
             "state_worst": state_worst, "host_syncs": syncs, "unguarded_ssim_err": unguarded_err, "profile": prof, "seconds": t_gen,
             "reduced": f"every image a fixed {DIV2K_W} x {DIV2K_H}; DIV2K's heights vary", "fused": fused["rgb"],
-            "fused_all": fused}
+            "fused_all": fused, "div2k_u8": u8}
 
 
 def wv3_image(index: int, full: bool):
@@ -5086,6 +5103,779 @@ def sync_phase(torch, bc, smi: str) -> dict:
     }
 
 
+# ------------------------------------------------------------------- the image metrics that run a backbone
+# CIFAR-10 FID-50k, the protocol of Heusel et al. 2017 and StyleGAN2-ADA's fid50k_full: 50,000 generated images
+# against CIFAR-10's 50,000 training images, 32 x 32 uint8 RGB, made on the card from the seed (smooth 1/f fields
+# plus pixel noise; the generated set with a steeper spectrum and more noise), resized to 299 by the TF1 resize
+# and run through InceptionV3 at full width with random_inception_params(SEED) (the pretrained weights are not in
+# the repository: the values mean nothing, the times do), in batches of 256 and a ragged last 80
+CIFAR_IMAGES, CIFAR_BATCH, CIFAR_SIDE = 50_000, 256, 32
+# FID over the first 20,000 of each set: on an H100 the full 2 x 50,000 took 57.5 s of a 111.6 s phase (1,741
+# images/s), past the phase's 90 s, and 25,000 a set left the script at 607.5 s and 658 s (the earlier phases vary
+# by tens of seconds between runs); the resolution and the width stay whole
+CIFAR_FID_IMAGES = 20_000
+CIFAR_SUBSET = 5_000  # KID, MiFID and IS over the first 5,000 of each set
+KID_SUBSETS, KID_SUBSET_SIZE = 100, 1000
+CIFAR_CPU_IMAGES = 32  # held card against the port's CPU path in a worker process
+INCEPTION_CPU_RTOL = 1e-5  # card vs CPU features, of the largest: float32 sums in another order (TF32 would not hold)
+# the float32 additions behind one entry of FID's moment sums: a batch product's 256 terms, then the 196 batches
+FID_SUM_DEPTH = CIFAR_BATCH + -(-CIFAR_FID_IMAGES // CIFAR_BATCH)
+# KID's mean and std against a float64 MMD on the card over the same subsets, each of its own size (both float64,
+# their sums in another order); IS's mean and std against a float64 oracle on the card over the same split, of the
+# mean. Each check must also tell the metric's draws from another seed's (``draw_sensitivity``)
+KID_RTOL = 1e-6
+IS_RTOL = 1e-5
+# the phase's Inception weights: random_inception_params(SEED) with He's gain sqrt(2) on every convolution. The
+# draws alone (1 / sqrt(fan_in)) halve the signal's variance at each ReLU while every folded BN adds its shift, so
+# the features of all images agree to about 0.2 % and a third of them are 0 on every image
+# (scripts/inception_feature_spread.py): FID, KID and IS then sit at the size of their own float32 error and no
+# check on their values can fail. The times do not depend on the values
+INCEPTION_CONV_GAIN = float(np.sqrt(2.0))
+BF16_GATES = {"fid": (0.05, 0.10), "kid": (0.005, 0.25), "lpips": (0.01, 0.05)}  # max(abs, rel * |fp32|)
+LPIPS_SMALL_PAIRS = 10  # vgg and squeeze run on the first 10 DIV2K pairs
+LPIPS_CPU_PAIRS = 2  # held against the port's float64 CPU path in worker processes
+LPIPS_CPU_RTOL = 1e-5  # card (float32) vs CPU (float64) per pair: one float32 rounding per layer (TF32 would not hold)
+# PerceptualPathLength at the JAX package's defaults (num_samples 10,000, epsilon 1e-4, resize 64, lerp) with
+# VGG-16 LPIPS, over a seeded generator from 512-d latents to 3 x 256 x 256 images (StyleGAN's output size)
+PPL_SAMPLES, PPL_BATCH, PPL_LATENT, PPL_SIDE, PPL_ORACLE = 10_000, 128, 512, 256, 256
+# a pair's distance vs float64: float32 rounds t + 1e-4 (t up to 1: the step off by up to 6e-4 of itself, the squared
+# distance by 1.2e-3) and the two images' difference, whose 1e-4 step it carries with ~1e-3 of its size
+PPL_RTOL = 1e-2
+
+
+def mem(torch) -> dict:
+    """The card's allocated and reserved memory and the allocated peak, GiB."""
+    g = 2.0**30
+    return {"allocated": torch.cuda.memory_allocated() / g, "reserved": torch.cuda.memory_reserved() / g,
+            "peak": torch.cuda.max_memory_allocated() / g}
+
+
+def cifar_images(torch, which: int, n: int = CIFAR_IMAGES, device: str = "cuda"):
+    """``n`` uint8 ``(3, 32, 32)`` images made on ``device`` from the seed: 1/f fields, a level per channel and pixel
+    noise; set 0 stands for CIFAR-10's training images, set 1 for a generator's (a steeper spectrum, more noise)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 71 + which)
+    fy = torch.fft.fftfreq(CIFAR_SIDE, device=device)[:, None]
+    fx = torch.fft.rfftfreq(CIFAR_SIDE, device=device)[None, :]
+    f = torch.sqrt(fx * fx + fy * fy)
+    amp = torch.where(f > 0, f.clamp(min=1e-6) ** -(1.0 + 0.4 * which), 0.0)
+    out = torch.empty((n, 3, CIFAR_SIDE, CIFAR_SIDE), dtype=torch.uint8, device=device)
+    for lo in range(0, n, 10_000):
+        m = min(10_000, n - lo)
+        shape = (m, 3, CIFAR_SIDE, CIFAR_SIDE // 2 + 1)
+        spec = torch.complex(torch.randn(shape, generator=g, device=device), torch.randn(shape, generator=g, device=device))
+        x = torch.fft.irfft2(spec * amp, s=(CIFAR_SIDE, CIFAR_SIDE))
+        x = (x - x.mean((2, 3), keepdim=True)) / x.std((2, 3), keepdim=True)
+        level = 0.25 + 0.5 * torch.rand((m, 3, 1, 1), generator=g, device=device)
+        x = level + 0.15 * x + (0.02 + 0.03 * which) * torch.randn(x.shape, generator=g, device=device)
+        out[lo:lo + m] = (x.clamp(0, 1) * 255).round().to(torch.uint8)
+    return out
+
+
+def generative_inception_params(conv_gain: float = INCEPTION_CONV_GAIN) -> dict:
+    """random_inception_params(SEED) with every convolution's weights times ``conv_gain`` (float32)."""
+    from tpumetrics_torch.image._inception import random_inception_params
+
+    return {k: v * np.float32(conv_gain) if k.endswith("conv.weight") else v
+            for k, v in random_inception_params(SEED).items()}
+
+
+def inception_cpu_features(imgs: np.ndarray) -> np.ndarray:
+    """The port's CPU path: the float32 2048-d features of uint8 ``imgs`` under the phase's weights
+    (``generative_inception_params``; run in a worker process)."""
+    import torch
+
+    from tpumetrics_torch.image._inception import inception_v3_features
+
+    torch.set_num_threads(4)
+    params = {k: torch.from_numpy(v) for k, v in generative_inception_params().items()}
+    return inception_v3_features(params, ("2048",))(torch.from_numpy(imgs))[0].numpy()
+
+
+class FeatureTap:
+    """FID's extractor in the CIFAR-10 FID stream: the shared Inception handle, whose features' float64 moments (sums,
+    products, and the same of their magnitudes: the oracle's inputs and its error bound's) it adds to sums on the
+    card in place, so FID's captured update records them beside the forward. It holds one reference on the handle,
+    which FID adopts (``key``, ``close``) and releases; ``generation`` is the handle's, for the update's graphs."""
+
+    def __init__(self, torch, handle, dim: int = 2048):
+        self.torch, self.handle, self.key = torch, handle.acquire(), handle.key
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float64, device="cuda")  # noqa: E731
+        self.sums = {"n": zeros(), "s": zeros(dim), "abs_s": zeros(dim), "c": zeros(dim, dim), "abs_c": zeros(dim, dim)}
+
+    @property
+    def generation(self) -> int:
+        return self.handle.generation
+
+    def __call__(self, x):
+        f = self.handle(x)
+        f64 = f.double()
+        a64 = f64.abs()
+        s = self.sums
+        s["n"].add_(f.shape[0])
+        s["s"].add_(f64.sum(0))
+        s["abs_s"].add_(a64.sum(0))
+        s["c"].addmm_(f64.T, f64)
+        s["abs_c"].addmm_(a64.T, a64)
+        return f
+
+    def take(self) -> dict:
+        """The sums so far, on the host, and the card's sums zeroed in place (the graphs keep their addresses)."""
+        out = {k: v.cpu().numpy() for k, v in self.sums.items()}
+        for v in self.sums.values():
+            v.zero_()
+        out["n"] = float(out["n"])
+        return out
+
+    def close(self) -> None:
+        self.handle.close()
+
+
+def fid_oracle(real: dict, fake: dict, depth: int = FID_SUM_DEPTH) -> dict:
+    """FID in float64 (``scipy.linalg.sqrtm``) from the float64 moments of the card's own features, and bounds on
+    the port's float32 error. A covariance entry ``(S - n mu mu^T) / (n - 1)`` in float32 is within
+    ``(depth + 8) u`` of its terms' magnitudes ``(|f|^T|f| + 3 n a a^T) / (n - 1)`` (``a`` the mean magnitudes:
+    the cancellation's scale, as ``condition64`` is SSIM's), a mean within ``(depth + 2) u a``. A feature that is
+    0 on every image of a set (a channel no image excites) is exactly 0 in both computations, and
+    ``tr sqrt(S1 S2)`` depends only on the block ``L`` of the features live in both sets; there the error is carried
+    to FID through its derivative, ``dFID = <G1, dS1> + <G2, dS2>``, ``G1 = I - (S2 M^-1)^T``,
+    ``G2 = I - (M^-1 S1)^T``, ``M = sqrtm(S1 S2)``; elsewhere through the traces. Plus ``2 |mu1 - mu2| . (dmu1 +
+    dmu2)`` and the float32 sums of FID's last step. ``bound``: the whole of FID's float32 path, its moment sums
+    ``depth`` additions deep; ``bound_compute``: ``compute()`` alone, from its float32 states (``depth`` 0)."""
+    from scipy import linalg
+
+    t0 = time.perf_counter()
+    mus, covs, scales, mags, live = [], [], [], [], []
+    for m in (real, fake):
+        n = m["n"]
+        mu, a = m["s"] / n, m["abs_s"] / n
+        mus.append(mu)
+        covs.append((m["c"] - n * np.outer(mu, mu)) / (n - 1))
+        scales.append(F32_U * (m["abs_c"] + 3 * n * np.outer(a, a)) / (n - 1))
+        mags.append(F32_U * a)
+        live.append(a > 0)
+    both = live[0] & live[1]
+    s1, s2 = covs[0][np.ix_(both, both)], covs[1][np.ix_(both, both)]
+    root = np.real(linalg.sqrtm(s1 @ s2))
+    diff = mus[0] - mus[1]
+    traces = np.trace(covs[0]) + np.trace(covs[1])
+    fid = float(diff @ diff + traces - 2 * np.trace(root))
+    inv = np.linalg.inv(root)
+    eye = np.eye(root.shape[0])
+    g1, g2 = np.abs(eye - (s2 @ inv).T), np.abs(eye - (inv @ s1).T)
+    dim = covs[0].shape[0]
+    last = dim * F32_U * (diff @ diff + abs(traces)) + 4 * F32_U * (diff @ diff + abs(traces) + 2 * abs(np.trace(root)))
+    # per unit of (depth + 8) for the covariances and of (depth + 2) for the means
+    cov_part = (g1 * scales[0][np.ix_(both, both)]).sum() + (g2 * scales[1][np.ix_(both, both)]).sum() + sum(
+        np.diag(e)[lv & ~both].sum() for e, lv in zip(scales, live))  # live in one set: the trace alone
+    mu_part = 2 * (np.abs(diff) * (mags[0] + mags[1])).sum()
+    bound_at = lambda d: float((d + 8) * cov_part + (d + 2) * mu_part + last)  # noqa: E731
+    return {"fid": fid, "bound": bound_at(depth), "bound_compute": bound_at(0), "live": [int(lv.sum()) for lv in live],
+            "live_both": int(both.sum()), "seconds": time.perf_counter() - t0}
+
+
+def fid_from64(torch, mu1, s1, mu2, s2) -> float:
+    """FID of float64 means and covariances on the card: ``tr sqrt(S1 S2)`` as the trace of the square root of the
+    symmetric ``S1^1/2 S2 S1^1/2`` (two ``eigh``)."""
+    w, v = torch.linalg.eigh(s1)
+    half = (v * w.clamp(min=0).sqrt()) @ v.T
+    root = torch.linalg.eigvalsh(half @ s2 @ half).clamp(min=0).sqrt().sum()
+    return float(((mu1 - mu2) ** 2).sum() + torch.trace(s1) + torch.trace(s2) - 2 * root)
+
+
+def fid64_of_states(torch, metric) -> float:
+    """FID in float64 on the card from a FID metric's own float32 states (its covariances formed in float64)."""
+    def moments(prefix):
+        n = getattr(metric, f"{prefix}_features_num_samples").double()
+        mu = getattr(metric, f"{prefix}_features_sum").double() / n
+        return mu, (getattr(metric, f"{prefix}_features_cov_sum").double() - n * torch.outer(mu, mu)) / (n - 1)
+
+    return fid_from64(torch, *moments("real"), *moments("fake"))
+
+
+def fid_state_check(metric, prefix: str, sums: dict, depth: int = FID_SUM_DEPTH) -> dict:
+    """FID's float32 states of one set (``prefix``), entry by entry, against the float64 sums of the same features
+    (``FeatureTap.take``): the count exact, each entry of the feature sum and of the product sum within
+    ``(depth + 2) u`` of the sum of its terms' magnitudes (any order of ``depth``-deep float32 additions). Returns
+    the worst error over its bound per state (``n``: 0 or inf)."""
+    n = float(getattr(metric, f"{prefix}_features_num_samples"))
+    out = {"n": 0.0 if n == sums["n"] else float("inf")}
+    for name, want, mag in (("sum", sums["s"], sums["abs_s"]), ("cov_sum", sums["c"], sums["abs_c"])):
+        got = getattr(metric, f"{prefix}_features_{name}").double().cpu().numpy()
+        bound = (depth + 2) * F32_U * mag
+        out[name] = float((np.abs(got - want) / np.maximum(bound, np.finfo(np.float64).tiny)).max())
+    return out
+
+
+def resize_matrix64(n_in: int, n_out: int) -> np.ndarray:
+    """The ``(n_out, n_in)`` weights of a half-pixel bilinear resize, antialiased when it shrinks, written out in
+    float64: output pixel ``i`` is centred at ``(i + 0.5) n_in / n_out - 0.5`` input pixels, its weights a triangle
+    of half-width ``max(1, n_in / n_out)`` input pixels around that centre, each row normalised to 1 (the definition
+    of ``jax.image.resize(..., "bilinear")``, which PPL's resize follows)."""
+    scale = n_out / n_in
+    centre = (np.arange(n_out) + 0.5) / scale - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(np.arange(n_in)[None, :] - centre[:, None]) * min(scale, 1.0))
+    return w / w.sum(1, keepdims=True)
+
+
+LPIPS_SHIFT, LPIPS_SCALE = (-0.030, -0.088, -0.188), (0.458, 0.448, 0.450)  # the LPIPS reference's ScalingLayer
+
+
+def vgg_lpips64(torch, a, b, convs: list, heads: list):
+    """Per-pair LPIPS-VGG of image batches in [-1, 1], written out from the definition with the port's functions
+    left out (float64 tensors on their device): the ScalingLayer; VGG-16's 13 3 x 3 convolutions (``convs``, the
+    ``(weight, bias)`` pairs) each with a ReLU, a 2 x 2 max pool before blocks 2-5, the features at each block's
+    end; each unit-normalised along the channels (``sqrt(1e-8 + sum f^2)``), their squared difference weighted per
+    channel by ``heads``, summed over the channels, averaged over the pixels and summed over the five layers."""
+    fn = torch.nn.functional
+    shift = torch.tensor(LPIPS_SHIFT, dtype=torch.float64, device=a.device).reshape(1, 3, 1, 1)
+    scale = torch.tensor(LPIPS_SCALE, dtype=torch.float64, device=a.device).reshape(1, 3, 1, 1)
+
+    def layers(x):
+        h, outs, i = (x - shift) / scale, [], 0
+        for block, depth in enumerate((2, 2, 3, 3, 3)):
+            if block:
+                h = fn.max_pool2d(h, 2, 2)
+            for _ in range(depth):
+                h = torch.relu(fn.conv2d(h, convs[i][0], convs[i][1], padding=1))
+                i += 1
+            outs.append(h)
+        return outs
+
+    total = torch.zeros(a.shape[0], dtype=torch.float64, device=a.device)
+    for fa, fb, w in zip(layers(a), layers(b), heads):
+        ua = fa / torch.sqrt(1e-8 + (fa * fa).sum(1, keepdim=True))
+        ub = fb / torch.sqrt(1e-8 + (fb * fb).sum(1, keepdim=True))
+        total = total + ((ua - ub) ** 2 * w.reshape(1, -1, 1, 1)).sum(1).mean((1, 2))
+    return total
+
+
+def ppl_oracle64(torch, generate64, key, batches: int, convs: list, heads: list, epsilon: float = 1e-4,
+                 size: int = 64):
+    """PPL's first ``batches * PPL_BATCH`` distances from the definition in float64 on the card, with the port's
+    functions left out: the latents drawn from ``key`` as the metric draws them (z1, z2, t per batch), the lerp
+    ``z1 + (z2 - z1) t`` and at ``t + epsilon``, the images resized by ``resize_matrix64``'s weights, the
+    pair's ``vgg_lpips64`` over ``epsilon^2``."""
+    out = []
+    for _ in range(batches):
+        z1 = torch.randn((PPL_BATCH, PPL_LATENT), generator=key, device="cuda").double()
+        z2 = torch.randn((PPL_BATCH, PPL_LATENT), generator=key, device="cuda").double()
+        t = torch.rand((PPL_BATCH, 1), generator=key, device="cuda").double()
+        imgs = [generate64(z1 + (z2 - z1) * s) for s in (t, t + epsilon)]
+        w = torch.from_numpy(resize_matrix64(imgs[0].shape[-1], size)).cuda()
+        a, b = (torch.einsum("oh,nchw,pw->ncop", w, x, w) for x in imgs)
+        out.append(vgg_lpips64(torch, a, b, convs, heads) / epsilon**2)
+    return torch.cat(out).cpu().numpy()
+
+
+def draw_sensitivity(got, other) -> float:
+    """How far a metric's (mean, std) is from an oracle's over another seed's draws, of the oracle's mean."""
+    return max(abs(a - b) for a, b in zip(got, other)) / abs(other[0])
+
+
+def kid_oracle(torch, real, fake, subsets: int, size: int, seed: int) -> tuple:
+    """KID's mean and std in float64 on the card over the subsets KID draws (numpy's ``default_rng(seed)``
+    permutations, real then generated, per subset)."""
+    rng = np.random.default_rng(seed)
+    r, f = real.double(), fake.double()
+    gamma = 1.0 / r.shape[1]
+    scores = []
+    for _ in range(subsets):
+        a = r[torch.from_numpy(rng.permutation(r.shape[0])[:size]).cuda()]
+        b = f[torch.from_numpy(rng.permutation(f.shape[0])[:size]).cuda()]
+        k11, k22, k12 = ((x @ y.T * gamma + 1.0) ** 3 for x, y in ((a, a), (b, b), (a, b)))
+        within = (k11.sum() - k11.diagonal().sum()) + (k22.sum() - k22.diagonal().sum())
+        scores.append(within / (size * (size - 1)) - 2 * k12.sum() / size**2)
+    s = torch.stack(scores)
+    return float(s.mean()), float(s.std(correction=0))
+
+
+def is_oracle(torch, logits, splits: int, seed: int) -> tuple:
+    """Inception Score in float64 on the card over the permutation and splits IS draws."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(logits.shape[0])).cuda()
+    x = logits.double()[perm]
+    p, log_p = torch.softmax(x, 1), torch.log_softmax(x, 1)
+    chunk = -(-x.shape[0] // splits)
+    kl = []
+    for lo in range(0, x.shape[0], chunk):
+        q, lq = p[lo:lo + chunk], log_p[lo:lo + chunk]
+        kl.append(torch.exp(torch.where(q > 0, q * (lq - torch.log(q.mean(0, keepdim=True))), 0.0).sum(1).mean()))
+    k = torch.stack(kl)
+    return float(k.mean()), float(k.std(correction=0))
+
+
+def fid64(torch, real, fake) -> float:
+    """FID of two feature sets in float64 on the card."""
+    r, f = real.double(), fake.double()
+    return fid_from64(torch, r.mean(0), torch.cov(r.T), f.mean(0), torch.cov(f.T))
+
+
+def gate(kind: str, low: float, full: float) -> dict:
+    atol, rtol = BF16_GATES[kind]
+    bound = max(atol, rtol * abs(full))
+    return {"fp32": full, "bf16": low, "gap": abs(low - full), "bound": bound, "share": abs(low - full) / bound}
+
+
+def generative_phase(torch, bc) -> dict:
+    """CIFAR-10 FID (fid50k_full's protocol, its sets cut to 20,000: see the note above the constants) on the card,
+    with torch's TF32 defaults and the He-scaled random Inception (``generative_inception_params``): FID over both
+    sets through a captured update whose extractor also sums the float64 moments of the same features (FID's float32
+    states against them entry by entry, a check that must reject two planted faults; FID against a float64 scipy
+    oracle within a bound scaled by the moments' cancellation), KID (100 subsets of 1,000), MiFID and IS over the
+    first 5,000 of each set on the one resident 2048-tap handle (KID and IS against float64 oracles on the card
+    over the same draws, each check shown to tell them from another seed's), the card's features for 32 images
+    against the port's CPU path (a worker), streaming against a single pass, host syncs, update and compute times,
+    and the bfloat16 policy's extraction rate and FID/KID gaps against their gates."""
+    import contextlib
+    import tempfile
+    import threading
+    from unittest import mock
+
+    from tpumetrics_torch.backbones import get_backbone, registry_stats
+    from tpumetrics_torch.image import (
+        FrechetInceptionDistance, InceptionScore, KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+    from tpumetrics_torch.image import _inception
+    from tpumetrics_torch.image._inception import inception_v3_features
+    from tpumetrics_torch.ops import biquad as bq
+
+    label = f"generative CIFAR-10 FID over {CIFAR_FID_IMAGES} of {CIFAR_IMAGES} a set"
+    t_phase = time.perf_counter()
+    parts, marks = {}, [t_phase]
+
+    def lap() -> float:  # seconds since the last mark
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    params = generative_inception_params()
+    workdir = tempfile.mkdtemp(prefix="inception_")
+    path = os.path.join(workdir, "inception.npz")
+    np.savez(path, **params)
+    out = {}
+    with tf32_defaults(torch), multiprocessing.get_context("spawn").Pool(1) as pool:
+        real_imgs, fake_imgs = cifar_images(torch, 0), cifar_images(torch, 1)
+        torch.cuda.synchronize()
+        cpu_job = pool.apply_async(inception_cpu_features, (real_imgs[:CIFAR_CPU_IMAGES].cpu().numpy(),))
+        torch.cuda.synchronize()
+        bc.launches, bq.launches = 0, 0
+        kw = dict(feature_extractor_weights_path=path, device="cuda")
+        kid = KernelInceptionDistance(feature=2048, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, seed=SEED, **kw)
+        handle = kid.inception
+        tap = FeatureTap(torch, handle)
+        fid = FrechetInceptionDistance(feature=tap, num_features=2048, device="cuda")
+        mifid = MemorizationInformedFrechetInceptionDistance(feature=2048, **kw)
+        inc = InceptionScore(feature=2048, splits=10, seed=SEED, **kw)
+        check(fid.backbone_key == kid.backbone_key == mifid.backbone_key == inc.backbone_key,
+              f"{label}: the metrics hold different backbones")
+        stats = registry_stats()
+        check(len(stats) == 1 and stats[handle.key]["refs"] == 4, f"{label}: registry {stats}")
+        out["registry"] = stats[handle.key]
+
+        # FID: both sets through the captured update; the tap's sums are the oracle's
+        t0 = time.perf_counter()
+        oracle_moments = {}
+        for name, imgs in (("real", real_imgs), ("fake", fake_imgs)):
+            for lo in range(0, CIFAR_FID_IMAGES, CIFAR_BATCH):
+                fid.update(imgs[lo:min(lo + CIFAR_BATCH, CIFAR_FID_IMAGES)], real=name == "real")
+            oracle_moments[name] = tap.take()
+        torch.cuda.synchronize()
+        out["fid_stream_s"] = time.perf_counter() - t0
+        parts["images_and_fid_stream"] = lap()
+        out["fid_images_per_s"] = 2 * CIFAR_FID_IMAGES / out["fid_stream_s"]
+        out["fid_modes"] = dict(fid._jit_accum.counts)
+        print(f"generative phase: FID stream {out['fid_stream_s']:.1f} s ({out['fid_images_per_s']:.0f} images/s),"
+              f" modes {out['fid_modes']}; device memory {mem(torch)}", flush=True)
+        check(out["fid_modes"]["replayed"] >= 2 * (CIFAR_FID_IMAGES // CIFAR_BATCH) - 3 and not fid._jit_accum.eager_mode,
+              f"{label}: FID's update modes {out['fid_modes']}")
+        # FID's states entry by entry against the float64 sums of the same features; the check must reject the
+        # other set's sums and a stream that lost half of one batch (its float64 sums less the lost 128 images')
+        states = {name: fid_state_check(fid, name, oracle_moments[name]) for name in ("real", "fake")}
+        check(all(v <= 1.0 for st in states.values() for v in st.values()), f"{label}: FID's states {states}")
+        lost = handle(real_imgs[CIFAR_BATCH // 2:CIFAR_BATCH]).double()
+        m = oracle_moments["real"]
+        half = {**m, "n": m["n"] - lost.shape[0], "s": m["s"] - lost.sum(0).cpu().numpy(),
+                "c": m["c"] - (lost.T @ lost).cpu().numpy()}
+        faults = {"other_set": fid_state_check(fid, "real", oracle_moments["fake"]),
+                  "half_batch_lost": fid_state_check(fid, "real", half)}
+        check(all(f[k] > 1.0 for f in faults.values() for k in ("sum", "cov_sum")),
+              f"{label}: the state check let a planted fault through {faults}")
+        out["fid_states"], out["fid_state_faults"] = states, faults
+        del lost
+        parts["state_checks"] = lap()
+        oracle = {}
+        worker = threading.Thread(target=lambda: oracle.update(fid_oracle(oracle_moments["real"], oracle_moments["fake"])))
+        worker.start()  # scipy's sqrtm on the host beside the card's work below
+
+        # KID, MiFID and IS over the first 5,000 of each set, each through the handle's bucketed graphs
+        t0 = time.perf_counter()
+        for name, imgs in (("real", real_imgs), ("fake", fake_imgs)):
+            for lo in range(0, CIFAR_SUBSET, CIFAR_BATCH):
+                batch = imgs[lo:min(lo + CIFAR_BATCH, CIFAR_SUBSET)]
+                kid.update(batch, real=name == "real")
+                mifid.update(batch, real=name == "real")
+                if name == "fake":
+                    inc.update(batch)
+        torch.cuda.synchronize()
+        out["subset_stream_s"] = time.perf_counter() - t0
+        parts["subset_stream"] = lap()
+
+        # compute() of each, FID's and MiFID's host eigenvalues (numpy's eigvals of a 2048 x 2048 product) timed apart
+        compute_ms, values, eig_ms = {}, {}, []
+        eigvals = np.linalg.eigvals
+
+        def timed_eigvals(a):
+            t0 = time.perf_counter()
+            try:
+                return eigvals(a)
+            finally:
+                eig_ms.append((time.perf_counter() - t0) * 1e3)
+
+        with mock.patch.object(np.linalg, "eigvals", timed_eigvals):
+            for name, metric in (("fid", fid), ("kid", kid), ("mifid", mifid), ("is", inc)):
+                t0 = time.perf_counter()
+                val = metric.compute()
+                torch.cuda.synchronize()
+                compute_ms[name] = (time.perf_counter() - t0) * 1e3
+                values[name] = [float(v) for v in val] if isinstance(val, tuple) else float(val)
+        check(all(np.isfinite(v).all() for v in values.values()), f"{label}: values {values}")
+        out["fid_eig_ms"] = eig_ms[0]
+        parts["compute"] = lap()
+
+        # KID and IS against float64 oracles on the card over the same draws, from the metrics' own features
+        kid_want = kid_oracle(torch, torch.cat(kid.real_features), torch.cat(kid.fake_features), KID_SUBSETS,
+                              KID_SUBSET_SIZE, SEED)
+        kid_err = max(abs(a - b) / abs(b) for a, b in zip(values["kid"], kid_want))  # each of its own size
+        check(kid_err <= KID_RTOL, f"{label}: KID {values['kid']} vs float64 {kid_want} ({kid_err:.3e})")
+        is_want = is_oracle(torch, torch.cat(inc.features), 10, SEED)
+        is_err = max(abs(a - b) for a, b in zip(values["is"], is_want)) / is_want[0]  # of the score
+        check(is_err <= IS_RTOL, f"{label}: IS {values['is']} vs float64 {is_want} ({is_err:.3e})")
+        # each check tells the metric's draws from another seed's
+        sens = {"kid": draw_sensitivity(values["kid"], kid_oracle(
+                    torch, torch.cat(kid.real_features), torch.cat(kid.fake_features), KID_SUBSETS, KID_SUBSET_SIZE,
+                    SEED + 1)),
+                "is": draw_sensitivity(values["is"], is_oracle(torch, torch.cat(inc.features), 10, SEED + 1))}
+        check(sens["kid"] > KID_RTOL and sens["is"] > IS_RTOL, f"{label}: another seed's draws pass the checks {sens}")
+        out["kid_oracle"], out["kid_err"], out["is_oracle"], out["is_err"] = kid_want, kid_err, is_want, is_err
+        out["draw_sensitivity"] = sens
+        parts["kid_is_oracles"] = lap()
+
+        # the card's features for 32 images against the CPU path; the same forward with the float32 guard out
+        first = real_imgs[:CIFAR_CPU_IMAGES]
+        card = handle(first).cpu().numpy()
+        with mock.patch.object(_inception, "_ieee_float32", lambda *b: contextlib.nullcontext()):
+            unguarded = inception_v3_features(handle.params, ("2048",))(first)[0].cpu().numpy()
+        cpu = cpu_job.get()
+        scale = float(np.abs(cpu).max())
+        feat_err = float(np.abs(card - cpu).max()) / scale
+        feat_err_tf32 = float(np.abs(unguarded - cpu).max()) / scale
+        check(feat_err <= INCEPTION_CPU_RTOL, f"{label}: card vs CPU features {feat_err:.3e} of the largest")
+        out["features_vs_cpu"] = {"rel": feat_err, "rel_unguarded": feat_err_tf32, "tol": INCEPTION_CPU_RTOL}
+        parts["cpu_features"] = lap()
+
+        # streaming equals a single pass: 512 images in one update and in two of 256
+        one = FrechetInceptionDistance(feature=2048, **kw)
+        two = FrechetInceptionDistance(feature=2048, **kw)
+        one.update(real_imgs[:512], real=True)
+        two.update(real_imgs[:256], real=True)
+        two.update(real_imgs[256:512], real=True)
+        check(float(one.real_features_num_samples) == float(two.real_features_num_samples) == 512.0,
+              f"{label}: streaming counts")
+        stream_err = {}
+        for s in ("sum", "cov_sum"):
+            a, b = getattr(one, f"real_features_{s}"), getattr(two, f"real_features_{s}")
+            stream_err[s] = float((a - b).abs().max() / b.abs().max())
+            check(stream_err[s] <= 1e-5, f"{label}: streaming {s} differs from a single pass by {stream_err[s]:.3e}")
+        out["stream_vs_single"] = stream_err
+        parts["streaming"] = lap()
+
+        # update times in turns: the replayed graph, the eager fallback (the engine's graph of the forward and the
+        # moments op by op), and the forward alone op by op; host syncs; one profiled replay
+        batch = real_imgs[:CIFAR_BATCH]
+        eager = FrechetInceptionDistance(feature=2048, **kw)
+        for _ in range(2):
+            one.update(batch, real=False)
+            eager.update(batch, real=False)
+        eager._jit_accum.eager_mode = True
+        forward = inception_v3_features(handle.params, ("2048",))
+        times = {"replayed": [], "eager": [], "forward_op_by_op": []}
+        runs = {"replayed": lambda: one.update(batch, real=False), "eager": lambda: eager.update(batch, real=False),
+                "forward_op_by_op": lambda: forward(batch)}
+        for _ in range(5):
+            for name, fn in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        out["update_ms"] = {k: float(np.median(v)) for k, v in times.items()}
+        out["host_syncs"] = {"fid_replayed": count_host_syncs(torch, runs["replayed"]),
+                             "kid_update": count_host_syncs(torch, lambda: kid.update(batch, real=True))}
+        check(not any(out["host_syncs"].values()), f"{label}: host syncs in a steady update {out['host_syncs']}")
+        out["profile"] = {"replayed": profile_update(torch, runs["replayed"])}
+        out["memory_after_timing"] = mem(torch)
+        parts["update_timing"] = lap()
+
+        # the bfloat16 policy: extraction rate (float input, so the convolutions run in bfloat16) against float32,
+        # in turns, and the FID and KID gaps over the first 5,000 of each set against their gates
+        h16 = get_backbone("inception:2048", params, dtype_policy="bfloat16", device="cuda")
+        xs = [real_imgs[lo:lo + CIFAR_BATCH].float() for lo in range(0, 5 * CIFAR_BATCH, CIFAR_BATCH)]
+        for h in (handle, h16):
+            for x in xs[:2]:
+                h(x)
+        rate = {"float32": [], "bfloat16": []}
+        for name in ("float32", "bfloat16", "bfloat16", "float32"):
+            h = handle if name == "float32" else h16
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x in xs:
+                h(x)
+            torch.cuda.synchronize()
+            rate[name].append(len(xs) * CIFAR_BATCH / (time.perf_counter() - t0))
+        out["images_per_s"] = {k: float(np.mean(v)) for k, v in rate.items()}
+        feats16 = {name: torch.cat([h16(imgs[lo:lo + CIFAR_BATCH].float())
+                                    for lo in range(0, CIFAR_SUBSET, CIFAR_BATCH)])[:CIFAR_SUBSET]
+                   for name, imgs in (("real", real_imgs), ("fake", fake_imgs))}
+        feats32 = {"real": torch.cat(kid.real_features)[:CIFAR_SUBSET], "fake": torch.cat(kid.fake_features)[:CIFAR_SUBSET]}
+        gates = {"fid": gate("fid", fid64(torch, feats16["real"], feats16["fake"]),
+                             fid64(torch, feats32["real"], feats32["fake"])),
+                 "kid": gate("kid", kid_oracle(torch, feats16["real"], feats16["fake"], 10, KID_SUBSET_SIZE, SEED)[0],
+                             kid_oracle(torch, feats32["real"], feats32["fake"], 10, KID_SUBSET_SIZE, SEED)[0])}
+        check(all(g["gap"] <= g["bound"] for g in gates.values()), f"{label}: bfloat16 gates {gates}")
+        out["bf16_gates"] = gates
+        h16.close()
+        parts["bf16"] = lap()
+
+        worker.join()
+        parts["join"] = lap()
+        fid_err = abs(values["fid"] - oracle["fid"])
+        check(fid_err <= oracle["bound"], f"{label}: FID {values['fid']} vs float64 {oracle['fid']} ({fid_err:.3e},"
+                                          f" bound {oracle['bound']:.3e})")
+        # compute() alone: against FID in float64 from its own float32 states, within the bound of that step
+        fid_states64 = fid64_of_states(torch, fid)
+        compute_err = abs(values["fid"] - fid_states64)
+        check(compute_err <= oracle["bound_compute"], f"{label}: FID's compute() {values['fid']} vs float64 of its"
+                                                      f" states {fid_states64} ({compute_err:.3e},"
+                                                      f" bound {oracle['bound_compute']:.3e})")
+        check(oracle_moments["real"]["n"] == oracle_moments["fake"]["n"] == CIFAR_FID_IMAGES, f"{label}: tap counts")
+        out["fid_oracle"] = {**oracle, "err": fid_err, "share": fid_err / oracle["bound"],
+                             "bound_of_fid": oracle["bound"] / abs(oracle["fid"]), "states64": fid_states64,
+                             "compute_err": compute_err, "compute_share": compute_err / oracle["bound_compute"]}
+        parts["checks"] = lap()
+        check(bc.launches == 0 and bq.launches == 0, f"{label}: kernel launches {bc.launches}, {bq.launches}")
+        out["launches"] = {"binned_confusion": bc.launches, "biquad_cascade": bq.launches}
+        out["registry_after"] = registry_stats()[handle.key]
+        for m in (fid, kid, mifid, inc, one, two, eager):
+            m.release_backbones()
+            m.release_backbones()  # idempotent
+        check(not registry_stats(), f"{label}: handles left after release {registry_stats()}")
+        del real_imgs, fake_imgs, kid, fid, mifid, inc, one, two, eager, xs, feats16, feats32, tap, handle
+        pool.close()
+        pool.join()
+    os.remove(path)
+    os.rmdir(workdir)
+    torch.cuda.empty_cache()
+    out.update(values=values, compute_ms=compute_ms, phase_s=time.perf_counter() - t_phase, parts_s=parts,
+               reduced=f"FID over the first {CIFAR_FID_IMAGES:,} of each set of {CIFAR_IMAGES:,} (the phase's 90 s);"
+                       " 299 x 299 at full width; random weights, He-scaled (no pretrained file)")
+    o = out
+    print(
+        f"generative phase: {label}: {2 * CIFAR_FID_IMAGES} images in batches of {CIFAR_BATCH} through FID's"
+        f" captured update in {o['fid_stream_s']:.1f} s ({o['fid_images_per_s']:.0f} images/s; modes {o['fid_modes']});"
+        f" KID/MiFID/IS over {CIFAR_SUBSET} a set in {o['subset_stream_s']:.1f} s; values {values}; FID vs float64"
+        f" sqrtm {o['fid_oracle']['fid']:.6f}: {o['fid_oracle']['err']:.3e} of a bound {o['fid_oracle']['bound']:.3e}"
+        f" (sqrtm {o['fid_oracle']['seconds']:.1f} s; live features {o['fid_oracle']['live']}); compute() vs float64 of"
+        f" its states {o['fid_oracle']['compute_err']:.3e} of a bound {o['fid_oracle']['bound_compute']:.3e}; FID's states over their"
+        f" bounds {o['fid_states']}, planted faults {o['fid_state_faults']}; KID vs float64 {o['kid_err']:.2e}"
+        f" (tolerance {KID_RTOL}), IS {o['is_err']:.2e} (tolerance {IS_RTOL}), another seed's draws"
+        f" {o['draw_sensitivity']};"
+        f" card vs CPU features {o['features_vs_cpu']['rel']:.2e} of the largest (tolerance {INCEPTION_CPU_RTOL},"
+        f" with the float32 guard out {o['features_vs_cpu']['rel_unguarded']:.2e}); streaming vs single pass"
+        f" {o['stream_vs_single']}; update ms (median of 5, in turns) {o['update_ms']}; device union replayed"
+        f" {o['profile']['replayed']['busy_ms']:.3f} of {o['profile']['replayed']['wall_ms']:.3f} ms; compute ms {compute_ms}"
+        f" (FID's host eigenvalues {o['fid_eig_ms']:.1f} ms of it); host syncs {o['host_syncs']}; extraction images/s"
+        f" {o['images_per_s']}; bf16 gates {gates}; registry {o['registry']}; phase {o['phase_s']:.1f} s (parts, s:"
+        f" {o['parts_s']})",
+        flush=True,
+    )
+    return out
+
+
+def ppl_generator(torch, dtype, seed: int = SEED):
+    """A seeded generator from 512-d latents to ``(3, 256, 256)`` images in [-1, 1]: two dense layers to a 16 x 16
+    RGB field, a bilinear upsampling and a tanh (smooth images, as a GAN's are)."""
+    g = np.random.default_rng([seed, 97])
+    w1 = torch.from_numpy((g.standard_normal((PPL_LATENT, 768)) / np.sqrt(PPL_LATENT)).astype(np.float32))
+    w2 = torch.from_numpy((g.standard_normal((768, 3 * 16 * 16)) * 1.5 / np.sqrt(768)).astype(np.float32))
+    w1, w2 = w1.to("cuda", dtype), w2.to("cuda", dtype)  # the same float32 weights at either precision
+
+    def generate(z):
+        h = torch.tanh(z.to(dtype) @ w1) @ w2
+        h = torch.nn.functional.interpolate(h.reshape(-1, 3, 16, 16), size=(PPL_SIDE, PPL_SIDE), mode="bilinear",
+                                            align_corners=False)
+        return torch.tanh(h)
+
+    return generate
+
+
+def lpips_cpu_values(net: str, p64: list, t64: list) -> np.ndarray:
+    """The port's float64 CPU path: per-pair LPIPS of ``net`` (random convs from the seed, the bundled heads) over
+    [0, 1] images (a worker process)."""
+    import torch
+
+    from tpumetrics_torch.functional.image.lpips import learned_perceptual_image_patch_similarity, lpips_head_weights
+    from tpumetrics_torch.image._backbones import lpips_backbone, lpips_conv_params, random_lpips_params
+
+    torch.set_num_threads(4)
+    backbone = lpips_backbone(net, lpips_conv_params(random_lpips_params(net, SEED), "cpu", torch.float64))
+    heads = [torch.from_numpy(w).double() for w in lpips_head_weights(net)]
+    p, t = torch.from_numpy(np.stack(p64)), torch.from_numpy(np.stack(t64))
+    return learned_perceptual_image_patch_similarity(p, t, backbone, heads, normalize=True, reduction="none").numpy()
+
+
+def lpips_cpu_start(torch, pairs) -> tuple:
+    """Start the port's float64 CPU path of LPIPS on the first DIV2K pairs (AlexNet and SqueezeNet) in two worker
+    processes; it runs beside the phases between, and ``perceptual_phase`` collects it. Returns (pool, jobs,
+    the first pairs on the card as [0, 1] floats)."""
+    first = tuple(x[:LPIPS_CPU_PAIRS].float().div(255) for x in pairs[0])
+    p64, t64 = (list(x.double().cpu().numpy()) for x in first)
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    return pool, {net: pool.apply_async(lpips_cpu_values, (net, p64, t64)) for net in ("alex", "squeeze")}, first
+
+
+def perceptual_phase(torch, bc, pairs=None, cpu=None) -> dict:
+    """LPIPS over the DIV2K restoration pairs (``pairs``: the restoration phase's uint8 batches on the card, made
+    anew when None) with AlexNet (all 100, the LPIPS authors' default), VGG-16 and SqueezeNet (the first 10), with
+    torch's TF32 defaults; each net's first pairs against the port's float64 CPU path in workers; the bfloat16
+    LPIPS gap; then PerceptualPathLength with VGG-16 LPIPS at the JAX defaults, its first 256 distances against a
+    float64 oracle of the definition written out without the port's functions (``ppl_oracle64``) on the same
+    latents, and its discarding against numpy's. ``cpu``: what
+    ``lpips_cpu_start`` returned, started earlier (started here when None)."""
+    import contextlib
+    from unittest import mock
+
+    from tpumetrics_torch.backbones import registry_stats
+    from tpumetrics_torch.functional.image.lpips import learned_perceptual_image_patch_similarity, lpips_head_weights
+    from tpumetrics_torch.image import LearnedPerceptualImagePatchSimilarity, PerceptualPathLength
+    from tpumetrics_torch.image import _backbones
+    from tpumetrics_torch.image._backbones import lpips_backbone, random_lpips_params
+    from tpumetrics_torch.ops import biquad as bq
+
+    label = f"perceptual DIV2K {DIV2K_IMAGES} pairs of {DIV2K_W} x {DIV2K_H}, PPL {PPL_SAMPLES}"
+    t_phase = time.perf_counter()
+    out = {"ms_per_pair": {}, "values": {}, "cpu_rel": {}, "cpu_rel_unguarded": {}}
+    if pairs is None:  # run alone: the pairs made anew, in worker processes
+        with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as gen:
+            pairs = [tuple(torch.from_numpy(x).to("cuda") for x in b)
+                     for b in gen.imap(div2k_batch, range(DIV2K_IMAGES // DIV2K_BATCH))]
+    pool, cpu_jobs, first_pairs = cpu if cpu is not None else lpips_cpu_start(torch, pairs)
+    first = [first_pairs]
+    with tf32_defaults(torch), pool:
+        params = {net: random_lpips_params(net, SEED) for net in ("alex", "vgg", "squeeze")}
+        pending = {}
+        torch.cuda.synchronize()
+        bc.launches, bq.launches = 0, 0
+        for net in ("alex", "vgg", "squeeze"):
+            batches = pairs if net == "alex" else [tuple(x[i:i + 2] for x in b) for b in pairs[:LPIPS_SMALL_PAIRS // 4 + 1]
+                                                     for i in (0, 2)][: LPIPS_SMALL_PAIRS // 2]
+            metric = LearnedPerceptualImagePatchSimilarity(net_type=net, normalize=True, backbone_params=params[net],
+                                                           device="cuda")
+            times = []
+            for p, t in batches:
+                p, t = p.float().div(255), t.float().div(255)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metric.update(p, t)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / p.shape[0])
+            out["ms_per_pair"][net] = {"first": times[0], "steady": float(np.median(times[2:])), "modes": dict(metric._jit_loss.counts)}
+            out["values"][net] = float(metric.compute())
+            check(np.isfinite(out["values"][net]) and out["values"][net] > 0, f"{label}: LPIPS {net} {out['values'][net]}")
+            check(metric._jit_loss.counts["replayed"] >= 1, f"{label}: LPIPS {net} never replayed")
+            if net == "alex":
+                out["host_syncs"] = count_host_syncs(torch, lambda: metric.update(*first[0]))
+                check(out["host_syncs"] == 0, f"{label}: host syncs in a steady LPIPS update")
+                out["profile"] = profile_update(torch, lambda: metric.update(p, t))
+                # the bfloat16 policy on the first 8 pairs against float32
+                lows = LearnedPerceptualImagePatchSimilarity(net_type=net, normalize=True, backbone_params=params[net],
+                                                             backbone_dtype_policy="bfloat16", device="cuda")
+                full = LearnedPerceptualImagePatchSimilarity(net_type=net, normalize=True, backbone_params=params[net],
+                                                             device="cuda")
+                for p8, t8 in pairs[: LPIPS_SMALL_PAIRS // 4]:
+                    lows.update(p8.float().div(255), t8.float().div(255))
+                    full.update(p8.float().div(255), t8.float().div(255))
+                out["bf16_gate"] = gate("lpips", float(lows.compute()), float(full.compute()))
+                check(out["bf16_gate"]["gap"] <= out["bf16_gate"]["bound"], f"{label}: bf16 gate {out['bf16_gate']}")
+                lows.release_backbones()
+                full.release_backbones()
+            if net in cpu_jobs:  # the first pairs on the card, held against the CPU path after PPL
+                card = learned_perceptual_image_patch_similarity(*first[0], metric.net, metric.layer_weights,
+                                                                 normalize=True, reduction="none").cpu().numpy()
+                with mock.patch.object(_backbones, "_ieee_float32", lambda *b: contextlib.nullcontext()):
+                    loose = learned_perceptual_image_patch_similarity(
+                        *first[0], lpips_backbone(net, metric.net.params), metric.layer_weights, normalize=True,
+                        reduction="none").cpu().numpy()
+                pending[net] = (card, loose)
+            metric.release_backbones()
+
+        # PPL at the JAX defaults with VGG-16 LPIPS
+        generate = ppl_generator(torch, torch.float32)
+        ppl = PerceptualPathLength(num_samples=PPL_SAMPLES, epsilon=1e-4, resize=64, sim_net="vgg",
+                                   interpolation_method="lerp", latent_dim=PPL_LATENT, backbone_params=params["vgg"],
+                                   device="cuda")
+        ppl.update(generate)
+        t0 = time.perf_counter()
+        mean, std, dist = ppl.compute()
+        torch.cuda.synchronize()
+        out["ppl_compute_s"] = time.perf_counter() - t0
+        out["ppl"] = {"mean": float(mean), "std": float(std)}
+        check(dist.shape == (PPL_SAMPLES,) and bool(torch.isfinite(dist).all()), f"{label}: PPL distances")
+        # its discarding against numpy's on the same distances
+        d64 = dist.double().cpu().numpy()
+        lo, hi = np.quantile(d64, 0.01), np.quantile(d64, 0.99)
+        kept = d64[(d64 >= lo) & (d64 <= hi)]
+        want = (kept.mean(), np.sqrt(((kept - kept.mean()) ** 2).mean()))
+        disc_err = max(abs(float(mean) - want[0]) / want[0], abs(float(std) - want[1]) / want[1])
+        check(disc_err <= 1e-5, f"{label}: PPL discarding {float(mean)}, {float(std)} vs numpy {want}")
+        # the first 256 distances against the definition, written out in float64 on the same latents
+        convs64 = [tuple(torch.from_numpy(np.asarray(x)).to("cuda", torch.float64) for x in wb) for wb in params["vgg"]]
+        heads = [torch.from_numpy(w).to("cuda", torch.float64) for w in lpips_head_weights("vgg")]
+        ref = ppl_oracle64(torch, ppl_generator(torch, torch.float64), torch.Generator(device="cuda").manual_seed(0),
+                           PPL_ORACLE // PPL_BATCH, convs64, heads)
+        ppl_err = np.abs(d64[:PPL_ORACLE] - ref) / np.abs(ref)
+        out["ppl_oracle"] = {"worst_rel": float(ppl_err.max()), "median_rel": float(np.median(ppl_err)),
+                             "mean64": float(ref.mean()), "mean32": float(d64[:PPL_ORACLE].mean()), "tol": PPL_RTOL}
+        check(ppl_err.max() <= PPL_RTOL, f"{label}: PPL vs float64 {out['ppl_oracle']}")
+        out["discard_err"] = disc_err
+        out["registry"] = registry_stats()
+        ppl.release_backbones()
+        t0 = time.perf_counter()
+        for net, (card, loose) in pending.items():
+            cpu = cpu_jobs[net].get()
+            out["cpu_rel"][net] = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+            out["cpu_rel_unguarded"][net] = float(np.max(np.abs(loose - cpu) / np.abs(cpu)))
+            check(out["cpu_rel"][net] <= LPIPS_CPU_RTOL, f"{label}: {net} card {card} vs CPU float64 {cpu}")
+        out["cpu_wait_s"] = time.perf_counter() - t0
+        check(not registry_stats(), f"{label}: handles left after release {registry_stats()}")
+        check(bc.launches == 0 and bq.launches == 0, f"{label}: kernel launches {bc.launches}, {bq.launches}")
+        out["launches"] = {"binned_confusion": bc.launches, "biquad_cascade": bq.launches}
+        pool.close()
+        pool.join()
+    torch.cuda.empty_cache()
+    out.update(phase_s=time.perf_counter() - t_phase,
+               reduced="none: LPIPS-Alex on all 100 pairs at 2040 x 1356, VGG and SqueezeNet on the first 10; PPL at"
+                       " the JAX defaults; random convs (no pretrained file), the bundled trained heads")
+    o = out
+    print(
+        f"perceptual phase: {label}: LPIPS values {o['values']}; ms a pair {o['ms_per_pair']}; card vs float64 CPU"
+        f" {o['cpu_rel']} (tolerance {LPIPS_CPU_RTOL}; with the float32 guard out {o['cpu_rel_unguarded']}); host syncs"
+        f" {o['host_syncs']}; profiled alex update {o['profile']}; bf16 gate {o['bf16_gate']}; PPL {o['ppl']} in"
+        f" {o['ppl_compute_s']:.2f} s; PPL vs float64 on {PPL_ORACLE} {o['ppl_oracle']}; discarding vs numpy"
+        f" {o['discard_err']:.2e}; waited {o['cpu_wait_s']:.1f} s on the CPU path after PPL; phase {o['phase_s']:.1f} s",
+        flush=True,
+    )
+    return out
+
+
 def outermost(events) -> list:
     """Names of the events not nested in an earlier one of the same name on
     the same thread: a c10d all_gather records its profiling title twice,
@@ -5223,7 +6013,12 @@ def main() -> None:
         "criteo": criteo_phase(torch, bc),
         "sync": sync_phase(torch, bc, smi),
     }
+    div2k = paths["restoration"].pop("div2k_u8")
+    lpips_cpu = lpips_cpu_start(torch, div2k)  # the perceptual phase's CPU path, beside the next two phases
     pairwise = pairwise_phase(torch, bc)
+    backbone_image = {"generative": generative_phase(torch, bc),
+                      "perceptual": perceptual_phase(torch, bc, div2k, lpips_cpu)}
+    del div2k
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -5335,7 +6130,7 @@ def main() -> None:
                           for kind, f in paths[path]["fused_all"].items()},
             }
             for path in ("restoration", "pansharpening")
-        },
+        } | backbone_image,
         "monitoring": {
             **{k: paths["criteo"][k] for k in (
                 "stream_s", "compute_ms", "alerts", "worst", "state_worst", "cpu_updates", "cpu_s", "reduced", "host_syncs",

@@ -24,7 +24,11 @@ monitoring slice: the sketch's bucket index on the card against the float64
 numpy oracle (``chip_smoke.sketch_index_oracle``) and a windowed sketch at
 the Criteo stream's batch shape bit for bit the CPU's, and every monitoring
 member in a fused collection replayed bit for bit its unfused twin with no
-host sync.
+host sync; and the backbone slice: the Inception and LPIPS forwards on the
+card against the CPU path within a tolerance that TF32 would not hold, a
+captured FID update replayed bit for bit the unfused one, the eager latch
+with an extractor that reads the host, the engine's graphs per bucket and
+its eager bucket after a failed capture, and the bfloat16 gates.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -1585,3 +1589,227 @@ def test_monitoring_collection_replays_bit_for_bit_without_host_syncs(cuda):
     assert step.counts["replayed"] == 4 and sorted(step.leaders) == sorted(g[0] for g in cols[True].compute_groups.values())
     for k, v in cols[False].compute().items():
         assert torch.equal(cols[True].compute()[k], v), k
+
+
+# ------------------------------------------------------------ the backbone image metrics
+
+
+@pytest.fixture
+def tf32_on():
+    """torch's TF32 defaults for cuDNN (float32 convolutions may run in TF32): the library keeps its own in full
+    float32 whatever this says."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+def _unguarded(module):
+    """The module's full-float32 guard taken out: what the card computes under TF32."""
+    import contextlib
+    from unittest import mock
+
+    return mock.patch.object(module, "_ieee_float32", lambda *b: contextlib.nullcontext())
+
+
+def _u8_images(n, seed, side=32):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (n, 3, side, side), dtype=np.uint8))
+
+
+def test_inception_on_the_card_matches_the_cpu_where_tf32_would_not(cuda, tf32_on):
+    """The 2048-d features of 8 images on the card within 1e-5 of the CPU path's largest (float32 sums in
+    another order; measured 2.4e-7), and the same forward with the float32 guard taken out beyond it."""
+    from tpumetrics_torch.image import _inception
+
+    params = _inception.random_inception_params(0)
+    cpu_p = {k: torch.from_numpy(v) for k, v in params.items()}
+    card_p = {k: v.to(cuda) for k, v in cpu_p.items()}
+    imgs = _u8_images(8, 1)
+    want = _inception.inception_v3_features(cpu_p, ("2048",))(imgs)[0]
+    scale = float(want.abs().max())
+    got = _inception.inception_v3_features(card_p, ("2048",))(imgs.to(cuda))[0].cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    with _unguarded(_inception):
+        loose = _inception.inception_v3_features(card_p, ("2048",))(imgs.to(cuda))[0].cpu()
+    assert float((loose - want).abs().max()) > 1e-5 * scale
+
+
+def test_lpips_on_the_card_matches_the_cpu_where_tf32_would_not(cuda, tf32_on):
+    from tpumetrics_torch.functional.image import learned_perceptual_image_patch_similarity as lpips
+    from tpumetrics_torch.functional.image.lpips import lpips_head_weights
+    from tpumetrics_torch.image import _backbones
+
+    params = _backbones.random_lpips_params("alex", 0)
+    rng = np.random.default_rng(2)
+    a, b = (torch.from_numpy(rng.uniform(0, 1, (2, 3, 256, 256)).astype(np.float32)) for _ in range(2))
+    heads = [torch.from_numpy(w) for w in lpips_head_weights("alex")]
+    cpu_net = _backbones.alexnet_features(_backbones.lpips_conv_params(params, "cpu", torch.float64))
+    want = lpips(a.double(), b.double(), cpu_net, [h.double() for h in heads], normalize=True, reduction="none")
+    card_net = _backbones.alexnet_features(_backbones.lpips_conv_params(params, cuda))
+    got = lpips(a.to(cuda), b.to(cuda), card_net, heads, normalize=True, reduction="none").cpu().double()
+    assert float(((got - want) / want).abs().max()) <= 1e-5
+    with _unguarded(_backbones):
+        loose = lpips(a.to(cuda), b.to(cuda), card_net, heads, normalize=True, reduction="none").cpu().double()
+    assert float(((loose - want) / want).abs().max()) > 1e-5
+
+
+@pytest.fixture
+def inception_file(tmp_path):
+    from tpumetrics_torch.backbones import registry
+    from tpumetrics_torch.image._inception import random_inception_params
+
+    path = tmp_path / "inception.npz"
+    np.savez(path, **random_inception_params(3))
+    registry._reset_backbones()
+    yield str(path)
+    registry._reset_backbones()
+
+
+def test_a_captured_fid_update_replays_bit_for_bit_the_unfused_one(cuda, tf32_on, inception_file):
+    """FID's update captured as a graph (the forward inlined) against the same update run op by op (the
+    extractor through the engine's own graph): states bit for bit after every update, with TF32 allowed
+    around them (the captured convolutions keep full float32), and a replay that syncs nothing."""
+    from tpumetrics_torch.backbones import registry_stats
+    from tpumetrics_torch.image import FrechetInceptionDistance
+
+    kw = dict(feature=2048, feature_extractor_weights_path=inception_file, device=cuda)
+    fused, unfused = FrechetInceptionDistance(**kw), FrechetInceptionDistance(**kw)
+    for i in range(4):
+        imgs = _u8_images(16, 10 + i).to(cuda)
+        if i == 3:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            fused.update(imgs, real=i % 2 == 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        unfused.update(imgs, real=i % 2 == 0)
+        if i == 0:
+            unfused._jit_accum.eager_mode = True
+        for name in fused._defaults:
+            assert torch.equal(getattr(fused, name), getattr(unfused, name)), (i, name)
+    assert fused._jit_accum.counts == {"eager": 1, "captured": 1, "replayed": 2}
+    (stats,) = registry_stats().values()
+    assert stats["refs"] == 2 and stats["compiles"] == 1  # the engine captured bucket 16 for the unfused one
+    assert bool(torch.isfinite(fused.compute()))
+
+
+def test_the_eager_latch_with_an_extractor_that_reads_the_host(cuda, recwarn):
+    """An extractor that reads the device on the host fails its capture; the eager run succeeds, so FID latches
+    eager mode with one warning, and its states equal a plain eager FID's. A transient error does not latch."""
+    from tpumetrics_torch.image import FrechetInceptionDistance
+
+    def reads_host(x):
+        f = x.reshape(x.shape[0], -1)[:, :8].float()
+        return f * (1.0 + 0.0 * float(f.mean()))
+
+    def plain(x):
+        return x.reshape(x.shape[0], -1)[:, :8].float()
+
+    latched = FrechetInceptionDistance(feature=reads_host, num_features=8, device=cuda)
+    ref = FrechetInceptionDistance(feature=plain, num_features=8, device=cuda)
+    for i in range(3):
+        imgs = _u8_images(6, 20 + i).to(cuda)
+        latched.update(imgs, real=True)
+        ref.update(imgs, real=True)
+        ref._jit_accum.eager_mode = True
+    assert latched._jit_accum.eager_mode and latched._jit_accum.counts == {"eager": 3, "captured": 0, "replayed": 0}
+    assert len([w for w in recwarn if "cannot be captured" in str(w.message)]) == 1
+    for name in latched._defaults:
+        assert torch.equal(getattr(latched, name), getattr(ref, name)), name
+
+    state = {"bad": False}
+
+    def flaky(x):
+        if state["bad"]:
+            raise ValueError("bad batch")
+        return plain(x)
+
+    fid = FrechetInceptionDistance(feature=flaky, num_features=8, device=cuda)
+    fid.update(_u8_images(6, 30).to(cuda), real=True)
+    state["bad"] = True
+    with pytest.raises(ValueError, match="bad batch"):
+        fid.update(_u8_images(6, 31).to(cuda), real=True)
+    assert not fid._jit_accum.eager_mode
+    state["bad"] = False
+    fid.update(_u8_images(6, 32).to(cuda), real=True)
+    warned = [str(w.message) for w in recwarn if "cannot be captured" in str(w.message)]
+    assert fid._jit_accum.counts["captured"] == 1 and not fid._jit_accum.eager_mode, (fid._jit_accum.counts, warned)
+
+
+def test_the_engine_captures_one_graph_per_bucket_on_the_card(cuda):
+    from tpumetrics_torch.backbones import get_backbone, registry
+
+    registry._reset_backbones()
+    rng = np.random.default_rng(5)
+    params = {"w": (rng.standard_normal((8, 3, 3, 3)) * 0.2).astype(np.float32)}
+    h = get_backbone("test:conv", params, device=cuda,
+                     forward=lambda p, x: torch.tanh(torch.nn.functional.conv2d(x, p["w"], padding=1)))
+    xs = {n: torch.from_numpy(rng.standard_normal((n, 3, 8, 8)).astype(np.float32)).to(cuda) for n in (3, 4, 5, 7, 8)}
+    outs = {n: h(x) for n, x in xs.items()}  # buckets 4 (eager, captured) and 8 (eager, captured, replayed)
+    assert h.engine.compile_count == 2 and h.engine.dispatch_count == 5
+    assert all(outs[n].shape[0] == n for n in outs)
+    x5 = xs[8][:5]
+    assert torch.equal(h(x5), h(xs[8])[:5])  # the pad rows leak into nothing
+    h.close()
+
+
+def test_an_engine_bucket_whose_capture_fails_runs_eagerly(cuda, recwarn):
+    """A custom forward that reads the host cannot be captured: its bucket runs eagerly from then on, with one
+    warning, and gives the same values; other engines capture as before."""
+    from tpumetrics_torch.backbones import get_backbone, registry
+
+    registry._reset_backbones()
+    h = get_backbone("test:host", {"s": np.float32(2.0)}, device=cuda,
+                     forward=lambda p, x: x * p["s"] * (1.0 + 0.0 * float(x.sum())))
+    x = torch.arange(6.0, device=cuda).reshape(3, 2)
+    outs = [h(x).cpu() for _ in range(3)]
+    assert all(torch.equal(o, outs[0]) for o in outs) and outs[0].tolist() == [[0.0, 2.0], [4.0, 6.0], [8.0, 10.0]]
+    assert h.engine.compile_count == 0 and [p.eager for p in h.engine._programs.values()] == [True]
+    assert len([w for w in recwarn if "cannot be captured" in str(w.message)]) == 1
+    g = get_backbone("test:ok", {"s": np.float32(3.0)}, device=cuda, forward=lambda p, x: x * p["s"])
+    for _ in range(3):
+        g(x)
+    assert g.engine.compile_count == 1  # the pool the failed capture left behind was replaced
+    registry._reset_backbones()
+
+
+def test_bf16_policy_gates_on_the_card(cuda):
+    """bfloat16 is opt-in: FID within max(0.05, 10 %), KID within max(0.005, 25 %) and LPIPS within max(0.01,
+    5 %) of float32 (the JAX package's gates), on the card's tensor cores."""
+    from tpumetrics_torch.backbones import get_backbone, registry
+    from tpumetrics_torch.image import (
+        FrechetInceptionDistance, KernelInceptionDistance, LearnedPerceptualImagePatchSimilarity)
+    from tpumetrics_torch.image._backbones import random_lpips_params
+
+    registry._reset_backbones()
+    rng = np.random.default_rng(30)
+    params = {"w": (rng.standard_normal((16, 3, 3, 3)) * 0.2).astype(np.float32),
+              "b": (rng.standard_normal((16,)) * 0.1).astype(np.float32)}
+    real, fake = (torch.from_numpy(rng.integers(0, 255, (32, 3, 32, 32)).astype(np.uint8)).to(cuda) for _ in range(2))
+
+    def feat(p, x):
+        return torch.tanh(torch.nn.functional.conv2d(x, p["w"], padding=1) + p["b"].reshape(1, -1, 1, 1)).mean((2, 3))
+
+    def run(policy):
+        h = get_backbone("test:feat", params, forward=feat, dtype_policy=policy, device=cuda)
+        fid = FrechetInceptionDistance(feature=lambda x: h(x.float() / 255.0), num_features=16, device=cuda)
+        kid = KernelInceptionDistance(feature=lambda x: h(x.float() / 255.0), subsets=4, subset_size=16, device=cuda)
+        for m in (fid, kid):
+            m.update(real, real=True)
+            m.update(fake, real=False)
+        return float(fid.compute()), float(kid.compute()[0])
+
+    (f32, k32), (f16, k16) = run("float32"), run("bfloat16")
+    assert abs(f16 - f32) <= max(0.05, 0.1 * abs(f32)) and f16 != f32
+    assert abs(k16 - k32) <= max(0.005, 0.25 * abs(k32))
+    lp = random_lpips_params("alex", 31)
+    img1, img2 = (torch.from_numpy(rng.uniform(-1, 1, (8, 3, 64, 64)).astype(np.float32)).to(cuda) for _ in range(2))
+    values = {}
+    for policy in ("float32", "bfloat16"):
+        m = LearnedPerceptualImagePatchSimilarity(net_type="alex", backbone_params=lp, backbone_dtype_policy=policy,
+                                                  device=cuda)
+        m.update(img1, img2)
+        values[policy] = float(m.compute())
+        m.release_backbones()
+    assert abs(values["bfloat16"] - values["float32"]) <= max(0.01, 0.05 * abs(values["float32"]))
+    registry._reset_backbones()

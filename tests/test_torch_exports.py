@@ -2,8 +2,9 @@
 
 Every ported package's ``__all__`` equals the JAX one (the top level and
 ``functional`` restricted to the ported domains; ``image`` and
-``functional.image`` less the seven backbone metrics, which wait for the
-port of the backbones; ``telemetry`` and its ported modules less the names
+``functional.image`` whole, the backbone metrics included; ``backbones``
+less ``backbone_partition_rules``, which waits for the port of
+``parallel/sharding.py``; ``telemetry`` and its ported modules less the names
 of the parts still to port: lockstep, spans, SLOs, the admin server,
 federation, timelines, the flight recorder and Perfetto traces), no
 exported name is a
@@ -29,16 +30,10 @@ DOMAINS = ["audio", "classification", "clustering", "image", "monitoring", "nomi
 FUNCTIONAL_DOMAINS = [
     "audio", "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval"
 ]
-# the image metrics that run a backbone network (Inception, LPIPS's nets, a generator): not ported yet
-WAITING_FOR_BACKBONES = {
-    "FrechetInceptionDistance",
-    "InceptionScore",
-    "KernelInceptionDistance",
-    "LearnedPerceptualImagePatchSimilarity",
-    "MemorizationInformedFrechetInceptionDistance",
-    "PerceptualPathLength",
-    "learned_perceptual_image_patch_similarity",
-}
+# the image metrics that run a backbone network (Inception, LPIPS's nets, a generator): all ported
+WAITING_FOR_BACKBONES = set()
+# the JAX backbone names the port lacks: the sharded weight placement waits for parallel/sharding.py
+WAITING_FOR_SHARDING = {"backbone_partition_rules"}
 # the JAX telemetry names whose modules are not ported yet: lockstep, spans, SLOs, the admin server,
 # federation, timelines, the flight recorder and Perfetto traces
 WAITING_FOR_TELEMETRY = {
@@ -85,11 +80,19 @@ def test_the_names_waiting_for_telemetry_are_the_jax_ones_the_port_lacks():
 
 def test_the_names_waiting_for_the_backbones_are_the_jax_image_ones():
     """Each waiting name is a JAX image export that the port lacks, and the
-    image packages lack nothing else."""
+    image packages lack nothing else: none waits now."""
     jax_image = set(_pair("image")[1].__all__) | set(_pair("functional.image")[1].__all__)
     port_image = set(_pair("image")[0].__all__) | set(_pair("functional.image")[0].__all__)
     assert WAITING_FOR_BACKBONES == jax_image - port_image
     assert not WAITING_FOR_BACKBONES & set(tpumetrics_torch.__all__)
+
+
+def test_backbones_all_is_the_jax_one_less_the_sharded_placement():
+    port, ref = _pair("backbones")
+    assert port.__all__ == [n for n in ref.__all__ if n not in WAITING_FOR_SHARDING]
+    assert WAITING_FOR_SHARDING == set(ref.__all__) - set(port.__all__)
+    for attr in port.__all__:
+        assert hasattr(port, attr) and not isinstance(getattr(port, attr), types.ModuleType), attr
 
 
 def test_top_level_all_is_the_jax_top_level_restricted_to_the_ported_domains():

@@ -137,15 +137,29 @@ def test_modular_metric_matches_jax(name, kwargs, kind):
         _close(got.numpy(), want_value, MAP_ATOL if np.ndim(want_value) > 1 else ATOL)
 
 
+def _stand_in_backbones(port):
+    """Constructor arguments for the classes that run a backbone, whose pretrained weights are not bundled: a
+    stand-in extractor or feature stack in the package's own tensors."""
+    feats = (lambda x: x.reshape(x.shape[0], -1)[:, :4].float()) if port else (
+        lambda x: jnp.asarray(x, jnp.float32).reshape(x.shape[0], -1)[:, :4])
+    return {"FrechetInceptionDistance": {"feature": feats, "num_features": 4},
+            "KernelInceptionDistance": {"feature": feats}, "InceptionScore": {"feature": feats},
+            "MemorizationInformedFrechetInceptionDistance": {"feature": feats},
+            "LearnedPerceptualImagePatchSimilarity": {"net_type": lambda x: [x]},
+            "PerceptualPathLength": {"sim_net": lambda x: [x]}}
+
+
 def test_class_attributes_and_state_reductions_equal_jax():
     """Each class's flags and plot bounds, and each default configuration's
-    state names, default dtypes and ``dist_reduce_fx``, are the JAX class's."""
+    state names, default dtypes and ``dist_reduce_fx``, are the JAX class's
+    (the backbone classes over stand-in backbones)."""
+    port_kwargs, ref_kwargs = _stand_in_backbones(True), _stand_in_backbones(False)
     for name in image.__all__:
         cls, ref_cls = getattr(image, name), getattr(jax_image, name)
         for attr in ("higher_is_better", "is_differentiable", "full_state_update", "plot_lower_bound",
                      "plot_upper_bound"):
             assert getattr(cls, attr, None) == getattr(ref_cls, attr, None), (name, attr)
-        port, ref = cls(device="cpu"), ref_cls()
+        port, ref = cls(device="cpu", **port_kwargs.get(name, {})), ref_cls(**ref_kwargs.get(name, {}))
         assert sorted(port._defaults) == sorted(ref._defaults), name
         for state, default in ref._defaults.items():
             mine = port._defaults[state]
@@ -153,7 +167,8 @@ def test_class_attributes_and_state_reductions_equal_jax():
                 assert mine == [], (name, state)
             else:
                 assert str(mine.dtype).split(".")[-1] == str(default.dtype), (name, state)
-            assert port._reductions[state].__name__ == ref._reductions[state].__name__, (name, state)
+            mine_fx, ref_fx = port._reductions[state], ref._reductions[state]
+            assert getattr(mine_fx, "__name__", mine_fx) == getattr(ref_fx, "__name__", ref_fx), (name, state)
 
 
 def test_constructor_errors_raise_what_jax_raises():

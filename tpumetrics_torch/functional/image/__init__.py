@@ -1,10 +1,10 @@
 """Functional image metrics of the port (counterpart of
-``tpumetrics/functional/image``), the ones without a backbone network:
-LPIPS waits for the port of the backbones."""
+``tpumetrics/functional/image``)."""
 
 from tpumetrics_torch.functional.image.d_lambda import spectral_distortion_index
 from tpumetrics_torch.functional.image.ergas import error_relative_global_dimensionless_synthesis
 from tpumetrics_torch.functional.image.gradients import image_gradients
+from tpumetrics_torch.functional.image.lpips import learned_perceptual_image_patch_similarity
 from tpumetrics_torch.functional.image.psnr import peak_signal_noise_ratio
 from tpumetrics_torch.functional.image.psnrb import peak_signal_noise_ratio_with_blocked_effect
 from tpumetrics_torch.functional.image.rase import relative_average_spectral_error
@@ -21,6 +21,7 @@ from tpumetrics_torch.functional.image.vif import visual_information_fidelity
 __all__ = [
     "error_relative_global_dimensionless_synthesis",
     "image_gradients",
+    "learned_perceptual_image_patch_similarity",
     "multiscale_structural_similarity_index_measure",
     "peak_signal_noise_ratio",
     "peak_signal_noise_ratio_with_blocked_effect",

@@ -792,6 +792,28 @@ class Metric(ABC):
         """Deep copy of the metric."""
         return copy.deepcopy(self)
 
+    # ------------------------------------------------------- shared backbones
+
+    @property
+    def _backbone_share_ids(self) -> tuple:
+        """Registry keys of the resident backbones this metric dispatches
+        (``tpumetrics_torch.backbones``). Empty for metrics without a
+        pretrained forward."""
+        return tuple(h.key for h in getattr(self, "_backbone_handles", ()))
+
+    def release_backbones(self) -> None:
+        """Release this metric's references on shared backbone handles.
+
+        Idempotent. Metrics that acquire a
+        :class:`~tpumetrics_torch.backbones.registry.BackboneHandle` in
+        ``__init__`` (LPIPS, the FID family, PPL with a named net) record it
+        in ``self._backbone_handles``; the last release across all instances
+        frees the resident weights. (The JAX package's tenant hibernation,
+        which parks references, waits for the port of the serving planes.)"""
+        handles, self._backbone_handles = getattr(self, "_backbone_handles", ()), ()
+        for h in handles:
+            h.close()
+
     # ------------------------------------------------------------ persistence
 
     def persistent(self, mode: bool = False) -> None:

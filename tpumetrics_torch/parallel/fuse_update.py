@@ -68,6 +68,7 @@ import torch
 
 from tpumetrics_torch.buffers import MaskedBuffer
 from tpumetrics_torch.ops import COUNTED_KERNELS
+from tpumetrics_torch.utils.checks import _gc_paused
 from tpumetrics_torch.utils.exceptions import TPUMetricsUserError
 from tpumetrics_torch.utils.prints import rank_zero_warn
 
@@ -429,7 +430,7 @@ class FusedCollectionStep:
                     self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
                 before = {name: wrapper.captured for name, wrapper in COUNTED_KERNELS.items()}
-                with torch.cuda.graph(graph, pool=self._pool):
+                with _gc_paused(), torch.cuda.graph(graph, pool=self._pool):
                     self._write_back(self._transition(state, static, kwargs))
                 kernel_calls = {name: wrapper.captured - before[name] for name, wrapper in COUNTED_KERNELS.items()}
             self.capture_seconds.append(time.perf_counter() - t0)

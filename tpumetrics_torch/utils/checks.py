@@ -8,8 +8,10 @@ JAX package skips them under ``jit`` (``_is_capturing`` stands for its
 
 from __future__ import annotations
 
+import gc
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,6 +22,21 @@ def _is_capturing() -> bool:
     """Whether the current CUDA stream is capturing a graph, where nothing may
     be read on the host."""
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+@contextmanager
+def _gc_paused() -> Iterator[None]:
+    """Hold Python's cyclic garbage collector off for the block: around a
+    graph capture, a collection could free a dead object's CUDA graph (a
+    metric in a reference cycle holds its graphs until the collector runs),
+    and destroying a graph while a stream captures invalidates the capture."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
 
 
 def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
