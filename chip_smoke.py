@@ -194,12 +194,12 @@ Phases, each of which passes or exits non-zero:
    and each collection's fused phase;
 5j. the image metrics that run a backbone, with torch's TF32 defaults (the library keeps its own convolutions
    and products in full float32): a generative stream at CIFAR-10 FID geometry (fid50k_full's 50,000 real and
-   50,000 generated 32 x 32 uint8 images, made on the card from the seed; FID over the first 20,000 of each, at
+   50,000 generated 32 x 32 uint8 images, made on the card from the seed; FID over the first 5,000 of each, at
    299 x 299 through InceptionV3 at full width with ``random_inception_params``, in batches of 256) through
    ``FrechetInceptionDistance`` (its update one CUDA graph per batch signature; its extractor also sums the
    features' float64 moments: FID against a float64 scipy ``sqrtm`` oracle within a bound scaled by the moments'
    cancellation), and ``KernelInceptionDistance`` (100 subsets of 1,000), MiFID and ``InceptionScore`` over the
-   first 5,000 of each set on the one resident 2048-tap handle (KID and IS against float64 oracles on the card
+   first 1,250 of each set on the one resident 2048-tap handle (KID and IS against float64 oracles on the card
    over the same draws); the card's features for 32 images against the port's CPU path (a worker), streaming
    against a single pass, host syncs, update and compute times, the bfloat16 policy's rate and gates; and a
    perceptual stream: ``LearnedPerceptualImagePatchSimilarity`` over the restoration stream's 100 DIV2K pairs
@@ -207,6 +207,23 @@ Phases, each of which passes or exits non-zero:
    the port's float64 CPU path (workers), and ``PerceptualPathLength`` at the JAX defaults (10,000 samples,
    epsilon 1e-4, resize 64, VGG-16) over a seeded generator of 3 x 256 x 256 images, its first 256 distances
    against a float64 oracle of the definition on the same latents;
+5k. detection phase, at COCO val2017 size as every detection paper evaluates it (the COCO detection protocol,
+   pycocotools' ``COCOeval`` defaults): 5,000 images of 640 x 480, 80 classes (person about 30 %), 36,781-like
+   ground truths (about 7.3 an image, to 60; 41/34/24 % small/medium/large, 1 % crowds, instance areas of 0.5-0.9
+   of their boxes and 0 on a tenth) and a detector's top-100 an image (jittered copies over IoU 0.3-0.98, class
+   confusions, background; float32 scores, a fifth on a 1/1024 grid, some -0.0 and 0.0; integer boxes with IoUs
+   exactly 0.5 and 0.75 on 5 % of the images), made from the seed: ``MeanAveragePrecision`` list-of-dicts (32
+   images an update) and packed (``pack_detection_batch``, 128/64 slots, MaskedBuffer rows of 524,288 / 65,536,
+   in a fused collection: the ragged last batch eager, the rest replayed, one under host-sync errors), and micro
+   with ``class_metrics``; each ``compute()`` timed by stage; the card's float64 precision/recall arrays and
+   every summary value bit for bit the numpy protocol's over all images, the per-cell reference's over the
+   first 500 (worker processes started with the perceptual phase, the macro protocol split by class), list and packed equal, a planted dropped match
+   caught; ``coco_greedy_match`` at the stream's one call (every cell, events, L2 flushed) against its bound and
+   its plain version, and bit for bit the plain version there, on the first 500 images' cells (also on the CPU)
+   and at its edge shapes; the IoU family on the first 500 images against float64 oracles (1e-5) and panoptic
+   quality on 200 COCO-panoptic-shaped images (133 categories), its states on the card against the CPU path's
+   (worker processes started with the script, a batch each, summed in order; counts exact,
+   ``iou_sum`` within one float32 ulp);
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -248,7 +265,8 @@ bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``,
 ``chip_smoke.restoration_phase(torch, bc)``,
 ``chip_smoke.pansharpening_phase(torch, bc)``, ``chip_smoke.criteo_phase(torch, bc)``,
 ``chip_smoke.generative_phase(torch, bc)`` and ``chip_smoke.perceptual_phase(torch, bc)`` (no build needed; they
-start worker processes with ``spawn``; run alone, the perceptual phase makes its DIV2K pairs anew).
+start worker processes with ``spawn``; run alone, the perceptual phase makes its DIV2K pairs anew), and
+``chip_smoke.detection_phase(torch, chip_smoke.detection_oracle_start())`` (after the build).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -273,6 +291,8 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
+H100_FP64_OPS_PER_S = 34e12  # fp64 outside the tensor cores, H100 SXM data sheet
+IOU_FAMILY_ATOL = 1e-5  # IoU, GIoU, DIoU, CIoU means (float32 entries, float32 sums) against float64
 SEED = 0
 
 
@@ -5110,15 +5130,16 @@ def sync_phase(torch, bc, smi: str) -> dict:
 # and run through InceptionV3 at full width with random_inception_params(SEED) (the pretrained weights are not in
 # the repository: the values mean nothing, the times do), in batches of 256 and a ragged last 80
 CIFAR_IMAGES, CIFAR_BATCH, CIFAR_SIDE = 50_000, 256, 32
-# FID over the first 20,000 of each set: on an H100 the full 2 x 50,000 took 57.5 s of a 111.6 s phase (1,741
-# images/s), past the phase's 90 s, and 25,000 a set left the script at 607.5 s and 658 s (the earlier phases vary
-# by tens of seconds between runs); the resolution and the width stay whole
-CIFAR_FID_IMAGES = 20_000
-CIFAR_SUBSET = 5_000  # KID, MiFID and IS over the first 5,000 of each set
+# FID over the first 5,000 of each set: on an H100 the full 2 x 50,000 took 57.5 s of a 111.6 s phase (1,741
+# images/s), past the phase's 90 s; 25,000 a set left the script at 607.5 s and 658 s, 20,000 a set with the
+# detection phase after it at 685 and 745 s, and 10,000 a set at 581.7-596.5 s and 743.0 s (the earlier phases
+# vary by tens of seconds between runs, over a hundred between hosts); the resolution and the width stay whole
+CIFAR_FID_IMAGES = 5_000
+CIFAR_SUBSET = 1_250  # KID (subsets of 1,000), MiFID and IS over the first 1,250 of each set
 KID_SUBSETS, KID_SUBSET_SIZE = 100, 1000
 CIFAR_CPU_IMAGES = 32  # held card against the port's CPU path in a worker process
 INCEPTION_CPU_RTOL = 1e-5  # card vs CPU features, of the largest: float32 sums in another order (TF32 would not hold)
-# the float32 additions behind one entry of FID's moment sums: a batch product's 256 terms, then the 196 batches
+# the float32 additions behind one entry of FID's moment sums: a batch product's 256 terms, then the batches
 FID_SUM_DEPTH = CIFAR_BATCH + -(-CIFAR_FID_IMAGES // CIFAR_BATCH)
 # KID's mean and std against a float64 MMD on the card over the same subsets, each of its own size (both float64,
 # their sums in another order); IS's mean and std against a float64 oracle on the card over the same split, of the
@@ -5416,12 +5437,12 @@ def gate(kind: str, low: float, full: float) -> dict:
 
 
 def generative_phase(torch, bc) -> dict:
-    """CIFAR-10 FID (fid50k_full's protocol, its sets cut to 20,000: see the note above the constants) on the card,
+    """CIFAR-10 FID (fid50k_full's protocol, its sets cut to 5,000: see the note above the constants) on the card,
     with torch's TF32 defaults and the He-scaled random Inception (``generative_inception_params``): FID over both
     sets through a captured update whose extractor also sums the float64 moments of the same features (FID's float32
     states against them entry by entry, a check that must reject two planted faults; FID against a float64 scipy
     oracle within a bound scaled by the moments' cancellation), KID (100 subsets of 1,000), MiFID and IS over the
-    first 5,000 of each set on the one resident 2048-tap handle (KID and IS against float64 oracles on the card
+    first 1,250 of each set on the one resident 2048-tap handle (KID and IS against float64 oracles on the card
     over the same draws, each check shown to tell them from another seed's), the card's features for 32 images
     against the port's CPU path (a worker), streaming against a single pass, host syncs, update and compute times,
     and the bfloat16 policy's extraction rate and FID/KID gaps against their gates."""
@@ -5506,7 +5527,7 @@ def generative_phase(torch, bc) -> dict:
         worker = threading.Thread(target=lambda: oracle.update(fid_oracle(oracle_moments["real"], oracle_moments["fake"])))
         worker.start()  # scipy's sqrtm on the host beside the card's work below
 
-        # KID, MiFID and IS over the first 5,000 of each set, each through the handle's bucketed graphs
+        # KID, MiFID and IS over the first CIFAR_SUBSET of each set, each through the handle's bucketed graphs
         t0 = time.perf_counter()
         for name, imgs in (("real", real_imgs), ("fake", fake_imgs)):
             for lo in range(0, CIFAR_SUBSET, CIFAR_BATCH):
@@ -5616,7 +5637,7 @@ def generative_phase(torch, bc) -> dict:
         parts["update_timing"] = lap()
 
         # the bfloat16 policy: extraction rate (float input, so the convolutions run in bfloat16) against float32,
-        # in turns, and the FID and KID gaps over the first 5,000 of each set against their gates
+        # in turns, and the FID and KID gaps over the first CIFAR_SUBSET of each set against their gates
         h16 = get_backbone("inception:2048", params, dtype_policy="bfloat16", device="cuda")
         xs = [real_imgs[lo:lo + CIFAR_BATCH].float() for lo in range(0, 5 * CIFAR_BATCH, CIFAR_BATCH)]
         for h in (handle, h16):
@@ -5675,7 +5696,8 @@ def generative_phase(torch, bc) -> dict:
     os.rmdir(workdir)
     torch.cuda.empty_cache()
     out.update(values=values, compute_ms=compute_ms, phase_s=time.perf_counter() - t_phase, parts_s=parts,
-               reduced=f"FID over the first {CIFAR_FID_IMAGES:,} of each set of {CIFAR_IMAGES:,} (the phase's 90 s);"
+               reduced=f"FID over the first {CIFAR_FID_IMAGES:,} and KID/MiFID/IS over the first {CIFAR_SUBSET:,} of each"
+                       f" set of {CIFAR_IMAGES:,} (the script's 600 s);"
                        " 299 x 299 at full width; random weights, He-scaled (no pretrained file)")
     o = out
     print(
@@ -5956,6 +5978,690 @@ def profile_step(torch, col, batch, label: str) -> dict:
     return stats
 
 
+
+# ---------------------------------------------------------------- detection
+
+COCO_IMAGES = 5_000  # val2017
+COCO_W, COCO_H = 640, 480
+COCO_CLASSES = 80
+COCO_GT_MEAN = 36_781 / 5_000  # val2017's instances an image
+COCO_GT_MAX = 60  # crowd scenes' tail
+COCO_PERSON = 0.30  # class 0's share of the instances
+COCO_AREA_SHARES = (0.41, 0.34, 0.25)  # small (< 32^2), medium (< 96^2), large instances
+COCO_CROWD = 0.01
+COCO_AREA_ZERO = 0.1  # instances whose `area` is 0, so the box's area stands in
+COCO_DETS = 100  # a detector's top-100 an image
+COCO_EXACT_IMAGES = 0.05  # images whose integer boxes put IoUs exactly on 0.5 and 0.75
+COCO_BATCH = 32
+COCO_DET_SLOTS, COCO_GT_SLOTS = 128, 64
+COCO_DET_CAPACITY, COCO_GT_CAPACITY = 524_288, 65_536
+COCO_UNFUSED_IMAGES = 500  # held against the per-cell reference too
+COCO_IOU_IMAGES = 500  # the IoU family's images
+PANOPTIC_IMAGES = 200  # of COCO panoptic val2017's 5,000
+PANOPTIC_CPU_WORKERS = 3  # the CPU path's batches (its torch.unique passes take some 0.2 s an image a member)
+PANOPTIC_THINGS, PANOPTIC_STUFFS = 80, 53
+PANOPTIC_BATCH = 8
+
+
+def coco_image(rng, index: int) -> tuple:
+    """One image of the COCO val2017-size detection stream: ``(preds, target)``
+    numpy dicts (see ``detection_phase``)."""
+    n_gt = 0 if rng.random() < 0.01 else int(min(COCO_GT_MAX, 1 + rng.negative_binomial(1.2, 1.2 / COCO_GT_MEAN)))
+    share = np.full(COCO_CLASSES, (1 - COCO_PERSON) / (COCO_CLASSES - 1)) * (1.0 / np.arange(1, COCO_CLASSES + 1))
+    share[0] = 0.0
+    share = share / share.sum() * (1 - COCO_PERSON)
+    share[0] = COCO_PERSON
+    labels = rng.choice(COCO_CLASSES, n_gt, p=share)
+    kind = rng.choice(3, n_gt, p=COCO_AREA_SHARES)
+    lo = np.array([4.0, 32.0**2, 96.0**2])[kind]
+    hi = np.array([32.0**2, 96.0**2, 0.6 * COCO_W * COCO_H])[kind]
+    fill = rng.uniform(0.5, 0.9, n_gt)  # an instance's area over its box's
+    area = np.exp(rng.uniform(np.log(lo), np.log(hi))) / fill
+    ratio = np.exp(rng.normal(0.0, 0.5, n_gt))
+    w = np.minimum(np.sqrt(area * ratio), COCO_W - 1.0)
+    h = np.minimum(area / w, COCO_H - 1.0)
+    x, y = rng.uniform(0, COCO_W - w), rng.uniform(0, COCO_H - h)
+    exact = rng.random() < COCO_EXACT_IMAGES
+    if exact:  # integer boxes with even sides divisible by 4: halves and quarters stay integers
+        w, h = np.maximum(4 * np.round(w / 4), 4), np.maximum(4 * np.round(h / 4), 4)
+        x, y = np.round(np.minimum(x, COCO_W - w)), np.round(np.minimum(y, COCO_H - h))
+    gt = np.stack([x, y, x + w, y + h], 1).astype(np.float32)
+    crowd = (rng.random(n_gt) < COCO_CROWD).astype(np.int64)
+    g_area = (w * h * fill).astype(np.float32)
+    g_area[rng.random(n_gt) < COCO_AREA_ZERO] = 0.0
+
+    # detections: jittered copies of the ground truths (IoU about 0.3-0.98), some of another class, and background
+    n_copy = min(COCO_DETS, int(rng.integers(n_gt, 3 * n_gt + 1)) if n_gt else 0)
+    src = rng.integers(0, max(n_gt, 1), n_copy)
+    scale = rng.uniform(0.01, 0.35, n_copy)[:, None]
+    wh = np.stack([w, h], 1)[src] if n_gt else np.zeros((0, 2))
+    boxes = gt[src].astype(np.float64) + rng.normal(0.0, 1.0, (n_copy, 4)) * np.concatenate([wh, wh], 1) * scale
+    d_labels = labels[src] if n_gt else np.zeros(0, np.int64)
+    confused = rng.random(n_copy) < 0.1
+    d_labels = np.where(confused, rng.integers(0, COCO_CLASSES, n_copy), d_labels)
+    good = np.exp(-4.0 * scale[:, 0])
+    if exact and n_copy:  # exactly 0.5 and 0.75 of the ground truth: the top half / three quarters of it
+        pick = rng.random(n_copy) < 0.5
+        frac = np.where(rng.random(n_copy) < 0.5, 0.5, 0.75)
+        g = gt[src].astype(np.float64)
+        cut = np.stack([g[:, 0], g[:, 1], g[:, 2], g[:, 1] + frac * (g[:, 3] - g[:, 1])], 1)
+        boxes = np.where(pick[:, None], cut, boxes)
+        d_labels = np.where(pick, labels[src], d_labels)
+    n_bg = COCO_DETS - n_copy
+    bw, bh = rng.uniform(8, 300, n_bg), rng.uniform(8, 300, n_bg)
+    bx, by = rng.uniform(0, COCO_W - bw), rng.uniform(0, COCO_H - bh)
+    boxes = np.concatenate([boxes, np.stack([bx, by, bx + bw, by + bh], 1)])
+    d_labels = np.concatenate([d_labels, rng.choice(COCO_CLASSES, n_bg, p=share)]).astype(np.int64)
+    score = 1.0 / (1.0 + np.exp(-(3.0 * np.concatenate([good, np.zeros(n_bg)]) - 1.5 + rng.normal(0, 1.0, COCO_DETS))))
+    score = score.astype(np.float32)
+    tie = rng.random(COCO_DETS) < 0.2
+    score[tie] = np.round(score[tie] * 1024) / 1024  # scores that tie
+    zero = rng.random(COCO_DETS) < 0.01
+    score[zero] = np.where(rng.random(COCO_DETS) < 0.5, -0.0, 0.0).astype(np.float32)[zero]
+    preds = {"boxes": boxes.astype(np.float32), "scores": score, "labels": d_labels}
+    target = {"boxes": gt, "labels": labels.astype(np.int64), "iscrowd": crowd, "area": g_area}
+    return preds, target
+
+
+def coco_stream(n: int = None, seed: int = SEED) -> tuple:
+    """The stream's first ``n`` images (all ``COCO_IMAGES``) from the seed: lists of per-image numpy dicts."""
+    rng = np.random.default_rng([seed, 2017])
+    pairs = [coco_image(rng, i) for i in range(COCO_IMAGES if n is None else n)]
+    return [p for p, _ in pairs], [t for _, t in pairs]
+
+
+def coco_flat(preds: list, target: list) -> dict:
+    """The stream as flat numpy arrays with per-image counts (one transfer to the card)."""
+    cat = np.concatenate
+    return {
+        "d_boxes": cat([p["boxes"] for p in preds]), "d_scores": cat([p["scores"] for p in preds]),
+        "d_labels": cat([p["labels"] for p in preds]), "d_count": np.asarray([len(p["scores"]) for p in preds]),
+        "g_boxes": cat([t["boxes"] for t in target]).reshape(-1, 4), "g_labels": cat([t["labels"] for t in target]),
+        "g_crowd": cat([t["iscrowd"] for t in target]), "g_area": cat([t["area"] for t in target]),
+        "g_count": np.asarray([len(t["labels"]) for t in target]),
+    }
+
+
+def coco_host_inputs(preds: list, target: list) -> tuple:
+    """The numpy protocol's per-image tuples, boxes converted as the metric converts xyxy ones (float32 xywh, then
+    float64 x + w)."""
+
+    def xyxy(b):
+        b = np.asarray(b, np.float32).reshape(-1, 4)
+        x, y = b[:, 0].astype(np.float64), b[:, 1].astype(np.float64)
+        w, h = (b[:, 2] - b[:, 0]).astype(np.float64), (b[:, 3] - b[:, 1]).astype(np.float64)
+        return np.stack([x, y, x + w, y + h], 1)
+
+    dets = [(xyxy(p["boxes"]), p["scores"], p["labels"]) for p in preds]
+    gts = [(xyxy(t["boxes"]), t["labels"], t["iscrowd"], t["area"]) for t in target]
+    return dets, gts
+
+
+COCO_ORACLE_SPLIT = 4  # the macro oracle's classes but person, round-robin over this many workers
+
+
+def coco_oracle(job: str, classes: tuple = None) -> dict:
+    """The numpy protocol (the port's copy, pinned to the JAX package in the CPU tests) over the stream, in a worker
+    process: ``macro`` over every image for the stream's classes among ``classes`` (every class when None), ``micro``
+    over every image, ``unfused`` the per-cell reference over the first ``COCO_UNFUSED_IMAGES``. Returns the float64
+    precision/recall arrays, their classes, the summary and the seconds taken. A class's entries of the arrays depend
+    on that class's cells alone, so macro jobs over disjoint classes merge into the arrays of one call
+    (``coco_oracle_merge``)."""
+    from tpumetrics_torch.detection import _coco_eval
+    from tpumetrics_torch.detection.mean_ap import _torch_f32_linspace
+
+    t0 = time.perf_counter()
+    n = COCO_UNFUSED_IMAGES if job == "unfused" else COCO_IMAGES
+    dets, gts = coco_host_inputs(*coco_stream(n))
+    class_ids = sorted(np.unique(np.concatenate([d[2] for d in dets] + [g[1] for g in gts])).tolist())
+    if classes is not None:
+        class_ids = [c for c in class_ids if c in classes]
+    fn = _coco_eval.coco_evaluate_unfused if job == "unfused" else _coco_eval.coco_evaluate
+    out = fn(dets, gts, _torch_f32_linspace(0.5, 0.95, 10), _torch_f32_linspace(0.0, 1.0, 101), [1, 10, 100],
+             class_ids, average="micro" if job == "micro" else "macro", extended=True)
+    out.pop("ious")
+    out["class_ids"] = class_ids
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def coco_oracle_merge(parts: list) -> dict:
+    """The macro jobs' arrays, class by class in the sorted order, and the numpy protocol's summary of them (its own
+    ``_summarize``)."""
+    from tpumetrics_torch.detection import _coco_eval
+    from tpumetrics_torch.detection.mean_ap import _torch_f32_linspace
+
+    slot = sorted((c, i, k) for i, part in enumerate(parts) for k, c in enumerate(part["class_ids"]))
+    precision = np.stack([parts[i]["precision"][:, :, k] for _, i, k in slot], axis=2)
+    recall = np.stack([parts[i]["recall"][:, k] for _, i, k in slot], axis=1)
+    class_ids = [c for c, _, _ in slot]
+    out = _coco_eval._summarize(precision, recall, np.asarray(_torch_f32_linspace(0.5, 0.95, 10)), class_ids,
+                                class_ids, list(_coco_eval._AREA_RANGES), [1, 10, 100], {}, True)
+    out.pop("ious")
+    out["seconds"] = max(part["seconds"] for part in parts)
+    return out
+
+
+def coco_match_inputs(torch, n: int, dp: int, gp: int, seed: int, case: str = "mixed", device: str = "cuda") -> tuple:
+    """``n`` cells of at most ``dp`` detections and ``gp`` ground truths (the first cell full) for
+    ``coco_greedy_match``, flat and cell-sorted (COCO's default thresholds and area ranges): integer boxes, so that
+    IoUs tie and land exactly on 0.5 and 0.75 (detections cut to the top half or three quarters of a ground truth),
+    exact copies, duplicated ground truths (IoU ties across g), crowds, areas in every range, a NaN box, garbage
+    ground-truth rows between the cells that no cell reads, and the cell rows in a shuffled order. ``case``:
+    ``mixed``, ``all_crowd``, ``all_ignored`` (every area past the ranges) or ``ties`` (every ground truth of a cell
+    one box)."""
+    from tpumetrics_torch.detection._coco_eval import _AREA_RANGES
+    from tpumetrics_torch.detection.mean_ap import _torch_f32_linspace
+
+    rng = np.random.default_rng([seed, dp, gp, n])
+    det_count, gt_count = rng.integers(0, dp + 1, n), rng.integers(0, gp + 1, n)
+    det_count[0], gt_count[0] = dp, gp
+    gxy = rng.integers(0, 400, (n, gp, 2)).astype(np.float64)
+    gwh = (4 * rng.integers(1, 40, (n, gp, 2))).astype(np.float64)
+    gt = np.concatenate([gxy, gxy + gwh], -1)
+    if case == "ties":
+        gt[:] = gt[:, :1]
+    dup = rng.random((n, gp)) < 0.2
+    gt = np.where(dup[..., None], np.roll(gt, 1, axis=1), gt)
+    base = np.take_along_axis(gt, rng.integers(0, gp, (n, dp))[..., None].repeat(4, -1), axis=1)
+    det = base + rng.integers(-8, 9, (n, dp, 4))
+    cut = base.copy()
+    cut[..., 3] = base[..., 1] + np.where(rng.random((n, dp)) < 0.5, 0.5, 0.75) * (base[..., 3] - base[..., 1])
+    det = np.where((rng.random((n, dp)) < 0.3)[..., None], cut, det)
+    det = np.where((rng.random((n, dp)) < 0.1)[..., None], base, det)
+    if n > 1 and dp > 1:
+        det[1, 1, 0] = np.nan
+    if n > 2 and gp > 1:
+        gt[2, 1, 2] = np.nan
+    crowd = rng.random((n, gp)) < 0.1
+    area = np.where(rng.random((n, gp)) < 0.5, np.prod(gwh, -1) * rng.uniform(0.5, 0.9, (n, gp)),
+                    rng.uniform(0, 20000, (n, gp)))
+    if case == "all_crowd":
+        crowd[:] = True
+    if case == "all_ignored":
+        area[:] = 2e10
+    # flat: a cell's detections; its ground truths and one garbage ground-truth row after them
+    junk = rng.uniform(-1e3, 1e3, (n, 1, 4))
+    d_flat = np.concatenate([det[i, : det_count[i]] for i in range(n)]).reshape(-1, 4)
+    g_flat = np.concatenate([x for i in range(n) for x in (gt[i, : gt_count[i]], junk[i])])
+    crowd_flat = np.concatenate([x for i in range(n) for x in (crowd[i, : gt_count[i]], [True])])
+    area_flat = np.concatenate([x for i in range(n) for x in (area[i, : gt_count[i]], [1.0])])
+    d_start = np.concatenate([[0], np.cumsum(det_count)[:-1]])
+    g_start = np.concatenate([[0], np.cumsum(gt_count + 1)[:-1]])
+    cells = np.stack([d_start, det_count, g_start, gt_count], 1)[rng.permutation(n)]
+    f64 = dict(dtype=torch.float64, device=device)
+    thr = np.minimum(np.asarray(_torch_f32_linspace(0.5, 0.95, 10)), 1 - 1e-10)
+    return (
+        torch.tensor(d_flat, **f64), torch.tensor(g_flat, **f64),
+        torch.tensor(crowd_flat, dtype=torch.uint8, device=device), torch.tensor(area_flat, **f64),
+        torch.tensor(cells, dtype=torch.int32, device=device), torch.tensor(thr, **f64),
+        torch.tensor(list(_AREA_RANGES.values()), **f64),
+    )
+
+
+COCO_MATCH_CASES = [  # (label, cells, most detections, most ground truths in a cell, case)
+    ("Gp=1", 257, 16, 1, "mixed"), ("Gp=64", 300, 32, 64, "mixed"), ("Gp=65", 200, 32, 65, "mixed"),
+    ("Gp=128", 100, 128, 128, "mixed"), ("Dp=1", 513, 1, 8, "mixed"), ("Dp=100", 150, 100, 16, "mixed"),
+    ("all-crowd", 100, 64, 16, "all_crowd"), ("all-ignored", 100, 64, 16, "all_ignored"), ("ties", 200, 64, 32, "ties"),
+    ("Gp=600", 8, 100, 600, "mixed"),
+]
+
+
+def coco_match_bound(args) -> dict:
+    """Least time for one ``coco_greedy_match`` call on an H100 SXM: what this call's data needs read once (the
+    boxes of the cells' detections, the boxes, crowds and effective areas of the cells' ground truths, the cell rows,
+    the thresholds and ranges) and the two uint8 outputs written once, one (A, T) row for each detection, over the
+    memory rate; against the float64 operations of the IoUs of the cells' (detection, ground truth) pairs (4
+    max/min, 3 sub, 2 mul for the intersection, 2 add/sub for the union, a select, a division: 12) and the two
+    boxes' areas (3 each), at the fp64 rate outside the tensor cores. The greedy walk's integer compares are not
+    counted."""
+    _, _, _, _, cells, thr, ranges = args
+    nd, ng = cells[:, 1].long(), cells[:, 3].long()
+    a, t = ranges.shape[0], thr.numel()
+    dets, gts = int(nd.sum()), int(ng.sum())
+    nbytes = dets * 32 + gts * (32 + 1 + 8) + 16 * cells.shape[0] + 8 * (t + 2 * a) + 2 * a * t * dets
+    ops = 12 * int((nd * ng).sum()) + 3 * dets + 3 * gts
+    bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_FP64_OPS_PER_S * 1e3
+    return {"cells": cells.shape[0], "detections": dets, "ground_truths": gts, "bytes": nbytes, "ops": ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def coco_match_check(torch, cm, label: str, args, cpu: bool = True) -> int:
+    """The kernel on the card, twice, against its plain version on the card and (``cpu``) on the CPU: bit for
+    bit. Returns the largest absolute difference (0)."""
+    m, ig = cm.coco_greedy_match(*args)
+    m2, ig2 = cm.coco_greedy_match(*args)
+    torch.cuda.synchronize()
+    pm, pig = cm.coco_greedy_match_plain(*args)
+    err = max(int((m.int() - pm.int()).abs().max()), int((ig.int() - pig.int()).abs().max())) if m.numel() else 0
+    check(torch.equal(m, pm) and torch.equal(ig, pig), f"coco_greedy_match {label}: kernel != plain version (max {err})")
+    check(torch.equal(m, m2) and torch.equal(ig, ig2), f"coco_greedy_match {label}: two calls differ")
+    if cpu:
+        cpu_m, cpu_ig = cm.coco_greedy_match(*(a.cpu() for a in args))
+        check(torch.equal(m.cpu(), cpu_m) and torch.equal(ig.cpu(), cpu_ig), f"coco_greedy_match {label}: card != CPU")
+    check(int(m.sum()) > 0 or label in ("all-ignored",), f"coco_greedy_match {label}: no match at all")
+    return err
+
+
+def iou_family_oracle(preds: list, target: list) -> dict:
+    """Float64 numpy IoU, GIoU, DIoU and CIoU over per-image (detection, ground truth) pairs of the same label, the
+    invalid entries left out, overall and per ground-truth class (the modular metrics' definition)."""
+
+    def pair_values(d, g):
+        d, g = d.astype(np.float64), g.astype(np.float64)
+        area = lambda b: (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+        lt, rb = np.maximum(d[:, None, :2], g[None, :, :2]), np.minimum(d[:, None, 2:], g[None, :, 2:])
+        wh = np.clip(rb - lt, 0, None)
+        inter = wh[..., 0] * wh[..., 1]
+        union = area(d)[:, None] + area(g)[None, :] - inter
+        iou = inter / np.where(union > 0, union, 1.0)
+        hlt, hrb = np.minimum(d[:, None, :2], g[None, :, :2]), np.maximum(d[:, None, 2:], g[None, :, 2:])
+        hull = (hrb[..., 0] - hlt[..., 0]) * (hrb[..., 1] - hlt[..., 1])
+        giou = iou - (hull - union) / np.where(hull > 0, hull, 1.0)
+        c = ((d[:, None, :2] + d[:, None, 2:]) - (g[None, :, :2] + g[None, :, 2:])) / 2
+        diag = (hrb[..., 0] - hlt[..., 0]) ** 2 + (hrb[..., 1] - hlt[..., 1]) ** 2
+        diou = iou - (c[..., 0] ** 2 + c[..., 1] ** 2) / (diag + 1e-7)
+        w1, h1 = (d[:, 2] - d[:, 0])[:, None], (d[:, 3] - d[:, 1])[:, None]
+        w2, h2 = (g[:, 2] - g[:, 0])[None, :], (g[:, 3] - g[:, 1])[None, :]
+        v = 4 / np.pi**2 * (np.arctan(w2 / (h2 + 1e-7)) - np.arctan(w1 / (h1 + 1e-7))) ** 2
+        ciou = diou - v / (1 - iou + v + 1e-7) * v
+        return {"iou": iou, "giou": giou, "diou": diou, "ciou": ciou}
+
+    vals = {k: [] for k in ("iou", "giou", "diou", "ciou")}
+    per_class = {k: {} for k in vals}
+    for p, t in zip(preds, target):
+        same = p["labels"][:, None] == t["labels"][None, :]
+        for k, mat in pair_values(p["boxes"], t["boxes"]).items():
+            vals[k].append(mat[same])
+            for cl in np.unique(t["labels"]):
+                per_class[k].setdefault(int(cl), []).append(mat[same & (t["labels"][None, :] == cl)])
+    out = {}
+    for k in vals:
+        out[k] = float(np.concatenate(vals[k]).mean())
+        for cl, parts in per_class[k].items():
+            cat = np.concatenate(parts)
+            out[f"{k}/cl_{cl}"] = float(cat.mean()) if cat.size else 0.0
+    return out
+
+
+def panoptic_batch(index: int) -> tuple:
+    """A batch of COCO-panoptic-shaped maps (``PANOPTIC_BATCH`` x 480 x 640 x 2: category, instance) from the seed:
+    a grid of stuff regions (53 categories) under 10-40 thing instances (80 categories) painted as rectangles, a
+    share of the target's pixels void (category 255, unknown, so void); the prediction the target with its rectangles
+    shifted, some things relabelled and some dropped."""
+    rng = np.random.default_rng([SEED, 133, index])
+    b, h, w = PANOPTIC_BATCH, COCO_H, COCO_W
+    target = np.zeros((b, h, w, 2), np.int64)
+    preds = np.zeros((b, h, w, 2), np.int64)
+    stuffs = PANOPTIC_THINGS + np.arange(PANOPTIC_STUFFS)
+    for i in range(b):
+        gy, gx = int(rng.integers(2, 5)), int(rng.integers(2, 6))
+        cells = rng.choice(stuffs, (gy, gx))
+        stuff = np.repeat(np.repeat(cells, -(-h // gy), 0), -(-w // gx), 1)[:h, :w]
+        pstuff = stuff.copy()
+        pstuff[:, : int(rng.integers(0, 40))] = rng.choice(stuffs)
+        target[i, ..., 0], preds[i, ..., 0] = stuff, pstuff
+        for inst in range(1, int(rng.integers(10, 41)) + 1):
+            cat = int(rng.integers(0, PANOPTIC_THINGS))
+            bw, bh = int(rng.integers(8, 200)), int(rng.integers(8, 160))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            target[i, y : y + bh, x : x + bw] = (cat, inst)
+            if rng.random() < 0.1:
+                continue  # missed
+            dx, dy = rng.integers(-bw // 4 - 1, bw // 4 + 2), rng.integers(-bh // 4 - 1, bh // 4 + 2)
+            px, py = int(np.clip(x + dx, 0, w - bw)), int(np.clip(y + dy, 0, h - bh))
+            pcat = cat if rng.random() > 0.1 else int(rng.integers(0, PANOPTIC_THINGS))
+            preds[i, py : py + bh, px : px + bw] = (pcat, inst)
+        void = rng.random((h, w)) < 0.02
+        target[i][void] = (255, 0)
+    return preds, target
+
+
+def panoptic_members(device) -> dict:
+    from tpumetrics_torch.detection import ModifiedPanopticQuality, PanopticQuality
+
+    things, stuffs = set(range(PANOPTIC_THINGS)), set(range(PANOPTIC_THINGS, PANOPTIC_THINGS + PANOPTIC_STUFFS))
+    return {"pq": PanopticQuality(things, stuffs, device=device),
+            "modified_pq": ModifiedPanopticQuality(things, stuffs, device=device)}
+
+
+def panoptic_cpu_batch(index: int) -> dict:
+    """Batch ``index`` of the panoptic stream on the port's CPU path, in a worker process: each member's states
+    after that batch alone (its contribution: a state starts at zero, so the first add is exact)."""
+    import torch
+
+    torch.set_num_threads(1)
+    members = panoptic_members("cpu")
+    p, t = (torch.from_numpy(x) for x in panoptic_batch(index))
+    for m in members.values():
+        m.update(p, t)
+    return {name: {k: getattr(m, k).numpy() for k in m._defaults} for name, m in members.items()}
+
+
+def panoptic_cpu_start():
+    """The panoptic stream's CPU path, a batch a job, in spawn workers at the lowest scheduling priority, started
+    with the script beside the kernel phase (whose host work is one thread of launches), so that the detection
+    phase finds it done. Beside the generative phase they slowed its host float64 KID and eigenvalues by some 6 s."""
+    pool = multiprocessing.get_context("spawn").Pool(PANOPTIC_CPU_WORKERS, initializer=os.nice, initargs=(19,))
+    return pool, [pool.apply_async(panoptic_cpu_batch, (i,)) for i in range(PANOPTIC_IMAGES // PANOPTIC_BATCH)]
+
+
+def panoptic_cpu_states(cpu) -> tuple:
+    """The CPU path's states over the whole panoptic stream: the batches' contributions added in the stream's
+    order in float32, as ``update`` adds them; and the seconds waited for the workers."""
+    pool, jobs = cpu
+    t0 = time.perf_counter()
+    parts = [job.get(timeout=600) for job in jobs]
+    waited = time.perf_counter() - t0
+    pool.close()
+    pool.join()
+    states = {}
+    for name in parts[0]:
+        states[name] = {}
+        for key in parts[0][name]:
+            total = np.zeros_like(parts[0][name][key])
+            for part in parts:
+                total = total + part[name][key]
+            states[name][key] = total
+    return states, waited
+
+
+def detection_oracle_start():
+    """The detection phase's host work in spawn workers, started just before the phase (the script starts them
+    with the short perceptual phase) to run beside its main thread: the numpy protocol over the stream (macro
+    split by class over 1 + ``COCO_ORACLE_SPLIT`` workers, person alone; micro; the per-cell reference over the
+    first images), longest first."""
+    pool = multiprocessing.get_context("spawn").Pool(6)
+    jobs = {"micro": pool.apply_async(coco_oracle, ("micro",))}
+    groups = [(0,)] + [tuple(range(1 + i, COCO_CLASSES, COCO_ORACLE_SPLIT)) for i in range(COCO_ORACLE_SPLIT)]
+    for i, group in enumerate(groups):
+        jobs[f"macro{i}"] = pool.apply_async(coco_oracle, ("macro", group))
+    jobs["unfused"] = pool.apply_async(coco_oracle, ("unfused",))
+    return pool, jobs
+
+
+def coco_arrays_equal(got: dict, want: dict) -> bool:
+    """Float64 precision and recall arrays bit for bit (the -1 of an empty cell included)."""
+    return all(got[k].shape == want[k].shape and np.array_equal(got[k], want[k]) for k in ("precision", "recall"))
+
+
+def coco_summary_mismatches(values: dict, want: dict, per_class: dict = None) -> list:
+    """The summary keys whose float32 value differs in any bit from the oracle's (``per_class``: the oracle of the
+    per-class entries, a macro one under micro averaging)."""
+    bad = []
+    for key in ("map", "map_50", "map_75", "map_small", "map_medium", "map_large", "mar_small", "mar_medium",
+                "mar_large", "mar_1", "mar_10", "mar_100"):
+        if np.float32(values[key].item()).tobytes() != np.float32(want[key]).tobytes():
+            bad.append(key)
+    if per_class is not None:
+        for key, okey in (("map_per_class", "map_per_class"), ("mar_100_per_class", "mar_per_class")):
+            if not np.array_equal(values[key].cpu().numpy().reshape(-1), np.asarray(per_class[okey]).reshape(-1)):
+                bad.append(key)
+    if not np.array_equal(values["classes"].cpu().numpy(), want["classes"]):
+        bad.append("classes")
+    return bad
+
+
+def detection_kernel(torch, cm, label: str, stream_args: tuple, first_args: tuple) -> dict:
+    """``coco_greedy_match`` on the card at the stream's one call (every cell of the macro evaluation), timed
+    (events, L2 flushed) beside its plain version (one call, host clock) and its bound, and bit for bit against the
+    plain version there; the cells of the first ``COCO_UNFUSED_IMAGES`` images and the edge shapes also against
+    the plain version on the CPU."""
+    flush = l2_flush(torch)
+    ms, host_ms = cuda_ms(torch, lambda: cm.coco_greedy_match(*stream_args), 5, flush)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm.coco_greedy_match_plain(*stream_args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound = coco_match_bound(stream_args)
+    max_err = coco_match_check(torch, cm, "the stream's cells", stream_args, cpu=False)
+    max_err = max(max_err, coco_match_check(torch, cm, f"the first {COCO_UNFUSED_IMAGES} images' cells", first_args))
+    for case_label, n, dp, gp, case in COCO_MATCH_CASES:
+        max_err = max(max_err, coco_match_check(torch, cm, case_label, coco_match_inputs(torch, n, dp, gp, SEED, case)))
+    largest = cm_largest(stream_args)
+    kernel = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, **bound, "largest_cell": largest,
+              "max_abs_err": max_err, "edge_cases": [c[0] for c in COCO_MATCH_CASES]}
+    print(f"{label}: kernel over the stream's {bound['cells']} cells in one launch {ms:.4f} ms ({ms / bound['bound_ms']:.2f}x"
+          f" its bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}: {bound['bytes']} bytes, {bound['ops']} fp64"
+          f" operations), {host_ms:.4f} ms of host time to make the call; plain version {plain_ms:.1f} ms; the largest"
+          f" cell {largest}", flush=True)
+    return kernel
+
+
+def cm_largest(args) -> list:
+    """The most detections and the most ground truths of a ``coco_greedy_match`` call's cells."""
+    return [int(v) for v in args[4][:, 1::2].amax(0).tolist()]
+
+
+def detection_phase(torch, oracle, panoptic_cpu, device: str = "cuda") -> dict:
+    """COCO val2017-size detection evaluation on the card (see the module note): list-of-dicts and packed (fused,
+    replayed) streams, ``compute()`` times by stage, the card's float64 arrays and summaries bit for bit the numpy
+    protocol's (worker processes beside the phase, ``detection_oracle_start``), the per-cell reference on the first
+    images, a planted fault caught, the kernel at the stream's buckets and edge shapes against its plain version
+    with its times and bound, and short IoU-family and panoptic streams (the panoptic stream's CPU path from
+    ``panoptic_cpu_start``'s workers). ``device="cpu"`` rehearses it on the CPU
+    (after patching the module's ``COCO_*`` and ``PANOPTIC_*`` sizes down), without the card-only parts: the
+    guarded update, the kernel and its times."""
+    from tpumetrics_torch import MetricCollection, interop
+    from tpumetrics_torch.detection import (
+        CompleteIntersectionOverUnion, DistanceIntersectionOverUnion, GeneralizedIntersectionOverUnion,
+        IntersectionOverUnion, MeanAveragePrecision, pack_detection_batch,
+    )
+    from tpumetrics_torch.detection import _coco_eval_device as dev_eval
+    from tpumetrics_torch.ops import coco_match as cm
+
+    pool, jobs = oracle
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    label = f"detection COCO val2017 {COCO_IMAGES} images x {COCO_DETS} detections, {COCO_CLASSES} classes"
+    t_phase = time.perf_counter()
+    preds, target = coco_stream()
+    flat = coco_flat(preds, target)
+    n_gt = int(flat["g_count"].sum())
+    print(f"{label}: {n_gt} ground truths ({n_gt / COCO_IMAGES:.2f} an image, at most {flat['g_count'].max()}),"
+          f" {len(flat['d_scores'])} detections; made in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    on = {k: torch.as_tensor(v, device=device) for k, v in flat.items() if not k.endswith("count")}
+    dc, gc = flat["d_count"].tolist(), flat["g_count"].tolist()
+    d_views = {k: on[f"d_{k}"].split(dc) for k in ("boxes", "scores", "labels")}
+    g_views = {k: on[f"g_{k}"].split(gc) for k in ("boxes", "labels", "crowd", "area")}
+    preds_dev = [{k: d_views[k][i] for k in d_views} for i in range(COCO_IMAGES)]
+    target_dev = [{"boxes": g_views["boxes"][i], "labels": g_views["labels"][i], "iscrowd": g_views["crowd"][i],
+                   "area": g_views["area"][i]} for i in range(COCO_IMAGES)]
+    sync()
+
+    # ---- list-of-dicts, eager
+    m_list = MeanAveragePrecision(device=device)
+    update_ms = []
+    for lo in range(0, COCO_IMAGES, COCO_BATCH):
+        t0 = time.perf_counter()
+        m_list.update(preds_dev[lo : lo + COCO_BATCH], target_dev[lo : lo + COCO_BATCH])
+        sync()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {}
+
+    def timed_compute(metric, name):
+        cm.launches = 0
+        with dev_eval.record_stages() as stages:
+            t0 = time.perf_counter()
+            values = metric.compute()
+            sync()
+            total = time.perf_counter() - t0
+        launches[name] = cm.launches
+        check(cm.launches >= 1 or not on_card, f"{label}: {name} compute() launched no coco_greedy_match")
+        return values, {"total_ms": total * 1e3, **{k: v * 1e3 for k, v in stages.items()}}
+
+    res_list, compute_list = timed_compute(m_list, "list compute")
+
+    # ---- packed, into a fused collection with MaskedBuffer row states
+    m_packed = MeanAveragePrecision(det_capacity=COCO_DET_CAPACITY, gt_capacity=COCO_GT_CAPACITY, device=device)
+    interop.load_state(m_packed, m_packed.init_state())
+    col = MetricCollection([m_packed], fused_update=True, device=device)
+    t0 = time.perf_counter()
+    packed = []
+    for lo in range(0, COCO_IMAGES, COCO_BATCH):
+        pd, gd = pack_detection_batch(preds[lo : lo + COCO_BATCH], target[lo : lo + COCO_BATCH],
+                                      det_slots=COCO_DET_SLOTS, gt_slots=COCO_GT_SLOTS)
+        packed.append(tuple({k: torch.as_tensor(v, device=device) for k, v in d.items()} for d in (pd, gd)))
+    sync()
+    pack_s = time.perf_counter() - t0
+    packed_ms, guarded = [], None
+    for i, (pd, gd) in enumerate(packed):
+        step = col._fused_oo_step
+        before = dict(step.counts) if step is not None else None
+        t0 = time.perf_counter()
+        if i == 10 and on_card:  # a steady update: its host syncs are errors
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                col.update(pd, gd)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            guarded = update_mode(col._fused_oo_step, before)
+        else:
+            col.update(pd, gd)
+        sync()
+        packed_ms.append((time.perf_counter() - t0) * 1e3)
+    modes = dict(col._fused_oo_step.counts)
+    check(guarded == "replayed" or not on_card, f"{label}: the guarded packed update was {guarded}, not a replay")
+    check(modes["replayed"] >= len(packed) - 4 and modes["eager"] >= 2,
+          f"{label}: packed updates ran {modes} (the last ragged batch eager, the rest replayed)")
+    res_packed, compute_packed = timed_compute(m_packed, "packed compute")
+    diff = [k for k in res_list if not torch.equal(res_list[k], res_packed[k])]
+    check(not diff, f"{label}: list and packed results differ in {diff}")
+
+    # ---- the card's float64 arrays, the kernel's call recorded for its timing
+    det, gt, n_imgs, _, _ = m_list._gather_rows()
+    rows = ((m_list._convert_boxes(det["boxes"]), det["scores"], det["labels"], det["img"]),
+            (m_list._convert_boxes(gt["boxes"]), gt["labels"], gt["crowds"], gt["area"].double(), gt["img"]))
+    classes = torch.unique(torch.cat([det["labels"], gt["labels"]])).tolist()
+    match = dev_eval.coco_greedy_match
+    calls = []
+
+    def recording(*args):
+        calls.append(args)
+        return match(*args)
+
+    def evaluate(rows, n_imgs, average="macro"):
+        return dev_eval.coco_evaluate_rows(rows[0], rows[1], n_imgs, m_list.iou_thresholds, m_list.rec_thresholds,
+                                           m_list.max_detection_thresholds, classes, average=average, arrays=True)
+
+    dev_eval.coco_greedy_match = recording
+    try:
+        card = evaluate(rows, n_imgs)
+    finally:
+        dev_eval.coco_greedy_match = match
+
+    def dropped(*args):  # the planted fault: the first match is lost
+        m, ig = match(*args)
+        if not dropped.done:
+            first = torch.nonzero(m.reshape(-1))[0, 0]
+            m.reshape(-1)[first] = 0
+            dropped.done = True
+        return m, ig
+
+    dropped.done = False
+    dev_eval.coco_greedy_match = dropped
+    try:
+        faulty = evaluate(rows, n_imgs)
+    finally:
+        dev_eval.coco_greedy_match = match
+    first = ((rows[0][0][rows[0][3] < COCO_UNFUSED_IMAGES], rows[0][1][rows[0][3] < COCO_UNFUSED_IMAGES],
+              rows[0][2][rows[0][3] < COCO_UNFUSED_IMAGES], rows[0][3][rows[0][3] < COCO_UNFUSED_IMAGES]),
+             tuple(x[rows[1][4] < COCO_UNFUSED_IMAGES] for x in rows[1]))
+    dev_eval.coco_greedy_match = recording
+    try:
+        card_first = evaluate(first, COCO_UNFUSED_IMAGES)
+    finally:
+        dev_eval.coco_greedy_match = match
+    check(len(calls) == 2, f"{label}: {len(calls)} matcher calls in two evaluations")
+
+    # ---- micro average with per-class values, once
+    m_micro = MeanAveragePrecision(average="micro", class_metrics=True, device=device)
+    m_micro.update(preds_dev, target_dev)
+    res_micro, compute_micro = timed_compute(m_micro, "micro + class_metrics compute")
+
+    kernel = detection_kernel(torch, cm, label, calls[0], calls[1]) if on_card else {}
+
+    # ---- IoU family on the first images, against float64 oracles
+    iou_members = {"iou": IntersectionOverUnion, "giou": GeneralizedIntersectionOverUnion,
+                   "diou": DistanceIntersectionOverUnion, "ciou": CompleteIntersectionOverUnion}
+    want_iou = iou_family_oracle(preds[:COCO_IOU_IMAGES], target[:COCO_IOU_IMAGES])
+    iou_worst = 0.0
+    t0 = time.perf_counter()
+    for name, cls in iou_members.items():
+        m = cls(class_metrics=True, respect_labels=True, device=device)
+        m.update(preds_dev[:COCO_IOU_IMAGES], target_dev[:COCO_IOU_IMAGES])
+        got = {k: float(v) for k, v in m.compute().items()}
+        check(set(got) == {k for k in want_iou if k == name or k.startswith(f"{name}/")}, f"{label}: {name} keys")
+        err = max(abs(got[k] - want_iou[k]) for k in got)
+        check(err <= IOU_FAMILY_ATOL, f"{label}: {name} off its float64 oracle by {err:.3g} > {IOU_FAMILY_ATOL}")
+        iou_worst = max(iou_worst, err)
+    iou_s = time.perf_counter() - t0
+    unlabelled = IntersectionOverUnion(respect_labels=False, device=device)
+    unlabelled.update(preds_dev[:COCO_IOU_IMAGES], target_dev[:COCO_IOU_IMAGES])
+    check(float(unlabelled.compute()["iou"]) < want_iou["iou"], f"{label}: respect_labels=False did not pool pairs")
+
+    # ---- panoptic quality, card against the CPU path (``panoptic_cpu_start``'s workers)
+    pq = panoptic_members(device)
+    t0 = time.perf_counter()
+    for index in range(PANOPTIC_IMAGES // PANOPTIC_BATCH):
+        p, t = (torch.from_numpy(x).to(device) for x in panoptic_batch(index))
+        for m in pq.values():
+            m.update(p, t)
+    sync()
+    pq_s = time.perf_counter() - t0
+    pq_values = {name: float(m.compute()) for name, m in pq.items()}
+    main_s = time.perf_counter() - t_phase
+
+    # ---- the host results
+    t0 = time.perf_counter()
+    want = {job: r.get(timeout=600) for job, r in jobs.items()}
+    wait_s = time.perf_counter() - t0
+    pool.close()
+    pool.join()
+    pq_cpu, pq_wait_s = panoptic_cpu_states(panoptic_cpu)
+    want["macro"] = coco_oracle_merge([want.pop(job) for job in sorted(want) if job.startswith("macro")])
+    check(coco_arrays_equal(card, want["macro"]), f"{label}: the card's precision/recall arrays != the numpy protocol's")
+    check(not coco_arrays_equal(faulty, want["macro"]), f"{label}: a dropped match went unnoticed")
+    check(coco_arrays_equal(card_first, want["unfused"]),
+          f"{label}: the first {COCO_UNFUSED_IMAGES} images' arrays != coco_evaluate_unfused's")
+    for name, values, oracle, per_class in (("list", res_list, want["macro"], None),
+                                            ("packed", res_packed, want["macro"], None),
+                                            ("micro", res_micro, want["micro"], want["macro"])):
+        bad = coco_summary_mismatches(values, oracle, per_class)
+        check(not bad, f"{label}: {name} summary differs from the numpy protocol in {bad}")
+    for name, m in pq.items():
+        card_states, cpu = {k: getattr(m, k).cpu().numpy() for k in m._defaults}, pq_cpu[name]
+        for key in ("true_positives", "false_positives", "false_negatives"):
+            check(np.array_equal(card_states[key], cpu[key]), f"{label}: {name} {key} card != CPU")
+        got = card_states["iou_sum"]
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - cpu["iou_sum"].view(np.int32).astype(np.int64)).max()
+        check(ulps <= 1, f"{label}: {name} iou_sum card != CPU by {ulps} float32 ulps")
+    values = {k: float(res_list[k]) for k in ("map", "map_50", "map_75", "map_small", "map_medium", "map_large",
+                                                "mar_1", "mar_10", "mar_100")}
+    print(f"{label}: list updates median {np.median(update_ms):.2f} ms; packed updates median"
+          f" {np.median(packed_ms[2:-1]):.2f} ms ({modes}); compute() list {compute_list}, packed {compute_packed},"
+          f" micro {compute_micro}; numpy protocol {want['macro']['seconds']:.1f} s (macro), {want['micro']['seconds']:.1f}"
+          f" s (micro), unfused {want['unfused']['seconds']:.1f} s over {COCO_UNFUSED_IMAGES} images; main thread"
+          f" {main_s:.1f} s, waited {wait_s:.1f} s for the workers and {pq_wait_s:.1f} s more for the panoptic ones;"
+          f" {values}; PQ {pq_values}", flush=True)
+    return {
+        "values": values, "pq": pq_values, "iou_worst": iou_worst, "iou_s": iou_s, "pq_s": pq_s,
+        "update_ms_median": {"list": float(np.median(update_ms)), "packed": float(np.median(packed_ms[2:-1]))},
+        "update_ms_all": {"list": update_ms, "packed": packed_ms}, "pack_s": pack_s, "modes": modes,
+        "compute_ms": {"list": compute_list, "packed": compute_packed, "micro_class_metrics": compute_micro},
+        "oracle_s": {job: want[job]["seconds"] for job in ("macro", "micro", "unfused")},
+        "launches": launches, "kernel": kernel, "main_s": main_s, "wait_s": wait_s, "pq_wait_s": pq_wait_s,
+        "phase_s": time.perf_counter() - t_phase,
+        "reduced": (f"none for mAP (the values are not COCO's, the times are); panoptic: {PANOPTIC_IMAGES} of"
+                    f" val2017's 5,000 images, all held against the CPU path"),
+    }
+
+
 def main() -> None:
     import torch
 
@@ -5990,6 +6696,7 @@ def main() -> None:
             for line in dict.fromkeys(lines):  # once each, in order
                 print(f"build: {lib.name}: {line}", flush=True)
 
+    panoptic_cpu = panoptic_cpu_start()  # the detection phase's panoptic CPU path, beside the kernel phase
     kern = kernel_phase(torch, bc)
     iir = biquad_kernel_phase(torch, bq)
     paths = {
@@ -6011,14 +6718,18 @@ def main() -> None:
         "restoration": restoration_phase(torch, bc),
         "pansharpening": pansharpening_phase(torch, bc),
         "criteo": criteo_phase(torch, bc),
-        "sync": sync_phase(torch, bc, smi),
     }
+    paths["sync"] = sync_phase(torch, bc, smi)
     div2k = paths["restoration"].pop("div2k_u8")
     lpips_cpu = lpips_cpu_start(torch, div2k)  # the perceptual phase's CPU path, beside the next two phases
     pairwise = pairwise_phase(torch, bc)
-    backbone_image = {"generative": generative_phase(torch, bc),
-                      "perceptual": perceptual_phase(torch, bc, div2k, lpips_cpu)}
+    backbone_image = {"generative": generative_phase(torch, bc)}
+    # the detection phase's host workers start beside the short perceptual phase (its CPU path is done by then),
+    # so that they have started up when the detection phase begins
+    detection_oracle = detection_oracle_start()
+    backbone_image["perceptual"] = perceptual_phase(torch, bc, div2k, lpips_cpu)
     del div2k
+    detection = detection_phase(torch, detection_oracle, panoptic_cpu)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -6087,6 +6798,23 @@ def main() -> None:
                 "timed_shapes": iir["timed"],
                 "card": smi,
             },
+            {
+                "name": "coco_greedy_match",
+                "route": "cuda",
+                "source": "tpumetrics_torch/csrc/coco_greedy_match.cu",
+                "replaces": "tpumetrics/detection/_coco_eval_jax.py:217",  # a lax.fori_loop, and the numpy loop at _coco_eval.py:357
+                "launches": sum(detection["launches"].values()),
+                "launches_by_path": detection["launches"],
+                "max_abs_err": detection["kernel"]["max_abs_err"],  # against the plain version: bit for bit
+                "ms": detection["kernel"]["ms"],  # the stream's one call: every cell of the macro evaluation
+                "plain_ms": detection["kernel"]["plain_ms"],
+                "bound_ms": detection["kernel"]["bound_ms"],
+                "bound_by": detection["kernel"]["bound_by"],
+                "library_ms": None,  # no PyTorch call performs a greedy match
+                "shape": {k: detection["kernel"][k] for k in ("cells", "detections", "ground_truths", "largest_cell")},
+                "edge_cases": detection["kernel"]["edge_cases"],
+                "card": smi,
+            },
         ],
         "fused_update": fused_report,
         "ece_err": ECE_ERR,
@@ -6139,6 +6867,9 @@ def main() -> None:
                       for kind, f in paths["criteo"]["fused_all"].items()},
             "sync_ledger": paths["sync"]["ledger"],
         },
+        "detection": {k: detection[k] for k in (
+            "values", "pq", "iou_worst", "iou_s", "pq_s", "update_ms_median", "pack_s", "modes", "compute_ms",
+            "oracle_s", "launches", "main_s", "wait_s", "pq_wait_s", "phase_s", "reduced")},
     }
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)

@@ -20,6 +20,10 @@ default TF32 settings against float64 oracles (the library's own float32
 guard), 3-D SSIM through ``conv3d``, and restoration and pan-sharpening
 collections replayed in graphs bit for bit with no host sync (the float64
 oracles and the texture generator come from ``chip_smoke.py``); and the
+detection slice: the greedy COCO matcher against its plain version at its
+edge shapes, ``MeanAveragePrecision`` on the card bit for bit its CPU path,
+and a packed update replayed with no host sync (the inputs come from
+``chip_smoke.py``); and the
 monitoring slice: the sketch's bucket index on the card against the float64
 numpy oracle (``chip_smoke.sketch_index_oracle``) and a windowed sketch at
 the Criteo stream's batch shape bit for bit the CPU's, and every monitoring
@@ -1813,3 +1817,86 @@ def test_bf16_policy_gates_on_the_card(cuda):
         m.release_backbones()
     assert abs(values["bfloat16"] - values["float32"]) <= max(0.01, 0.05 * abs(values["float32"]))
     registry._reset_backbones()
+
+
+# ------------------------------------------------------------------ detection
+
+def _coco_cases():
+    import chip_smoke
+
+    return chip_smoke.COCO_MATCH_CASES
+
+
+@pytest.mark.parametrize("label,n,dp,gp,case", _coco_cases(), ids=[c[0] for c in _coco_cases()])
+def test_coco_greedy_match_kernel_matches_its_plain_version(cuda, label, n, dp, gp, case):
+    """The greedy matcher on the card, bit for bit its plain version on the card and on the CPU, at the edge
+    shapes of ``chip_smoke.py``'s kernel check (Gp 1, 64, 65, 128; Dp 1 and 100; all-crowd and all-ignored cells;
+    IoU ties and IoUs exactly on 0.5 and 0.75)."""
+    import chip_smoke
+    from tpumetrics_torch.ops import coco_match as cm
+
+    args = chip_smoke.coco_match_inputs(torch, n, dp, gp, 0, case, device="cuda")
+    before = cm.launches
+    m, ig = cm.coco_greedy_match(*args)
+    torch.cuda.synchronize()
+    assert cm.launches == before + 1
+    pm, pig = cm.coco_greedy_match_plain(*args)
+    assert torch.equal(m, pm) and torch.equal(ig, pig)
+    cpu_m, cpu_ig = cm.coco_greedy_match(*(a.cpu() for a in args))
+    assert torch.equal(m.cpu(), cpu_m) and torch.equal(ig.cpu(), cpu_ig)
+
+
+def _coco_dev(items, device):
+    return [{k: torch.as_tensor(v, device=device) for k, v in d.items()} for d in items]
+
+
+@pytest.mark.parametrize("kw", [{}, {"average": "micro", "class_metrics": True}, {"box_format": "cxcywh"}])
+def test_mean_average_precision_on_the_card_matches_the_cpu_bit_for_bit(cuda, kw):
+    import chip_smoke
+    from tpumetrics_torch.detection import MeanAveragePrecision
+    from tpumetrics_torch.ops import coco_match as cm
+
+    preds, target = chip_smoke.coco_stream(120)
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = MeanAveragePrecision(device=device, **kw)
+        for lo in range(0, 120, 32):
+            m.update(_coco_dev(preds[lo : lo + 32], device), _coco_dev(target[lo : lo + 32], device))
+        before = cm.launches
+        out[device] = m.compute()
+        if device == "cuda":
+            assert cm.launches > before  # the card's match is the kernel's
+    assert set(out["cuda"]) == set(out["cpu"])
+    for key, value in out["cuda"].items():
+        assert value.device.type == "cuda" and torch.equal(value.cpu(), out["cpu"][key]), key
+
+
+def test_packed_detection_update_replays_with_no_host_sync(cuda):
+    import chip_smoke
+    from tpumetrics_torch import MetricCollection, interop
+    from tpumetrics_torch.detection import MeanAveragePrecision, pack_detection_batch
+
+    preds, target = chip_smoke.coco_stream(200)
+    m = MeanAveragePrecision(det_capacity=1 << 15, gt_capacity=1 << 12, device="cuda")
+    interop.load_state(m, m.init_state())
+    col = MetricCollection([m], fused_update=True, device="cuda")
+    ref = MeanAveragePrecision(device="cuda")
+    for i, lo in enumerate(range(0, 200, 16)):
+        pd, gd = pack_detection_batch(preds[lo : lo + 16], target[lo : lo + 16], det_slots=128, gt_slots=64)
+        pd, gd = ({k: torch.as_tensor(v, device="cuda") for k, v in d.items()} for d in (pd, gd))
+        torch.cuda.synchronize()
+        if i == 6:
+            replayed = col._fused_oo_step.counts["replayed"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                col.update(pd, gd)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert col._fused_oo_step.counts["replayed"] == replayed + 1
+        else:
+            col.update(pd, gd)
+        ref.update(_coco_dev(preds[lo : lo + 16], "cuda"), _coco_dev(target[lo : lo + 16], "cuda"))
+    counts = col._fused_oo_step.counts
+    assert counts["eager"] == 2 and counts["captured"] == 1 and counts["replayed"] >= 9  # the ragged last batch eager
+    got, want = m.compute(), ref.compute()
+    assert all(torch.equal(got[k], want[k]) for k in want)

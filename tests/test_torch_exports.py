@@ -26,9 +26,12 @@ import tpumetrics_torch
 import tpumetrics_torch.functional.classification as fc
 import tpumetrics_torch.utils
 
-DOMAINS = ["audio", "classification", "clustering", "image", "monitoring", "nominal", "regression", "retrieval", "wrappers"]
+DOMAINS = [
+    "audio", "classification", "clustering", "detection", "image", "monitoring", "nominal", "regression", "retrieval",
+    "wrappers",
+]
 FUNCTIONAL_DOMAINS = [
-    "audio", "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval"
+    "audio", "classification", "clustering", "detection", "image", "nominal", "pairwise", "regression", "retrieval"
 ]
 # the image metrics that run a backbone network (Inception, LPIPS's nets, a generator): all ported
 WAITING_FOR_BACKBONES = set()

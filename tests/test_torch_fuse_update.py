@@ -363,3 +363,68 @@ def test_functional_step_matches_the_jax_step():
     got, want = port.functional_compute(state), ref.functional_compute(jax_state)
     for key in want:
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=0, atol=1e-6)
+
+
+class _DictBatch(tpumetrics_torch.Metric):
+    """A sum over the values of a dict batch, with a list state that its dict update never fills."""
+
+    full_state_update = False
+    _idle_list_states = frozenset(("rows",))
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.add_state("total", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("rows", default=[], dist_reduce_fx="cat")
+
+    def update(self, batch, scale):
+        if isinstance(batch, list):
+            self.rows.extend(batch)
+            return
+        self.total = self.total + (batch["a"].sum() + batch["b"].sum()) * scale.sum()
+
+    def compute(self):
+        return self.total
+
+
+def _dict_batch(n, seed):
+    rng = np.random.default_rng(seed)
+    return {"b": torch.from_numpy(rng.random(n).astype(np.float32)),
+            "a": torch.from_numpy(rng.random((n, 2)).astype(np.float32))}
+
+
+def test_dicts_of_tensors_given_positionally_key_capture_and_replay():
+    """A dict of tensors keys a program by its sorted keys and each value's (shape, dtype, device); its values
+    are copied into the program's own buffers; an empty idle list state rides along; a tensor-only call keeps
+    the key it always had."""
+    m, ref = _DictBatch(device="cpu"), _DictBatch(device="cpu")
+    step = FusedCollectionStep(m)
+    state = step.init_state()
+    scale = torch.ones(2)
+    for i, n in enumerate((4, 4, 4, 3, 4)):
+        batch = _dict_batch(n, i)
+        state = step.update(state, batch, scale)
+        ref.update(batch, scale)
+        batch["a"].zero_()  # the program holds its own copy of the batch
+    assert step.counts == {"eager": 2, "captured": 1, "replayed": 2, "unfused": 0}
+    assert step.program_count == 1 and state["rows"] == []
+    assert torch.equal(m.functional_compute(state), ref.compute())
+    assert step._key((_dict_batch(4, 0), scale), {}) == step._key(({"a": torch.zeros(4, 2), "b": torch.zeros(4)}, scale), {})
+    assert step._key((_dict_batch(4, 0), scale), {}) != step._key((_dict_batch(5, 0), scale), {})
+    assert step._key((scale,), {"k": 1}) == ((("k", 1),), (((2,), torch.float32, torch.device("cpu")),))
+    for bad in ({"a": torch.zeros(2), "b": [1.0]}, {1: torch.zeros(2)}, [torch.zeros(2)]):
+        with pytest.raises(UnhashableKwargsError, match="dicts of tensors"):
+            step.update(state, bad, scale)
+
+
+def test_a_list_state_that_an_update_fills_is_refused_by_the_fused_step():
+    fresh, filled = _DictBatch(device="cpu"), _DictBatch(device="cpu")
+    filled.update([torch.ones(2)], torch.ones(1))  # the list layout fills the idle list: no longer fusable
+    for metric, want in ((fresh, ["d"]), (filled, [])):
+        col = MetricCollection({"d": metric}, fused_update=True, device="cpu")
+        col.update(_dict_batch(4, 0), torch.ones(2))
+        assert fusable_oo_leaders(col) == want
+    step = FusedCollectionStep(_DictBatch(device="cpu"))
+    state = step.init_state()
+    state["rows"] = [torch.ones(1)]
+    with pytest.raises(TypeError, match="list"):
+        step.update(state, _dict_batch(4, 0), torch.ones(2))

@@ -554,6 +554,50 @@ def scenario_monitoring(rank: int, world: int) -> Dict[str, Any]:
     return {"values": _np(values), "synced": _np(synced)}
 
 
+def detection_images(n: int = 12, seed: int = 29) -> tuple:
+    """``n`` images of detections and ground truths (3 classes, crowds, user areas, an empty image), numpy."""
+    rng = np.random.default_rng(seed)
+    preds, target = [], []
+    for i in range(n):
+        ng, nd = (0, 0) if i == 4 else (int(rng.integers(1, 6)), int(rng.integers(1, 9)))
+        xy, wh = rng.uniform(0, 60, (ng, 2)), rng.uniform(4, 40, (ng, 2))
+        gt = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+        det = (gt[rng.integers(0, max(ng, 1), nd)] + rng.normal(0, 2, (nd, 4))).astype(np.float32) if ng else np.zeros((0, 4), np.float32)
+        labels = rng.integers(0, 3, ng)
+        preds.append({"boxes": det, "scores": rng.random(nd).astype(np.float32),
+                      "labels": (labels[rng.integers(0, ng, nd)] if ng else np.zeros(0, np.int64)).astype(np.int64)})
+        target.append({"boxes": gt, "labels": labels.astype(np.int64), "iscrowd": (rng.random(ng) < 0.2).astype(np.int64),
+                       "area": np.where(rng.random(ng) < 0.5, rng.uniform(20, 900, ng), 0).astype(np.float32)})
+    return preds, target
+
+
+def scenario_detection(rank: int, world: int) -> Dict[str, Any]:
+    """``MeanAveragePrecision`` on each rank's contiguous shard of images (list-of-dicts, two updates), its
+    ``compute()`` synced: the ragged per-image list states gather with their image boundaries. A packed state's
+    sync is refused."""
+    from tpumetrics_torch.detection import MeanAveragePrecision, pack_detection_batch
+    from tpumetrics_torch.utils.exceptions import TPUMetricsUserError
+
+    preds, target = detection_images()
+    sl = shards(len(preds), world)[rank]
+    p = [{k: torch.from_numpy(v) for k, v in d.items()} for d in preds[sl]]
+    t = [{k: torch.from_numpy(v) for k, v in d.items()} for d in target[sl]]
+    m = MeanAveragePrecision(class_metrics=True, device="cpu")
+    half = len(p) // 2
+    m.update(p[:half], t[:half])
+    m.update(p[half:], t[half:])
+    values = m.compute()
+    packed = MeanAveragePrecision(device="cpu")
+    pd, gd = pack_detection_batch(preds[sl], target[sl])
+    packed.update({k: torch.from_numpy(v) for k, v in pd.items()}, {k: torch.from_numpy(v) for k, v in gd.items()})
+    try:
+        packed.compute()
+        refused = ""
+    except TPUMetricsUserError as err:
+        refused = str(err)
+    return {"values": _np(values), "packed_refused": refused}
+
+
 SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "collection": scenario_collection,
     "binary_exact_auroc": scenario_binary_exact_auroc,
@@ -567,10 +611,11 @@ SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
 }
 
 
-# run only by the worlds of the files that check them (tests/test_torch_{telemetry,monitoring}.py)
+# run only by the worlds of the files that check them (tests/test_torch_{telemetry,monitoring,detection_packed}.py)
 OTHER_SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "ledger": scenario_ledger,
     "monitoring": scenario_monitoring,
+    "detection": scenario_detection,
 }
 
 

@@ -161,6 +161,9 @@ class Metric(ABC):
     # or runs a library call that a CUDA graph cannot capture (SDR's batched
     # LU): a fused collection keeps it eager instead of capturing it
     _update_reads_host: bool = False
+    # list states that no update a fused step can key ever fills (a layout
+    # that takes lists, not tensors): a fused step carries them while empty
+    _idle_list_states: frozenset = frozenset()
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = _resolve_device(kwargs.pop("device", None))

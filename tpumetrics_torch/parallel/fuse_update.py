@@ -10,10 +10,12 @@ pace. :class:`FusedCollectionStep` composes every compute-group leader's
     {name: state} x batch  ->  {name: state}
 
 and captures it as one ``torch.cuda.CUDAGraph`` per key: the per-call
-keyword arguments and each positional tensor's (shape, dtype, device). That
-is the counterpart of one jitted program per static-kwargs key, specialised
-per trace signature. A replay relaunches every captured kernel with no
-Python in between.
+keyword arguments and each positional tensor's (shape, dtype, device), or,
+for a dict of tensors given positionally (a packed detection batch), its
+sorted keys and each value's (shape, dtype, device). That is the counterpart
+of one jitted program per static-kwargs key, specialised per trace
+signature (a pytree's, in the JAX step). A replay relaunches every captured
+kernel with no Python in between.
 
 How a call runs:
 
@@ -41,7 +43,8 @@ How a call runs:
   copy from pageable host memory) raises: nothing falls back to eager
   silently. The calls that run eagerly are the documented ones: a first
   sighting, a call with a tensor anywhere in its keyword arguments or with
-  a positional argument that is not a tensor (:class:`UnhashableKwargsError`;
+  a positional argument that is neither a tensor nor a dict of tensors
+  (:class:`UnhashableKwargsError`;
   the collection then runs the whole call eagerly), and, on the
   collection's path, the leaders that :func:`fusable_oo_leaders` leaves out.
 - On a CPU state the step takes the same path (keys, ownership, copy-in of
@@ -86,8 +89,8 @@ class UnhashableKwargsError(TypeError):
     A deliberate fall-back signal: per-call keyword arguments must be
     hashable and hold no tensor (a tensor is hashable in torch, by identity,
     so it would key a new graph every call), and positional arguments must
-    be tensors. Callers with such arguments catch exactly this class and run
-    the unfused path. It stays distinct from other ``TypeError``s, which
+    be tensors or dicts of tensors. Callers with such arguments catch exactly
+    this class and run the unfused path. It stays distinct from other ``TypeError``s, which
     mean a member's ``update`` failed and must surface.
     """
 
@@ -126,15 +129,21 @@ def fusable_oo_leaders(collection: Any) -> List[str]:
 
 def _holds_tensors(metric: Any, name: str) -> bool:
     """Whether state ``name`` of ``metric`` is a tensor or a MaskedBuffer
-    now (a list state is neither; one that holds a buffer is the latter)."""
-    return not isinstance(getattr(metric, name), list)
+    now (a list state is neither; one that holds a buffer is the latter), or
+    an empty list that the metric names in ``_idle_list_states`` (no update a
+    step can key fills it; the step carries it as it is)."""
+    val = getattr(metric, name)
+    return not isinstance(val, list) or (not val and name in metric._idle_list_states)
 
 
 def _leaves(state: Dict[str, Any], prefix: Path = ()) -> Iterator[Tuple[Path, Tensor]]:
     """``(path, tensor)`` of every tensor of a (nested) state dict, a
-    MaskedBuffer's fields included."""
+    MaskedBuffer's fields included. An empty list holds none (a pytree's
+    empty node); a list that is not empty raises."""
     for key, val in state.items():
         path = (*prefix, key)
+        if isinstance(val, list) and not val:
+            continue
         if isinstance(val, dict):
             yield from _leaves(val, path)
         elif isinstance(val, MaskedBuffer):
@@ -154,7 +163,9 @@ def _rebuild(state: Dict[str, Any], leaf: Dict[Path, Tensor], prefix: Path = ())
     out: Dict[str, Any] = {}
     for key, val in state.items():
         path = (*prefix, key)
-        if isinstance(val, dict):
+        if isinstance(val, list) and not val:
+            out[key] = []
+        elif isinstance(val, dict):
             out[key] = _rebuild(val, leaf, path)
         elif isinstance(val, MaskedBuffer):
             out[key] = MaskedBuffer(*(leaf[(*path, field)] for field in val._fields))
@@ -196,7 +207,7 @@ class _Program:
 
     __slots__ = ("static_args", "graph", "kwargs", "kernel_calls", "replays")
 
-    def __init__(self, static_args: Tuple[Tensor, ...], graph: Any, kwargs: Dict[str, Any], kernel_calls: Dict[str, int]):
+    def __init__(self, static_args: Tuple[Any, ...], graph: Any, kwargs: Dict[str, Any], kernel_calls: Dict[str, int]):
         self.static_args = static_args
         self.graph = graph
         self.kwargs = kwargs
@@ -212,6 +223,33 @@ def _holds_tensor(x: Any) -> bool:
     if isinstance(x, (list, tuple, set, frozenset)):
         return any(_holds_tensor(v) for v in x)
     return False
+
+
+def _arg_signature(i: int, a: Any) -> Hashable:
+    """A positional argument's part of a program key: a tensor's (shape,
+    dtype, device), or a dict of tensors' sorted ``(key, shape, dtype,
+    device)``; anything else raises ``TypeError``."""
+    if isinstance(a, Tensor):
+        return (tuple(a.shape), a.dtype, a.device)
+    if isinstance(a, dict) and all(isinstance(k, str) and isinstance(v, Tensor) for k, v in a.items()):
+        return ("dict", tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(a.items())))
+    raise TypeError(f"positional argument {i} is a {type(a).__name__}, not a tensor or a dict of tensors")
+
+
+def _clone_arg(a: Any) -> Any:
+    """A program's input buffer for a positional argument (a dict gets one per key)."""
+    if isinstance(a, dict):
+        return {k: v.detach().clone(memory_format=torch.contiguous_format) for k, v in a.items()}
+    return a.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _copy_arg(buf: Any, a: Any) -> None:
+    """Copy a call's positional argument into its program's input buffer."""
+    if isinstance(buf, dict):
+        for k, v in buf.items():
+            v.copy_(a[k])
+    else:
+        buf.copy_(a)
 
 
 class FusedCollectionStep:
@@ -357,25 +395,19 @@ class FusedCollectionStep:
         return resized
 
     def _key(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Hashable:
-        """The program key: the per-call kwargs and each positional tensor's
-        (shape, dtype, device); raises :class:`UnhashableKwargsError`."""
+        """The program key: the per-call kwargs and each positional argument's
+        signature (:func:`_arg_signature`); raises :class:`UnhashableKwargsError`."""
         try:
             if _holds_tensor(kwargs):
                 raise TypeError("a tensor in the keyword arguments keys a new graph on every call")
-            for i, a in enumerate(args):
-                if not isinstance(a, Tensor):
-                    raise TypeError(f"positional argument {i} is a {type(a).__name__}, not a tensor")
-            key = (
-                tuple(sorted(kwargs.items())),
-                tuple((tuple(a.shape), a.dtype, a.device) for a in args),
-            )
+            key = (tuple(sorted(kwargs.items())), tuple(_arg_signature(i, a) for i, a in enumerate(args)))
             hash(key)
         except TypeError as err:
             self.counts["unfused"] += 1
             raise UnhashableKwargsError(
-                f"FusedCollectionStep.update needs hashable keyword arguments that hold no tensor, and tensors as"
-                f" positional arguments; got {sorted(kwargs)}: {err}. Pass per-batch tensors positionally, or use"
-                " the unfused update path."
+                f"FusedCollectionStep.update needs hashable keyword arguments that hold no tensor, and tensors or"
+                f" dicts of tensors as positional arguments; got {sorted(kwargs)}: {err}. Pass per-batch tensors"
+                " positionally, or use the unfused update path."
             ) from None
         return key
 
@@ -420,7 +452,7 @@ class FusedCollectionStep:
     def _capture(self, key: Hashable, args: Tuple[Tensor, ...], kwargs: Dict[str, Any], state: Dict[str, Any]) -> _Program:
         """Build the key's program: input buffers holding this batch, and on a
         CUDA state the graph of the transition and its write-back."""
-        static = tuple(a.detach().clone(memory_format=torch.contiguous_format) for a in args)
+        static = tuple(_clone_arg(a) for a in args)
         graph = None
         kernel_calls: Dict[str, int] = {}
         if self._device.type == "cuda":
@@ -445,7 +477,7 @@ class FusedCollectionStep:
 
     def _replay(self, program: _Program, args: Tuple[Tensor, ...], state: Dict[str, Any]) -> None:
         for buf, a in zip(program.static_args, args):
-            buf.copy_(a)
+            _copy_arg(buf, a)
         if program.graph is not None:
             with torch.cuda.device(self._device):
                 program.graph.replay()
