@@ -219,8 +219,8 @@ Phases, each of which passes or exits non-zero:
    every summary value bit for bit the numpy protocol's over all images, the per-cell reference's over the
    first 500 (worker processes started with the perceptual phase, the macro protocol split by class), list and packed equal, a planted dropped match
    caught; ``coco_greedy_match`` at the stream's one call (every cell, events, L2 flushed) against its bound and
-   its plain version, and bit for bit the plain version there, on the first 500 images' cells (also on the CPU)
-   and at its edge shapes; the IoU family on the first 500 images against float64 oracles (1e-5) and panoptic
+   its plain version, with its grids, its cells by path as the kernel counted them and its host time (and no host sync), and bit for bit
+   the plain version there, on the first 500 images' cells (also on the CPU) and at its edge shapes; the IoU family on the first 500 images against float64 oracles (1e-5) and panoptic
    quality on 200 COCO-panoptic-shaped images (133 categories), its states on the card against the CPU path's
    (worker processes started with the script, a batch each, summed in order; counts exact,
    ``iou_sum`` within one float32 ulp);
@@ -6142,20 +6142,31 @@ def coco_oracle_merge(parts: list) -> dict:
     return out
 
 
-def coco_match_inputs(torch, n: int, dp: int, gp: int, seed: int, case: str = "mixed", device: str = "cuda") -> tuple:
+def coco_match_inputs(torch, n: int, dp: int, gp: int, seed: int, case: str = "mixed", device: str = "cuda",
+                      areas: int = 4, thrs: int = 10) -> tuple:
     """``n`` cells of at most ``dp`` detections and ``gp`` ground truths (the first cell full) for
-    ``coco_greedy_match``, flat and cell-sorted (COCO's default thresholds and area ranges): integer boxes, so that
+    ``coco_greedy_match``, flat and cell-sorted (the first ``areas`` of COCO's area ranges and ``thrs`` thresholds
+    from 0.5 to 0.95, COCO's own at 4 and 10; at ``thrs`` 1 the threshold 0.5): integer boxes, so that
     IoUs tie and land exactly on 0.5 and 0.75 (detections cut to the top half or three quarters of a ground truth),
     exact copies, duplicated ground truths (IoU ties across g), crowds, areas in every range, a NaN box, garbage
     ground-truth rows between the cells that no cell reads, and the cell rows in a shuffled order. ``case``:
-    ``mixed``, ``all_crowd``, ``all_ignored`` (every area past the ranges) or ``ties`` (every ground truth of a cell
-    one box)."""
+    ``mixed``, ``all_crowd``, ``all_ignored`` (every area past the ranges), ``ties`` (every ground truth of a cell
+    one box), ``coco`` (COCO val2017's mix of cells: most without a ground truth, one detection most often; the
+    second cell ``dp`` detections and no ground truth) or ``skewed`` (``n`` cells of one detection and at most one
+    ground truth, and one of ``dp`` x ``gp``)."""
     from tpumetrics_torch.detection._coco_eval import _AREA_RANGES
     from tpumetrics_torch.detection.mean_ap import _torch_f32_linspace
 
+    if case == "skewed":
+        return coco_match_concat(torch, coco_match_inputs(torch, n, 1, 1, seed, "mixed", device, areas, thrs),
+                                 coco_match_inputs(torch, 1, dp, gp, seed, "mixed", device, areas, thrs), seed)
     rng = np.random.default_rng([seed, dp, gp, n])
     det_count, gt_count = rng.integers(0, dp + 1, n), rng.integers(0, gp + 1, n)
     det_count[0], gt_count[0] = dp, gp
+    if case == "coco":  # 86 % of the stream's cells hold no ground truth, 56 % one detection
+        det_count = np.minimum(rng.geometric(0.56, n), dp)
+        gt_count = np.where(rng.random(n) < 0.86, 0, np.minimum(rng.geometric(0.6, n), gp))
+        det_count[:2], gt_count[:2] = dp, (gp, 0)
     gxy = rng.integers(0, 400, (n, gp, 2)).astype(np.float64)
     gwh = (4 * rng.integers(1, 40, (n, gp, 2))).astype(np.float64)
     gt = np.concatenate([gxy, gxy + gwh], -1)
@@ -6190,20 +6201,41 @@ def coco_match_inputs(torch, n: int, dp: int, gp: int, seed: int, case: str = "m
     g_start = np.concatenate([[0], np.cumsum(gt_count + 1)[:-1]])
     cells = np.stack([d_start, det_count, g_start, gt_count], 1)[rng.permutation(n)]
     f64 = dict(dtype=torch.float64, device=device)
-    thr = np.minimum(np.asarray(_torch_f32_linspace(0.5, 0.95, 10)), 1 - 1e-10)
+    thr = np.minimum(np.asarray(_torch_f32_linspace(0.5, 0.95, thrs) if thrs > 1 else [0.5]), 1 - 1e-10)
     return (
         torch.tensor(d_flat, **f64), torch.tensor(g_flat, **f64),
         torch.tensor(crowd_flat, dtype=torch.uint8, device=device), torch.tensor(area_flat, **f64),
         torch.tensor(cells, dtype=torch.int32, device=device), torch.tensor(thr, **f64),
-        torch.tensor(list(_AREA_RANGES.values()), **f64),
+        torch.tensor(list(_AREA_RANGES.values())[:areas], **f64),
     )
 
 
-COCO_MATCH_CASES = [  # (label, cells, most detections, most ground truths in a cell, case)
-    ("Gp=1", 257, 16, 1, "mixed"), ("Gp=64", 300, 32, 64, "mixed"), ("Gp=65", 200, 32, 65, "mixed"),
-    ("Gp=128", 100, 128, 128, "mixed"), ("Dp=1", 513, 1, 8, "mixed"), ("Dp=100", 150, 100, 16, "mixed"),
-    ("all-crowd", 100, 64, 16, "all_crowd"), ("all-ignored", 100, 64, 16, "all_ignored"), ("ties", 200, 64, 32, "ties"),
-    ("Gp=600", 8, 100, 600, "mixed"),
+def coco_match_concat(torch, first: tuple, second: tuple, seed: int) -> tuple:
+    """Two calls' inputs of ``coco_match_inputs`` as one: the second's rows after the first's, its cell rows
+    shifted to them, all cell rows shuffled."""
+    cells = torch.cat([first[4], second[4] + torch.tensor(
+        [first[0].shape[0], 0, first[1].shape[0], 0], dtype=torch.int32, device=first[4].device)])
+    order = torch.as_tensor(np.random.default_rng(seed).permutation(cells.shape[0]), device=cells.device)
+    return (*(torch.cat([a, b]) for a, b in zip(first[:4], second[:4])), cells[order], first[5], first[6])
+
+
+COCO_MATCH_CASES = [  # (label, cells, most detections, most ground truths in a cell, case, areas, thresholds)
+    ("Gp=1", 257, 16, 1, "mixed", 4, 10), ("Gp=64", 300, 32, 64, "mixed", 4, 10),
+    ("Gp=65", 200, 32, 65, "mixed", 4, 10), ("Gp=128", 100, 128, 128, "mixed", 4, 10),
+    ("Dp=1", 513, 1, 8, "mixed", 4, 10), ("Dp=100", 150, 100, 16, "mixed", 4, 10),
+    ("all-crowd", 100, 64, 16, "all_crowd", 4, 10), ("all-ignored", 100, 64, 16, "all_ignored", 4, 10),
+    ("ties", 200, 64, 32, "ties", 4, 10), ("Gp=600", 8, 100, 600, "mixed", 4, 10),
+    # the persistent design's limits: the COCO mix, the lanes' 32 and 64 ground truths, a 100 x 600 cell among
+    # thousands of one-detection cells, more cells than the grid has warps, more detections than a warp stages,
+    # and cells of at most 4 ground truths (walks below the heavy ones, taken last)
+    ("coco-mix", 3000, 24, 12, "coco", 4, 10), ("Gp=32", 300, 32, 32, "mixed", 4, 10),
+    ("Gp=33", 300, 32, 33, "mixed", 4, 10), ("skewed", 6000, 100, 600, "skewed", 4, 10),
+    ("wrap", 20_000, 16, 8, "coco", 4, 10), ("Dp=200", 60, 200, 8, "coco", 4, 10),
+    ("lane", 2000, 20, 4, "mixed", 4, 10), ("lane ties", 500, 16, 4, "ties", 4, 10),
+    # other (area, threshold) pairs: one a lane and rows of 4, 1 and 2 bytes (4, 3 and 2 pairs), two a lane and
+    # rows of 16-byte words (64 pairs), and past the warp path (80 and 160 pairs: the block path takes every cell)
+    ("T=1", 2000, 20, 8, "coco", 4, 1), ("A=1 T=3", 2000, 20, 8, "mixed", 1, 3), ("A=2 T=1", 1000, 20, 8, "mixed", 2, 1),
+    ("T=16", 1000, 32, 64, "mixed", 4, 16), ("T=20", 1000, 32, 64, "coco", 4, 20), ("T=40", 300, 32, 16, "mixed", 4, 40),
 ]
 
 
@@ -6409,24 +6441,42 @@ def detection_kernel(torch, cm, label: str, stream_args: tuple, first_args: tupl
     plain version there; the cells of the first ``COCO_UNFUSED_IMAGES`` images and the edge shapes also against
     the plain version on the CPU."""
     flush = l2_flush(torch)
+    bound = coco_match_bound(stream_args)
     ms, host_ms = cuda_ms(torch, lambda: cm.coco_greedy_match(*stream_args), 5, flush)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the call reads nothing on the host below its ground-truth limit
+    try:
+        cm.coco_greedy_match(*stream_args)
+        host_sync = False
+    except RuntimeError:
+        host_sync = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(not host_sync, f"{label}: coco_greedy_match synchronized with the host")
+    # the cells in each of the sort's lists, as the kernel counted them in that call
+    heavy, walks, ones, large = (int(v) for v in cm.last_cells_by_list.tolist())
+    paths = {"none": bound["cells"] - heavy - walks - ones - large, "warp": heavy + walks + ones, "large": large,
+             "warp_heavy": heavy, "warp_other": walks, "warp_one_gt": ones}
+    grid = dict(cm.last_launch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cm.coco_greedy_match_plain(*stream_args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    bound = coco_match_bound(stream_args)
     max_err = coco_match_check(torch, cm, "the stream's cells", stream_args, cpu=False)
     max_err = max(max_err, coco_match_check(torch, cm, f"the first {COCO_UNFUSED_IMAGES} images' cells", first_args))
-    for case_label, n, dp, gp, case in COCO_MATCH_CASES:
-        max_err = max(max_err, coco_match_check(torch, cm, case_label, coco_match_inputs(torch, n, dp, gp, SEED, case)))
+    for case_label, n, dp, gp, case, areas, thrs in COCO_MATCH_CASES:
+        max_err = max(max_err, coco_match_check(
+            torch, cm, case_label, coco_match_inputs(torch, n, dp, gp, SEED, case, areas=areas, thrs=thrs)))
     largest = cm_largest(stream_args)
-    kernel = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, **bound, "largest_cell": largest,
-              "max_abs_err": max_err, "edge_cases": [c[0] for c in COCO_MATCH_CASES]}
-    print(f"{label}: kernel over the stream's {bound['cells']} cells in one launch {ms:.4f} ms ({ms / bound['bound_ms']:.2f}x"
+    kernel = {"ms": ms, "host_ms": host_ms, "host_sync": host_sync, "plain_ms": plain_ms, **bound, "largest_cell": largest,
+              "grid": grid, "paths": paths, "max_abs_err": max_err, "edge_cases": [c[0] for c in COCO_MATCH_CASES]}
+    print(f"{label}: kernel over the stream's {bound['cells']} cells in one call {ms:.4f} ms ({ms / bound['bound_ms']:.2f}x"
           f" its bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}: {bound['bytes']} bytes, {bound['ops']} fp64"
-          f" operations), {host_ms:.4f} ms of host time to make the call; plain version {plain_ms:.1f} ms; the largest"
-          f" cell {largest}", flush=True)
+          f" operations), {host_ms:.4f} ms of host time to make the call ({'a' if host_sync else 'no'} host sync);"
+          f" grids of {grid['sort_blocks']} (cell sort), {grid['row_blocks']} (default rows) and {grid['walk_blocks']}"
+          f" (walks) blocks of {grid['threads']} threads, {grid['smem']} B of shared memory a walk block;"
+          f" cells by path {paths}; plain version {plain_ms:.1f} ms; the largest cell {largest}", flush=True)
     return kernel
 
 
@@ -6482,16 +6532,17 @@ def detection_phase(torch, oracle, panoptic_cpu, device: str = "cuda") -> dict:
         m_list.update(preds_dev[lo : lo + COCO_BATCH], target_dev[lo : lo + COCO_BATCH])
         sync()
         update_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {}
+    launches, device_launches = {}, {}
 
     def timed_compute(metric, name):
-        cm.launches = 0
+        cm.launches = cm.device_launches = 0
         with dev_eval.record_stages() as stages:
             t0 = time.perf_counter()
             values = metric.compute()
             sync()
             total = time.perf_counter() - t0
         launches[name] = cm.launches
+        device_launches[name] = cm.device_launches
         check(cm.launches >= 1 or not on_card, f"{label}: {name} compute() launched no coco_greedy_match")
         return values, {"total_ms": total * 1e3, **{k: v * 1e3 for k, v in stages.items()}}
 
@@ -6655,7 +6706,7 @@ def detection_phase(torch, oracle, panoptic_cpu, device: str = "cuda") -> dict:
         "update_ms_all": {"list": update_ms, "packed": packed_ms}, "pack_s": pack_s, "modes": modes,
         "compute_ms": {"list": compute_list, "packed": compute_packed, "micro_class_metrics": compute_micro},
         "oracle_s": {job: want[job]["seconds"] for job in ("macro", "micro", "unfused")},
-        "launches": launches, "kernel": kernel, "main_s": main_s, "wait_s": wait_s, "pq_wait_s": pq_wait_s,
+        "launches": launches, "device_launches": device_launches, "kernel": kernel, "main_s": main_s, "wait_s": wait_s, "pq_wait_s": pq_wait_s,
         "phase_s": time.perf_counter() - t_phase,
         "reduced": (f"none for mAP (the values are not COCO's, the times are); panoptic: {PANOPTIC_IMAGES} of"
                     f" val2017's 5,000 images, all held against the CPU path"),
@@ -6803,14 +6854,19 @@ def main() -> None:
                 "route": "cuda",
                 "source": "tpumetrics_torch/csrc/coco_greedy_match.cu",
                 "replaces": "tpumetrics/detection/_coco_eval_jax.py:217",  # a lax.fori_loop, and the numpy loop at _coco_eval.py:357
-                "launches": sum(detection["launches"].values()),
+                "launches": sum(detection["launches"].values()),  # calls: one an evaluation
                 "launches_by_path": detection["launches"],
+                "device_launches": sum(detection["device_launches"].values()),  # the calls' kernel launches
                 "max_abs_err": detection["kernel"]["max_abs_err"],  # against the plain version: bit for bit
                 "ms": detection["kernel"]["ms"],  # the stream's one call: every cell of the macro evaluation
                 "plain_ms": detection["kernel"]["plain_ms"],
                 "bound_ms": detection["kernel"]["bound_ms"],
                 "bound_by": detection["kernel"]["bound_by"],
                 "library_ms": None,  # no PyTorch call performs a greedy match
+                "host_ms": detection["kernel"]["host_ms"],  # to make the call
+                "host_sync": detection["kernel"]["host_sync"],
+                "grid": detection["kernel"]["grid"],
+                "cells_by_path": detection["kernel"]["paths"],
                 "shape": {k: detection["kernel"][k] for k in ("cells", "detections", "ground_truths", "largest_cell")},
                 "edge_cases": detection["kernel"]["edge_cases"],
                 "card": smi,

@@ -1827,15 +1827,17 @@ def _coco_cases():
     return chip_smoke.COCO_MATCH_CASES
 
 
-@pytest.mark.parametrize("label,n,dp,gp,case", _coco_cases(), ids=[c[0] for c in _coco_cases()])
-def test_coco_greedy_match_kernel_matches_its_plain_version(cuda, label, n, dp, gp, case):
+@pytest.mark.parametrize("label,n,dp,gp,case,areas,thrs", _coco_cases(), ids=[c[0] for c in _coco_cases()])
+def test_coco_greedy_match_kernel_matches_its_plain_version(cuda, label, n, dp, gp, case, areas, thrs):
     """The greedy matcher on the card, bit for bit its plain version on the card and on the CPU, at the edge
-    shapes of ``chip_smoke.py``'s kernel check (Gp 1, 64, 65, 128; Dp 1 and 100; all-crowd and all-ignored cells;
-    IoU ties and IoUs exactly on 0.5 and 0.75)."""
+    shapes of ``chip_smoke.py``'s kernel check (Gp 1, 32, 33, 64, 65, 128, 600; Dp 1, 100, 200; all-crowd and
+    all-ignored cells; IoU ties and IoUs exactly on 0.5 and 0.75; COCO's mix of cells, a 100 x 600 cell among
+    thousands of small ones, more cells than the grid has warps, cells of a few ground truths; 2 to 160 (area,
+    threshold) pairs, past the warp path's 64)."""
     import chip_smoke
     from tpumetrics_torch.ops import coco_match as cm
 
-    args = chip_smoke.coco_match_inputs(torch, n, dp, gp, 0, case, device="cuda")
+    args = chip_smoke.coco_match_inputs(torch, n, dp, gp, 0, case, device="cuda", areas=areas, thrs=thrs)
     before = cm.launches
     m, ig = cm.coco_greedy_match(*args)
     torch.cuda.synchronize()
@@ -1850,7 +1852,9 @@ def _coco_dev(items, device):
     return [{k: torch.as_tensor(v, device=device) for k, v in d.items()} for d in items]
 
 
-@pytest.mark.parametrize("kw", [{}, {"average": "micro", "class_metrics": True}, {"box_format": "cxcywh"}])
+@pytest.mark.parametrize(
+    "kw", [{}, {"average": "micro", "class_metrics": True}, {"box_format": "cxcywh"}, {"iou_thresholds": [0.5]}]
+)
 def test_mean_average_precision_on_the_card_matches_the_cpu_bit_for_bit(cuda, kw):
     import chip_smoke
     from tpumetrics_torch.detection import MeanAveragePrecision

@@ -154,7 +154,7 @@ def test_the_batched_protocol_splits_buckets_like_the_jax_one(monkeypatch):
 # ------------------------------------------------------------ the matcher
 
 
-def _cells_for(case_seed, n, dp, gp):
+def _cells_for(case_seed, n, dp, gp, thrs=IOU_THRS):
     """``n`` cells (at most ``dp`` detections and ``gp`` ground truths each) from the corpus generator's kind of
     images, as the matcher's flat cell-sorted inputs (one garbage ground-truth row between cells, the cell rows in
     a shuffled order) and as the numpy matcher's cells (ious, det areas, scores, crowds, effective areas)."""
@@ -178,7 +178,7 @@ def _cells_for(case_seed, n, dp, gp):
         union = np.where(t["iscrowd"][None, :].astype(bool), da[:, None], da[:, None] + gag[None, :] - inter)
         ious = inter / np.where(union > 0, union, 1.0)
         cells.append((ious, da, p["scores"], t["iscrowd"], eff))
-    thr = np.minimum(np.asarray(IOU_THRS), 1 - 1e-10)
+    thr = np.minimum(np.asarray(thrs), 1 - 1e-10)
     ranges = np.asarray(list(peval._AREA_RANGES.values()))
     args = [torch.tensor(np.concatenate(det).reshape(-1, 4)), torch.tensor(np.concatenate(gt)),
             torch.tensor(np.concatenate(crowd)), torch.tensor(np.concatenate(area)),
@@ -187,12 +187,20 @@ def _cells_for(case_seed, n, dp, gp):
     return args, cells, rows
 
 
-@pytest.mark.parametrize("n,dp,gp", [(5, 1, 1), (9, 8, 4), (6, 16, 65), (4, 32, 128)])
-def test_the_plain_matcher_is_the_jax_packages_batched_one(n, dp, gp):
-    args, cells, rows = _cells_for(n * dp + gp, n, dp, gp)
+@pytest.mark.parametrize(
+    "n,dp,gp,thrs",
+    # the kernel's limits: no ground truth (its store pass), 32 and 33 (a lane's two slots), 64 (its warp path's
+    # last); one threshold (4 pairs, a lane's one) and 20 (80 pairs, past the warp path)
+    [pytest.param(n, dp, gp, thrs, id=f"{n}-{dp}-{gp}" + ("" if thrs is IOU_THRS else f"-T{len(thrs)}"))
+     for n, dp, gp, thrs in [(5, 1, 1, IOU_THRS), (9, 8, 4, IOU_THRS), (6, 16, 65, IOU_THRS), (4, 32, 128, IOU_THRS),
+                             (12, 40, 0, IOU_THRS), (5, 24, 32, IOU_THRS), (5, 24, 33, IOU_THRS), (4, 36, 64, IOU_THRS),
+                             (8, 12, 8, [0.5]), (5, 16, 20, list(np.linspace(0.5, 0.95, 20)))]],
+)
+def test_the_plain_matcher_is_the_jax_packages_batched_one(n, dp, gp, thrs):
+    args, cells, rows = _cells_for(n * dp + gp, n, dp, gp, thrs)
     m, ig = cm.coco_greedy_match(*args)  # the plain version: the tensors lie on the CPU
     want_m, want_ig, _, valid, _ = jeval._match_cells_batched(
-        cells, np.asarray(IOU_THRS), list(peval._AREA_RANGES.values()), MAX_DETS[-1], dp, gp
+        cells, np.asarray(thrs), list(peval._AREA_RANGES.values()), MAX_DETS[-1], dp, gp
     )
     assert m.dtype == ig.dtype == torch.uint8 and tuple(m.shape) == (args[0].shape[0], *want_m.shape[1:3])
     for i, (start, count, _, _) in enumerate(rows):  # a detection's row is its (A, T) slice of its cell
@@ -200,6 +208,19 @@ def test_the_plain_matcher_is_the_jax_packages_batched_one(n, dp, gp):
         assert np.array_equal(m[start : start + count].numpy().astype(bool), want_m[i, ..., :count].transpose(2, 0, 1))
         assert np.array_equal(ig[start : start + count].numpy().astype(bool), want_ig[i, ..., :count].transpose(2, 0, 1))
     assert cm.launches == 0  # no kernel on the CPU
+
+
+def test_the_kernels_host_check_reads_the_largest_cell_only_past_its_limit():
+    cells = torch.tensor([[0, 3, 0, 5], [3, 1, 5, 70]], dtype=torch.int32)
+
+    class Unread(torch.Tensor):  # a cell table whose counts must not be read
+        def __getitem__(self, index):
+            raise AssertionError("read")
+
+    cm.check_largest_cell(cells.as_subclass(Unread), 75, 75)  # no cell can hold more than the call's 75 rows
+    cm.check_largest_cell(cells, 200, 70)  # read: 70 fits
+    with pytest.raises(ValueError, match="at most 69 ground truths, got 70"):
+        cm.check_largest_cell(cells, 200, 69)
 
 
 def _rows(dets, gts):

@@ -14,10 +14,17 @@ and ``area_ranges (A, 2)`` float64. Every detection row belongs to exactly
 one cell. Output: ``(det_matches, det_ignore)``, ``(Nd, A, T)`` uint8, one
 row a detection, bit for bit ``_match_cells_batched``'s.
 
-On a CUDA tensor the hand-written kernel in ``csrc/coco_greedy_match.cu``
-runs, one launch for every cell (one block a cell; its source gives the
-design and the bound); the wrapper reads the largest cell's two counts on
-the host to size the kernel's shared memory. On a CPU tensor the plain
+On a CUDA tensor the hand-written kernels in ``csrc/coco_greedy_match.cu``
+run, one call for every cell of an evaluation: a cell sort, the default rows
+and the greedy walks beside them (three device launches; two above 64
+(area, threshold) pairs, where the block path takes every cell and no
+default rows are written; the source gives the design and the bound), their
+scratch (counters zeroed by one fill, three
+lists of cell rows) from torch's allocator. The kernels' shared memory is
+fixed, so the call reads nothing on the host, unless the call has more
+ground-truth rows than the kernels' largest cell (``_plan``): only then does
+it read the largest cell's count, to raise on a cell they do not take. On a
+CPU tensor the plain
 version below runs: the cells padded into power-of-two (detections, ground
 truths) buckets, and the batched loop over each bucket's detection slots as
 torch ops. There is no fallback: a CUDA tensor launches the kernel or
@@ -36,10 +43,20 @@ from tpumetrics_torch.ops import _build
 
 Tensor = torch.Tensor
 
-#: kernel launches in this process; callers may set it to 0 to count a run
+#: kernel calls in this process (one an evaluation); callers may set it to 0 to count a run
 launches = 0
-#: kernel calls recorded into CUDA graphs: always 0, the wrapper reads the host, so no graph captures it
+#: the device launches of the kernels in those calls: two or three a call (the cell sort, the default rows where
+#: the warps walk cells, the walks), beside the one fill of the call's counters
+device_launches = 0
+#: of the calls, those recorded into CUDA graphs
 captured = 0
+#: the last call's geometry: the blocks of its three launches (the cell sort, the default rows, the walks; 0 where
+#: not launched), the threads of a block and a walk block's dynamic shared bytes
+last_launch: dict = {}
+#: the last call's cells in each of the cell sort's lists, as the kernel counted them (on the device: reading it
+#: waits for the call): heavy walks, other walks, one-ground-truth cells, the block path's cells; the cells in
+#: none of them (no ground truth, or no detection) take only the default rows
+last_cells_by_list: Tensor | None = None
 
 _DTYPES = (
     ("det_boxes", torch.float64, 2),
@@ -55,10 +72,35 @@ _DTYPES = (
 @functools.cache
 def _kernel() -> ctypes._CFuncPtr:
     fn = _build.load("coco_greedy_match").coco_greedy_match
-    # (det_boxes, gt_boxes, gt_crowd, gt_area, cells, thr, lo, hi, matches, ignore, n, max_det, max_gt, A, T, stream)
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # (det_boxes, gt_boxes, gt_crowd, gt_area, cells, thr, ranges, matches, ignore, counters, lists, rows, n, A, T,
+    #  stream, blocks[3])
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _plan(num_areas: int, num_thrs: int) -> dict:
+    """The kernels' launch at ``A x T`` pairs: the most ground truths a cell may hold (``max_gt``), a walk block's
+    dynamic shared bytes and threads, the zeroed 64-bit counters a call needs and the words between two of them."""
+    fn = _build.load("coco_greedy_match").coco_greedy_match_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    if fn(num_areas, num_thrs, ctypes.addressof(out)) != 0:
+        raise ValueError(f"coco_greedy_match takes no {num_areas} x {num_thrs} (area, threshold) pairs")
+    return {"max_gt": out[0], "smem": out[1], "threads": out[2], "counters": out[5], "stride": out[6]}
+
+
+def check_largest_cell(cells: Tensor, gt_rows: int, max_gt: int) -> None:
+    """Raise if a cell holds more than ``max_gt`` ground truths. A cell's ground truths are rows of the call's
+    ``gt_rows``, so at ``gt_rows <= max_gt`` nothing is read; past it, the largest count is read on the host (a
+    sync)."""
+    if gt_rows <= max_gt:
+        return
+    largest = int(cells[:, 3].max())
+    if largest > max_gt:
+        raise ValueError(f"coco_greedy_match takes cells of at most {max_gt} ground truths, got {largest}")
 
 
 def _check(*args: Tensor) -> Tuple[int, int, int, int]:
@@ -226,18 +268,31 @@ def coco_greedy_match(
     if n == 0:
         return det_matches, det_ignore
     args = tuple(a.contiguous() for a in args)
-    max_det, max_gt = (int(v) for v in torch.amax(args[4][:, 1::2], dim=0).tolist())  # sizes shared memory
-    lo, hi = args[6][:, 0].contiguous(), args[6][:, 1].contiguous()
+    if args[4].data_ptr() % 16:  # the kernel reads a cell row as one 16-byte load
+        args = (*args[:4], args[4].clone(), *args[5:])
+    plan = _plan(num_areas, num_thrs)
+    check_largest_cell(args[4], gt_boxes.shape[0], plan["max_gt"])
+    blocks = (ctypes.c_int * 3)()
+    # the launches' scratch: zeroed counters (the lists' lengths and the cells taken from them) and three lists of
+    # cell rows
+    counters = torch.zeros(plan["counters"], dtype=torch.int64, device=det_boxes.device)
+    lists = torch.empty((3, n, 4), dtype=torch.int32, device=det_boxes.device)
     with torch.cuda.device(det_boxes.device):
         err = _kernel()(
-            *(a.data_ptr() for a in args[:6]), lo.data_ptr(), hi.data_ptr(), det_matches.data_ptr(),
-            det_ignore.data_ptr(), n, max_det, max_gt, num_areas, num_thrs, torch.cuda.current_stream().cuda_stream,
+            *(a.data_ptr() for a in args), det_matches.data_ptr(), det_ignore.data_ptr(), counters.data_ptr(),
+            lists.data_ptr(), nd_rows, n, num_areas, num_thrs, torch.cuda.current_stream().cuda_stream,
+            ctypes.addressof(blocks),
         )
     if err != 0:
         raise RuntimeError(
-            f"coco_greedy_match kernel launch failed with CUDA error {err} (N={n}, largest cell {max_det} x {max_gt},"
-            f" A={num_areas}, T={num_thrs})"
+            f"coco_greedy_match kernel launch failed with CUDA error {err} (N={n}, A={num_areas}, T={num_thrs})"
         )
-    global launches
+    global launches, device_launches, captured, last_launch, last_cells_by_list
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
     launches += 1
+    device_launches += sum(b > 0 for b in blocks)
+    last_launch = {"sort_blocks": blocks[0], "row_blocks": blocks[1], "walk_blocks": blocks[2],
+                   "threads": plan["threads"], "smem": plan["smem"]}
+    last_cells_by_list = counters[: 4 * plan["stride"] : plan["stride"]]
     return det_matches, det_ignore
