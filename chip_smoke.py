@@ -224,6 +224,24 @@ Phases, each of which passes or exits non-zero:
    quality on 200 COCO-panoptic-shaped images (133 categories), its states on the card against the CPU path's
    (worker processes started with the script, a batch each, summed in order; counts exact,
    ``iou_sum`` within one float32 ulp);
+5l. text phases, at the end of the run: ``token_nll`` (perplexity's token NLL, one read of the logits) held
+   beside its plain version on the same inputs to a float64 reference, row by row: row_error(kernel) <= 2
+   row_error(plain) + 1e-6 (absolute below one nat, relative above), NaN where the plain version has NaN, the
+   call's total within 1e-6 of float64; at Llama 3's shape (8 x 2,048 x 128,256, bf16 and float32), GPT-2's (8 x
+   1,024 x 50,257: rows not 16-byte aligned) and its shifted ``logits[:, :-1]``, Llama 2's (V = 32,000), V = 1,
+   a ragged fp16 shape, an all-ignored batch, targets past V, wrapped and -100 unignored (NaN where JAX gives
+   NaN), two calls and three graph replays bit for bit, the backward against the plain version's autograd
+   gradient; timed (events, L2 flushed) at the Llama 3 and GPT-2 shapes beside its bytes bound, the plain
+   version, ``cross_entropy`` and each one's peak memory above its inputs. Then a perplexity stream: WikiText-103's
+   test split (245,569 tokens) as 15 updates of 8 x 2,048 bf16 logits at V = 128,256 made on the card from the
+   seed, N(0, 2) with the target's logit at N(11, 2) (a mean NLL near 3 nats), -100 past the last token, through
+   ``Perplexity(ignore_index=-100)``: the value within 1e-6 of a float64 oracle built in chunks, the kernel's
+   launches, an update's peak memory against the plain path's, and its fused phase. Then four string streams at
+   their datasets' shapes, made from the seed and cut to a prefix (``TEXT_STREAMS``; one host thread): MT at WMT14
+   newstest2014 En-De (BLEU, SacreBLEU 13a and intl, chrF, chrF++, TER, EED), ASR at LibriSpeech test-clean
+   (WER, CER, MER, WIL, WIP, EditDistance), SQuAD v1.1 dev, and CNN/DailyMail test (ROUGE-1/2/L/Lsum); each
+   collection's states on the card bit for bit the port's CPU path's (two niced spawn workers started with the
+   script), its values in their seeded ranges;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -266,7 +284,10 @@ bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``,
 ``chip_smoke.pansharpening_phase(torch, bc)``, ``chip_smoke.criteo_phase(torch, bc)``,
 ``chip_smoke.generative_phase(torch, bc)`` and ``chip_smoke.perceptual_phase(torch, bc)`` (no build needed; they
 start worker processes with ``spawn``; run alone, the perceptual phase makes its DIV2K pairs anew), and
-``chip_smoke.detection_phase(torch, chip_smoke.detection_oracle_start())`` (after the build).
+``chip_smoke.detection_phase(torch, chip_smoke.detection_oracle_start())`` (after the build);
+``chip_smoke.text_kernel_phase(torch, tn)``, ``chip_smoke.perplexity_phase(torch, tn)`` (with ``from
+tpumetrics_torch.ops import token_nll as tn``, after the build) and ``chip_smoke.text_phase(torch,
+chip_smoke.text_cpu_start())`` (spawn workers).
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -6713,6 +6734,487 @@ def detection_phase(torch, oracle, panoptic_cpu, device: str = "cuda") -> dict:
     }
 
 
+# ------------------------------------------------------------------ text (the perplexity stream and the string streams)
+
+LLAMA3_VOCAB = 128_256  # vocab_size of Meta's published Llama-3-8B config.json
+GPT2_VOCAB = 50_257
+LLAMA2_VOCAB = 32_000
+LM_BATCH, LM_SEQ = 8, 2048
+WIKITEXT103_TEST_TOKENS = 245_569  # WikiText-103's test split (Merity et al. 2016)
+LM_UPDATES = -(-WIKITEXT103_TEST_TOKENS // (LM_BATCH * LM_SEQ))  # 15, the last padded with -100
+LM_SPREAD, LM_MARGIN = 2.0, (11.0, 2.0)  # logits N(0, 2); the target's logit N(11, 2): an NLL of about 3 nats
+NLL_TOTAL_RTOL = 1e-6  # a kernel call's total and the stream's value against float64
+GRAD_ATOL = 2e-6  # the backward's probabilities from the kernel's logsumexp against autograd's (both float32)
+H100_SFU_EXP_PER_S = 132 * 16 * 1.98e9  # exponentials a second on the special-function units (16 an SM a clock)
+TEXT_WORDS = 30_000  # the string streams' vocabulary, drawn Zipf-like
+# each string stream at its dataset's size and the prefix run here (the rest cut: the streams are host Python, one
+# thread in the main process and one in a worker; the prefixes keep the text phases' main thread near 15 s and the
+# script near its 600 s). Host milliseconds an item on the host of an NVIDIA H100 80GB HBM3 (700 W) machine,
+# from ``text_host_costs``:
+TEXT_STREAMS = {
+    "mt": (3_003, 120),  # WMT14 newstest2014 En-De: 21.7 ms a segment (TER 12.3, EED 6.7)
+    "asr": (2_620, 150),  # LibriSpeech test-clean: 16.6 ms an utterance (CER 8.8, EditDistance 6.2)
+    "squad": (10_570, 10_570),  # SQuAD v1.1 dev: 0.18 ms a question
+    "cnndm": (11_490, 250),  # CNN/DailyMail test: 6.3 ms a summary (ROUGE-1/2/L/Lsum)
+}
+TEXT_BATCH = {"mt": 50, "asr": 100, "squad": 1_000, "cnndm": 100}
+
+
+def lm_batch(torch, seed: int, b: int, s: int, v: int, dtype, device: str = "cuda", pad_from: int = None):
+    """``(logits, target)``: ``(b, s, v)`` logits made on ``device`` from the seed, N(0, LM_SPREAD) with the
+    target's logit set to a per-token margin N(LM_MARGIN), so that the NLL is a few nats and not log V;
+    targets uniform over the vocabulary, and -100 (Hugging Face's label padding) from flat position
+    ``pad_from`` on."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    target = torch.randint(0, v, (b, s), device=device, generator=gen)
+    logits = torch.randn(b, s, v, device=device, generator=gen, dtype=dtype)
+    logits.mul_(LM_SPREAD)
+    margin = torch.randn(b, s, 1, device=device, generator=gen) * LM_MARGIN[1] + LM_MARGIN[0]
+    logits.scatter_(2, target[..., None], margin.to(dtype))
+    if pad_from is not None:
+        flat = target.view(-1)
+        flat[pad_from:] = -100
+    return logits, target
+
+
+class LMStream:
+    """The WikiText-103 test split as ``LM_UPDATES`` batches of ``LM_BATCH`` x ``LM_SEQ`` bf16 logits at Llama 3's
+    vocabulary, each made on the card from the seed when indexed (4.2 GB a batch: the stream is never held)."""
+
+    def __init__(self, device: str = "cuda") -> None:
+        self.device = device
+
+    def __len__(self) -> int:
+        return LM_UPDATES
+
+    def __getitem__(self, i: int):
+        if not 0 <= i < LM_UPDATES:
+            raise IndexError(i)
+        import torch
+
+        last = WIKITEXT103_TEST_TOKENS - i * LM_BATCH * LM_SEQ
+        pad = last if last < LM_BATCH * LM_SEQ else None
+        return lm_batch(torch, SEED + 1000 + i, LM_BATCH, LM_SEQ, LLAMA3_VOCAB, torch.bfloat16, self.device, pad)
+
+
+def nll_bound(b: int, s: int, v: int, dtype_bytes: int) -> dict:
+    """Least time for ``token_nll_rows`` on an H100 SXM: the logits and int64 targets read once and the two
+    float32 rows written (bytes), against the float32 operations (a max, a subtraction, an exponential and an
+    addition an element) at 67 TFLOP/s; beside them the exponentials on the special-function units."""
+    rows, elems = b * s, b * s * v
+    nbytes = elems * dtype_bytes + rows * (8 + 4 + 4)
+    ops = 4 * elems
+    bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "sfu_ms": elems / H100_SFU_EXP_PER_S * 1e3}
+
+
+def peak_extra_bytes(torch, fn) -> int:
+    """Device memory that ``fn()`` allocates above what is allocated before it (its inputs), at its peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return int(peak)
+
+
+def nll_check(torch, tn, label: str, logits, target, ignore_index=None) -> dict:
+    """The kernel's rows against the float64 reference beside the plain version's, row by row:
+    ``row_error(kernel) <= 2 row_error(plain) + 1e-6`` and NaN where the plain version has NaN; the call's
+    total within 1e-6 relative of float64 and its count the plain version's."""
+    got, _ = tn.token_nll_rows(logits, target, ignore_index)
+    torch.cuda.synchronize()
+    plain, _ = tn.token_nll_rows_plain(logits, target, ignore_index)
+    ref = tn.token_nll_reference(logits, target, ignore_index)
+    err, err_plain = tn.row_error(got, ref), tn.row_error(plain, ref)
+    check(torch.equal(got.isnan(), plain.isnan()), f"token_nll {label}: NaN rows differ from the plain version's")
+    excess = (err - (tn.REL_SLACK * err_plain + tn.REL_FLOOR)).max()
+    check(float(excess) <= 0.0, f"token_nll {label}: a row's error exceeds 2 x the plain version's + 1e-6 by {float(excess):.3e}")
+    total, count = tn.token_nll(logits, target, ignore_index)
+    _, plain_count = tn.token_nll_plain(logits, target, ignore_index)
+    want = ref.sum()
+    if bool(torch.isnan(want)):
+        check(bool(torch.isnan(total)), f"token_nll {label}: total {float(total)} where float64 gives NaN")
+        total_rel = 0.0
+    else:
+        total_rel = abs(float(total) - float(want)) / max(abs(float(want)), 1.0)
+        check(total_rel <= NLL_TOTAL_RTOL, f"token_nll {label}: total {float(total)} vs float64 {float(want)} ({total_rel:.2e})")
+    check(float(count) == float(plain_count), f"token_nll {label}: count {float(count)} vs {float(plain_count)}")
+    fin = torch.isfinite(got) & torch.isfinite(plain)
+    return {
+        "rel": float(err.max()), "rel_plain": float(err_plain.max()), "total_rel": total_rel,
+        "max_abs_err": float((got - plain).abs()[fin].max()) if bool(fin.any()) else 0.0,
+        "nan_rows": int(got.isnan().sum()),
+    }
+
+
+def text_kernel_phase(torch, tn) -> dict:
+    """``token_nll`` held to its contract beside its plain version on the same inputs, at the main path's shapes
+    and the edge cases, with its time at the Llama 3 and GPT-2 shapes (events, L2 flushed) beside its bound, the
+    plain version's and ``cross_entropy``'s, and each one's peak device memory above its inputs."""
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    ahead = l2_flush(torch)
+    cases, timed = {}, {}
+    shapes = [
+        ("llama3 bf16", LM_BATCH, LM_SEQ, LLAMA3_VOCAB, torch.bfloat16, True),
+        ("llama3 float32", LM_BATCH, LM_SEQ, LLAMA3_VOCAB, torch.float32, True),
+        ("gpt2 bf16", LM_BATCH, 1024, GPT2_VOCAB, torch.bfloat16, True),
+        ("llama2 bf16", LM_BATCH, LM_SEQ, LLAMA2_VOCAB, torch.bfloat16, False),
+        ("V=1 fp16 ragged 3x5", 3, 5, 1, torch.float16, False),
+        ("ragged fp16 7x13x4103", 7, 13, 4103, torch.float16, False),
+    ]
+    for label, b, s, v, dtype, time_it in shapes:
+        logits, target = lm_batch(torch, SEED + v + b, b, s, v, dtype)
+        cases[label] = nll_check(torch, tn, label, logits, target)
+        if time_it:
+            ms, host_ms = cuda_ms(torch, lambda: tn.token_nll_rows(logits, target), 10, ahead)
+            call_ms, _ = cuda_ms(torch, lambda: tn.token_nll(logits, target, -100), 10, ahead)
+            plain_ms, _ = cuda_ms(torch, lambda: tn.token_nll_plain(logits, target, -100), 5, ahead)
+            flat, flat_t = logits.view(-1, v), target.view(-1)
+            library_ms, _ = cuda_ms(
+                torch, lambda: F.cross_entropy(flat, flat_t, reduction="sum", ignore_index=-100), 5, ahead)
+            timed[label] = {
+                "b": b, "s": s, "v": v, "dtype": str(dtype).replace("torch.", ""), "ms": ms, "host_ms": host_ms,
+                "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                **nll_bound(b, s, v, logits.element_size()),
+                "peak_extra_bytes": {
+                    "kernel": peak_extra_bytes(torch, lambda: tn.token_nll(logits, target, -100)),
+                    "plain": peak_extra_bytes(torch, lambda: tn.token_nll_plain(logits, target, -100)),
+                    "library": peak_extra_bytes(
+                        torch, lambda: F.cross_entropy(flat, flat_t, reduction="sum", ignore_index=-100)),
+                },
+                **{k: cases[label][k] for k in ("rel", "rel_plain")},
+            }
+            del flat, flat_t
+        if label == "gpt2 bf16":
+            shifted = logits[:, :-1]
+            check(not shifted.is_contiguous(), "the shifted logits are a strided view")
+            cases["gpt2 logits[:, :-1]"] = nll_check(torch, tn, "shifted", shifted, target[:, 1:])
+            first = tn.token_nll(logits, target, -100)
+            second = tn.token_nll(logits, target, -100)
+            check(all(torch.equal(a, b_) for a, b_ in zip(first, second)), "token_nll: two calls differ")
+            graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                tn.token_nll(logits, target, -100)
+                torch.cuda.synchronize()
+                with torch.cuda.graph(graph):
+                    out = tn.token_nll(logits, target, -100)
+            torch.cuda.current_stream().wait_stream(stream)
+            for _ in range(3):
+                graph.replay()
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b_) for a, b_ in zip(out, first)), "token_nll: a graph replay differs")
+            del graph, out, shifted
+        del logits, target
+        torch.cuda.empty_cache()
+    logits, target = lm_batch(torch, SEED + 7, 2, 64, LLAMA2_VOCAB, torch.bfloat16)
+    cases["all ignored"] = nll_check(torch, tn, "all ignored", logits, torch.full_like(target, -100), -100)
+    check(float(tn.token_nll(logits, torch.full_like(target, -100), -100)[1]) == 0.0, "all ignored: a count")
+    small, _ = lm_batch(torch, SEED + 8, 1, 4, 5, torch.float32)
+    for label, targets, ignore, nan in (("past V", [5, 0, 1, 2], None, True), ("wrapped", [-1, -5, 0, 4], None, False),
+                                        ("-100 unignored", [-100, 1, 2, 3], None, True),
+                                        ("-100 ignored", [-100, 1, 2, 3], -100, False)):
+        t = torch.tensor([targets], device="cuda")
+        cases[label] = nll_check(torch, tn, label, small, t, ignore)
+        check(bool(torch.isnan(tn.token_nll(small, t, ignore)[0])) == nan, f"token_nll {label}: NaN as JAX gives")
+    # the backward (plain torch ops from the saved logsumexp) against the plain version's autograd gradient
+    x, y = logits.float().requires_grad_(True), logits.float().requires_grad_(True)
+    masked = target.clone()
+    masked[:, ::5] = -100
+    tn.token_nll(x, masked, -100)[0].backward()
+    tn.token_nll_plain(y, masked, -100)[0].backward()
+    grad_err = float((x.grad - y.grad).abs().max())
+    check(grad_err <= GRAD_ATOL, f"token_nll backward: {grad_err:.2e} from the plain version's autograd gradient")
+    del x, y, logits, target
+    torch.cuda.empty_cache()
+    worst = max(c["rel"] - tn.REL_SLACK * c["rel_plain"] for c in cases.values())
+    out = {"cases": cases, "timed": timed, "grad_err": grad_err, "worst_excess": worst,
+           "max_abs_err": max(c["max_abs_err"] for c in cases.values()), "phase_s": time.perf_counter() - t0}
+    for label, r in timed.items():
+        print(f"token_nll {label} ({r['b']}x{r['s']}x{r['v']}): kernel {r['ms']:.4f} ms (host {r['host_ms']:.4f} ms; the"
+              f" call with its sums {r['call_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms ({r['bound_by']};"
+              f" operations {r['ops_ms']:.4f} ms, exponentials on the SFUs {r['sfu_ms']:.4f} ms), {r['ms'] / r['bound_ms']:.2f}x;"
+              f" plain {r['plain_ms']:.4f} ms, cross_entropy {r['library_ms']:.4f} ms; peak extra bytes {r['peak_extra_bytes']};"
+              f" worst row error {r['rel']:.3e} (plain {r['rel_plain']:.3e})", flush=True)
+    print(f"token_nll kernel phase: {len(cases)} cases held to row_error <= 2 x plain + 1e-6 and the totals within"
+          f" 1e-6 of float64 (worst excess {worst:.3e}), two calls and three replays bit for bit, the backward within"
+          f" {grad_err:.2e} of autograd's; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def lm_members(device) -> dict:
+    from tpumetrics_torch.text import Perplexity
+
+    return {"perplexity": Perplexity(ignore_index=-100, device=device)}
+
+
+def perplexity_phase(torch, tn, device: str = "cuda") -> dict:
+    """The WikiText-103 test split at Llama 3's vocabulary: 15 updates of 8 x 2,048 bf16 logits made on the card,
+    the last padded with -100 so that exactly 245,569 tokens count; ``Perplexity(ignore_index=-100)`` unfused and
+    in a fused collection in turns (states bit for bit, replays), its value against a float64 oracle built in
+    chunks, the update time, the device union and the peak memory of an update against the plain path's. On the
+    CPU (a rehearsal, with the ``LM_*`` sizes patched down) the card-only parts are left out."""
+    from tpumetrics_torch import MetricCollection
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    stream = LMStream(device)
+    tn.launches = 0  # the main path: the stream's updates
+    metric = lm_members(device)["perplexity"]
+    total64, count = 0.0, 0
+    update_ms = []
+    for i in range(LM_UPDATES):
+        logits, target = stream[i]
+        sync()
+        t1 = time.perf_counter()
+        metric.update(logits, target)
+        sync()
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+        ref = tn.token_nll_reference(logits, target, -100)
+        total64 += float(ref.sum())
+        count += int((target != -100).sum())
+        del logits, target, ref
+    stream_launches = tn.launches
+    check(count == WIKITEXT103_TEST_TOKENS and float(metric.count) == count, f"perplexity: {float(metric.count)} tokens counted")
+    value, oracle = float(metric.compute()), math.exp(total64 / count)
+    rel = abs(value - oracle) / oracle
+    check(rel <= NLL_TOTAL_RTOL, f"perplexity {value} vs float64 {oracle} ({rel:.2e})")
+    check(2.0 < total64 / count < 5.0, f"perplexity: a mean NLL of {total64 / count:.3f} nats, not a few")
+    check(stream_launches == (LM_UPDATES if device == "cuda" else 0),
+          f"perplexity: {stream_launches} token_nll launches for {LM_UPDATES} updates")
+    out = {"value": value, "oracle": oracle, "rel": rel, "mean_nll": total64 / count, "tokens": count,
+           "update_ms": float(np.median(update_ms)), "update_ms_all": update_ms, "launches": stream_launches,
+           "reduced": "none (the logits are made on the card from the seed: the times are a Llama 3 evaluation's, the"
+                      " values not WikiText's)"}
+    if device != "cuda":
+        return out
+    logits, target = stream[0]
+    peak = {"kernel": peak_extra_bytes(torch, lambda: tn.token_nll(logits, target, -100)),
+            "plain": peak_extra_bytes(torch, lambda: tn.token_nll_plain(logits, target, -100))}
+    del logits, target
+    torch.cuda.empty_cache()
+    out["fused"] = fused_pair(torch, "WikiText-103 perplexity, Llama 3 vocabulary",
+                              lambda f: MetricCollection(lm_members("cuda"), fused_update=f, device="cuda"), stream, rounds=5)
+    out["peak_extra_bytes"], out["phase_s"] = peak, time.perf_counter() - t0
+    print(f"perplexity phase: WikiText-103 test, {count} tokens in {LM_UPDATES} updates of {LM_BATCH}x{LM_SEQ}x{LLAMA3_VOCAB}"
+          f" bf16: perplexity {value:.6f} vs float64 {oracle:.6f} ({rel:.2e}), mean NLL {total64 / count:.4f} nats;"
+          f" unfused update median {out['update_ms']:.3f} ms; token_nll launches {stream_launches}; peak extra bytes of"
+          f" an update {peak}; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def text_vocab(rng) -> tuple:
+    """Up to ``TEXT_WORDS`` distinct lowercase words and the cumulative Zipf-like weights of a draw (exponent
+    1.07); a word's length grows with the log of its rank (2 letters at the top, about 7 at rank 10,000), so that a
+    drawn word has about 4.5 letters, as English and German running text do."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyzäöüß"))
+    rank = np.arange(1, TEXT_WORDS + 1)
+    lengths = np.clip(np.rint(1.9 + 1.35 * np.log10(rank) + rng.normal(0.0, 0.8, TEXT_WORDS)), 1, 14).astype(int)
+    picks = letters[rng.integers(0, letters.size, (TEXT_WORDS, 14))]
+    words = np.array(list(dict.fromkeys("".join(row[:n]) for row, n in zip(picks, lengths))))
+    weights = 1.0 / np.arange(1, len(words) + 1) ** 1.07
+    return words, np.cumsum(weights / weights.sum())
+
+
+def draw_words(rng, vocab, n: int) -> list:
+    words, cdf = vocab
+    return [str(w) for w in words[np.minimum(np.searchsorted(cdf, rng.random(n)), len(words) - 1)]]
+
+
+def noisy_copy(rng, vocab, words: list, keep: float, sub: float, ins: float, swap: float) -> list:
+    """A system output from a reference: each word kept, substituted or dropped, words inserted, neighbours swapped."""
+    out = []
+    for w in words:
+        r = rng.random()
+        if r < keep:
+            out.append(w)
+        elif r < keep + sub:
+            out.extend(draw_words(rng, vocab, 1))
+        if rng.random() < ins:
+            out.extend(draw_words(rng, vocab, 1))
+    for i in range(len(out) - 1):
+        if rng.random() < swap:
+            out[i], out[i + 1] = out[i + 1], out[i]
+    return out
+
+
+def punctuate(rng, words: list) -> str:
+    """Words into a sentence: a capital, commas after some words, a full stop."""
+    if not words:
+        return ""
+    words = [w + "," if rng.random() < 0.06 else w for w in words]
+    words[0] = words[0].capitalize()
+    return " ".join(words) + "."
+
+
+def text_stream(kind: str, n: int = None, seed: int = SEED) -> list:
+    """The first ``n`` items of a string stream at its dataset's shape, made from the seed:
+
+    - ``mt``: WMT14 newstest2014 En-De (3,003 segments, one reference; about 21 words a segment, gamma-spread),
+      a system output of BLEU about 0.25: ``(hypothesis, [reference])``;
+    - ``asr``: LibriSpeech test-clean (2,620 utterances, 52,576 words: about 20 a row, uppercase, no punctuation),
+      hypotheses at a WER near 5 %: ``(hypothesis, reference)``;
+    - ``squad``: SQuAD v1.1 dev (10,570 questions, up to 3 answers of about 3 words), a reader near 80 EM:
+      ``(prediction dict, target dict)``;
+    - ``cnndm``: CNN/DailyMail test (11,490 articles; highlights of 3-4 sentences, about 56 words, one a line),
+      summaries near ROUGE-1 0.4: ``(summary, highlights)``."""
+    total = TEXT_STREAMS[kind][0]
+    n = total if n is None else min(n, total)
+    rng = np.random.default_rng([seed, sum(map(ord, kind))])
+    vocab = text_vocab(rng)
+    items = []
+    for i in range(n):
+        if kind == "mt":
+            ref = draw_words(rng, vocab, int(rng.gamma(3.0, 6.0)) + 3)
+            hyp = noisy_copy(rng, vocab, ref, 0.62, 0.26, 0.06, 0.08)
+            items.append((punctuate(rng, hyp), [punctuate(rng, ref)]))
+        elif kind == "asr":
+            ref = [w.upper() for w in draw_words(rng, vocab, int(rng.gamma(2.0, 10.0)) + 1)]
+            hyp = [w.upper() for w in noisy_copy(rng, vocab, [w.lower() for w in ref], 0.96, 0.03, 0.01, 0.0)]
+            items.append((" ".join(hyp), " ".join(ref)))
+        elif kind == "squad":
+            answers = [" ".join(draw_words(rng, vocab, int(rng.integers(1, 6)))) for _ in range(int(rng.integers(1, 4)))]
+            r = rng.random()
+            pred = answers[0] if r < 0.8 else (
+                " ".join(answers[0].split()[:-1] + draw_words(rng, vocab, 1)) if r < 0.9 else " ".join(draw_words(rng, vocab, 3)))
+            qid = f"{i:024x}"
+            items.append(({"prediction_text": pred, "id": qid},
+                          {"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": qid}))
+        else:
+            sents = [draw_words(rng, vocab, int(rng.gamma(4.0, 3.5)) + 4) for _ in range(int(rng.integers(3, 5)))]
+            summ = [noisy_copy(rng, vocab, s, 0.35, 0.4, 0.1, 0.05) for s in sents]
+            items.append(("\n".join(punctuate(rng, s) for s in summ), "\n".join(punctuate(rng, s) for s in sents)))
+    return items
+
+
+def text_members(kind: str, device) -> dict:
+    """Each string stream's collection: MT (BLEU, SacreBLEU 13a and intl where ``regex`` is installed, chrF, chrF++,
+    TER, EED), ASR (WER, CER, MER, WIL, WIP, EditDistance), SQuAD, and ROUGE-1/2/L/Lsum."""
+    from tpumetrics_torch import text
+    from tpumetrics_torch.utils.imports import _REGEX_AVAILABLE
+
+    if kind == "mt":
+        members = {"bleu": text.BLEUScore(device=device), "sacrebleu": text.SacreBLEUScore(tokenize="13a", device=device),
+                   "chrf": text.CHRFScore(n_word_order=0, device=device), "chrfpp": text.CHRFScore(device=device),
+                   "ter": text.TranslationEditRate(device=device), "eed": text.ExtendedEditDistance(device=device)}
+        if _REGEX_AVAILABLE:
+            members["sacrebleu_intl"] = text.SacreBLEUScore(tokenize="intl", device=device)
+        return members
+    if kind == "asr":
+        return {"wer": text.WordErrorRate(device=device), "cer": text.CharErrorRate(device=device),
+                "mer": text.MatchErrorRate(device=device), "wil": text.WordInfoLost(device=device),
+                "wip": text.WordInfoPreserved(device=device), "edit": text.EditDistance(device=device)}
+    if kind == "squad":
+        return {"squad": text.SQuAD(device=device)}
+    return {"rouge": text.ROUGEScore(device=device)}
+
+
+def text_batches(kind: str, items: list) -> list:
+    size = TEXT_BATCH[kind]
+    return [([p for p, _ in items[i : i + size]], [t for _, t in items[i : i + size]]) for i in range(0, len(items), size)]
+
+
+def text_run(kind: str, device) -> tuple:
+    """A string stream's collection on ``device`` over the stream's prefix: its states (numpy), its values
+    (floats) and the seconds of its updates."""
+    from tpumetrics_torch import MetricCollection
+    from tpumetrics_torch.interop import export_state
+
+    col = MetricCollection(text_members(kind, device), device=device)
+    batches = text_batches(kind, text_stream(kind, TEXT_STREAMS[kind][1]))
+    t0 = time.perf_counter()
+    for preds, target in batches:
+        col.update(preds, target)
+    seconds = time.perf_counter() - t0
+    values = {k: float(v) for k, v in flat_values(col.compute()).items()}
+    groups = sorted(sorted(g) for g in col.compute_groups.values())
+    return export_state(col), values, seconds, groups
+
+
+def text_cpu_worker(kind: str) -> tuple:
+    """The CPU path of one string stream, in a worker process."""
+    import torch
+
+    torch.set_num_threads(1)
+    states, values, seconds, groups = text_run(kind, "cpu")
+    return states, values, seconds
+
+
+def text_cpu_start():
+    """The string streams' CPU path in spawn workers at the lowest priority, started with the script beside the
+    device-bound kernel phases, so that it is done long before the text phase: MT alone (TER's shift search is
+    most of it), the other three in turn."""
+    pool = multiprocessing.get_context("spawn").Pool(2, initializer=os.nice, initargs=(19,))
+    return pool, {kind: pool.apply_async(text_cpu_worker, (kind,)) for kind in ("mt", "asr", "squad", "cnndm")}
+
+
+def text_host_costs(kinds=("mt", "asr", "squad", "cnndm"), n: int = 40) -> dict:
+    """Host milliseconds an item of each string stream's collection on the CPU (its first ``n`` items, after a
+    warm batch): what sized the prefixes in ``TEXT_STREAMS``."""
+    from tpumetrics_torch import MetricCollection
+
+    costs = {}
+    for kind in kinds:
+        items = text_stream(kind, 2 * n)
+        per_member = {}
+        for name, metric in text_members(kind, "cpu").items():
+            col = MetricCollection({name: metric}, device="cpu")
+            col.update(*text_batches(kind, items[n:])[0])
+            t0 = time.perf_counter()
+            for preds, target in text_batches(kind, items[:n]):
+                col.update(preds, target)
+            per_member[name] = (time.perf_counter() - t0) * 1e3 / n
+        costs[kind] = {"ms_per_item": sum(per_member.values()), "members": per_member}
+    return costs
+
+
+def text_phase(torch, cpu, device: str = "cuda") -> dict:
+    """The string streams on the card, each held bit for bit against the port's CPU path (workers started earlier,
+    ``text_cpu_start``); the values checked for their range (each stream's seeded quality)."""
+    from tpumetrics_torch.functional.text.rouge import _punkt_available
+    from tpumetrics_torch.utils.imports import _NLTK_AVAILABLE, _REGEX_AVAILABLE
+
+    t0 = time.perf_counter()
+    pool, jobs = cpu
+    out = {}
+    for kind in ("mt", "asr", "squad", "cnndm"):
+        states, values, seconds, groups = text_run(kind, device)
+        t1 = time.perf_counter()
+        cpu_states, cpu_values, cpu_seconds = jobs[kind].get(timeout=600)
+        waited = time.perf_counter() - t1
+        check_identical_states(f"text {kind} card vs CPU", states, cpu_states)
+        for key, value in cpu_values.items():  # the same states through float32 ops on each device
+            check(abs(values[key] - value) <= 1e-6 * max(abs(value), 1.0), f"text {kind} {key}: card {values[key]} vs CPU {value}")
+        full, ran = TEXT_STREAMS[kind]
+        out[kind] = {"values": values, "update_s": seconds, "cpu_update_s": cpu_seconds, "wait_s": waited,
+                     "items": ran, "groups": groups,
+                     "reduced": "none" if ran >= full else f"the first {ran} of {full} (host time: one thread)"}
+        print(f"text phase: {kind}: {ran} of {full} items in {-(-ran // TEXT_BATCH[kind])} updates on the {device} in"
+              f" {seconds:.2f} s (the CPU path {cpu_seconds:.2f} s in a worker, waited {waited:.2f} s): states bit for bit"
+              f" the CPU path's; groups {groups}; values {values}", flush=True)
+    pool.close()
+    pool.join()
+    mt, asr, squad, cnndm = (out[k]["values"] for k in ("mt", "asr", "squad", "cnndm"))
+    check(0.1 < mt["bleu"] < 0.5 and 0.1 < mt["ter"] < 0.8 and 0.2 < mt["chrf"] < 0.9, f"text mt values {mt}")
+    check(0.01 < asr["wer"] < 0.15 and abs(asr["wil"] + asr["wip"] - 1.0) < 1e-6, f"text asr values {asr}")
+    check(60.0 < squad["exact_match"] < 95.0 and squad["f1"] >= squad["exact_match"], f"text squad values {squad}")
+    check(0.2 < cnndm["rouge1_fmeasure"] < 0.7, f"text cnndm values {cnndm}")
+    out["intl"] = "run" if _REGEX_AVAILABLE else "skipped: the regex package is not installed"
+    if not _REGEX_AVAILABLE:
+        print("text phase: SacreBLEU's intl tokenizer skipped: the regex package is not installed", flush=True)
+    out["host_packages"] = {"regex": _REGEX_AVAILABLE, "nltk": _NLTK_AVAILABLE, "punkt": _punkt_available()}
+    print(f"text phase: host packages {out['host_packages']} (rougeLsum splits with punkt only where it is installed)",
+          flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -6724,6 +7226,7 @@ def main() -> None:
         from tpumetrics_torch.ops import _build
         from tpumetrics_torch.ops import binned_confusion as bc
         from tpumetrics_torch.ops import biquad as bq
+        from tpumetrics_torch.ops import token_nll as tn
     except ImportError as err:
         fail(f"the port's package is not beside this script: {err}")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsum must count exactly
@@ -6747,40 +7250,56 @@ def main() -> None:
             for line in dict.fromkeys(lines):  # once each, in order
                 print(f"build: {lib.name}: {line}", flush=True)
 
+    phase_s = {}  # each phase's seconds on the host clock, in the order the script runs them
+
+    def timed(name, phase, *args, **kwargs):
+        t = time.perf_counter()
+        out = phase(*args, **kwargs)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
     panoptic_cpu = panoptic_cpu_start()  # the detection phase's panoptic CPU path, beside the kernel phase
-    kern = kernel_phase(torch, bc)
-    iir = biquad_kernel_phase(torch, bq)
+    text_cpu = text_cpu_start()  # the string streams' CPU path, beside the kernel phases too
+    kern = timed("kernel", kernel_phase, torch, bc)
+    iir = timed("biquad kernel", biquad_kernel_phase, torch, bq)
     paths = {
-        "imagenet": slice_phase(
-            torch, bc, "ImageNet-1k val 50000x1000 T=200, classification report", 50000, 1000, 200, 8192, extra=True
+        "imagenet": timed(
+            "imagenet", slice_phase, torch, bc, "ImageNet-1k val 50000x1000 T=200, classification report", 50000, 1000, 200, 8192, extra=True
         ),
-        "headline": slice_phase(torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192),
-        "binary": task_phase(torch, bc, "binary"),
-        "fairness": fairness_phase(torch, bc),
-        "multilabel": task_phase(torch, bc, "multilabel"),
-        "segmentation": segmentation_phase(torch, bc),
-        "ratings": ratings_phase(torch, bc),
-        "multioutput": multioutput_phase(torch, bc),
-        "clustering": clustering_phase(torch, bc),
-        "nominal": nominal_phase(torch, bc),
-        "retrieval": retrieval_phase(torch, bc),
-        "separation": separation_phase(torch, bc),
-        "srmr": srmr_phase(torch, bc),
-        "restoration": restoration_phase(torch, bc),
-        "pansharpening": pansharpening_phase(torch, bc),
-        "criteo": criteo_phase(torch, bc),
+        "headline": timed("headline", slice_phase, torch, bc, "bench headline 40960x128 T=64", 5 * 8192, 128, 64, 8192),
+        "binary": timed("binary", task_phase, torch, bc, "binary"),
+        "fairness": timed("fairness", fairness_phase, torch, bc),
+        "multilabel": timed("multilabel", task_phase, torch, bc, "multilabel"),
+        "segmentation": timed("segmentation", segmentation_phase, torch, bc),
+        "ratings": timed("ratings", ratings_phase, torch, bc),
+        "multioutput": timed("multioutput", multioutput_phase, torch, bc),
+        "clustering": timed("clustering", clustering_phase, torch, bc),
+        "nominal": timed("nominal", nominal_phase, torch, bc),
+        "retrieval": timed("retrieval", retrieval_phase, torch, bc),
+        "separation": timed("separation", separation_phase, torch, bc),
+        "srmr": timed("srmr", srmr_phase, torch, bc),
+        "restoration": timed("restoration", restoration_phase, torch, bc),
+        "pansharpening": timed("pansharpening", pansharpening_phase, torch, bc),
+        "criteo": timed("criteo", criteo_phase, torch, bc),
     }
-    paths["sync"] = sync_phase(torch, bc, smi)
+    paths["sync"] = timed("sync", sync_phase, torch, bc, smi)
     div2k = paths["restoration"].pop("div2k_u8")
     lpips_cpu = lpips_cpu_start(torch, div2k)  # the perceptual phase's CPU path, beside the next two phases
-    pairwise = pairwise_phase(torch, bc)
-    backbone_image = {"generative": generative_phase(torch, bc)}
+    pairwise = timed("pairwise", pairwise_phase, torch, bc)
+    backbone_image = {"generative": timed("generative", generative_phase, torch, bc)}
     # the detection phase's host workers start beside the short perceptual phase (its CPU path is done by then),
     # so that they have started up when the detection phase begins
     detection_oracle = detection_oracle_start()
-    backbone_image["perceptual"] = perceptual_phase(torch, bc, div2k, lpips_cpu)
+    backbone_image["perceptual"] = timed("perceptual", perceptual_phase, torch, bc, div2k, lpips_cpu)
     del div2k
-    detection = detection_phase(torch, detection_oracle, panoptic_cpu)
+    detection = timed("detection", detection_phase, torch, detection_oracle, panoptic_cpu)
+    torch.cuda.empty_cache()
+    nll_kern = timed("token_nll kernel", text_kernel_phase, torch, tn)
+    lm = timed("perplexity", perplexity_phase, torch, tn)
+    strings = timed("text strings", text_phase, torch, text_cpu)
+    text_s = sum(phase_s[k] for k in ("token_nll kernel", "perplexity", "text strings"))
+    print(f"text phases (kernel checks, perplexity stream, string streams): {text_s:.1f} s", flush=True)
+    check(lm["fused"]["modes"]["replayed"] >= 1 and lm["fused"]["guarded_replay"], "perplexity: no checked graph replay")
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -6808,6 +7327,11 @@ def main() -> None:
         iir_by_path[f"{path} fused phase, unfused"] = p["fused"]["kernel_launches"]["biquad_cascade"]["plain"]
         iir_by_path[f"{path} fused phase, fused (eager + replayed)"] = p["fused"]["kernel_launches"]["biquad_cascade"]["fused"]
     iir_shape = iir["timed"]["gammatone"]
+    nll_by_path = {"perplexity": lm["launches"],
+                   "perplexity fused phase, unfused": lm["fused"]["kernel_launches"]["token_nll"]["plain"],
+                   "perplexity fused phase, fused (eager + replayed)": lm["fused"]["kernel_launches"]["token_nll"]["fused"]}
+    check(all(nll_by_path.values()), f"token_nll: a path of the perplexity stream launched it no time: {nll_by_path}")
+    nll_shape = nll_kern["timed"]["llama3 bf16"]
     report = {
         "kernels": [
             {
@@ -6871,8 +7395,33 @@ def main() -> None:
                 "edge_cases": detection["kernel"]["edge_cases"],
                 "card": smi,
             },
+            {
+                "name": "token_nll",
+                "route": "cuda",
+                "source": "tpumetrics_torch/csrc/token_nll.cu",
+                "replaces": "tpumetrics/functional/text/perplexity.py:40",  # XLA's fusion of _perplexity_update; not Pallas
+                "launches": sum(nll_by_path.values()),
+                "launches_by_path": nll_by_path,
+                "max_abs_err": nll_kern["max_abs_err"],  # against the plain version, over every case
+                "rel": nll_shape["rel"],  # the worst row's error against float64: at most 2 x rel_plain + 1e-6
+                "rel_plain": nll_shape["rel_plain"],
+                "ms": nll_shape["ms"],  # the kernel (token_nll_rows) at the Llama 3 shape, bf16
+                "call_ms": nll_shape["call_ms"],  # token_nll: the kernel, the float64 sum of the rows and the count
+                "plain_ms": nll_shape["plain_ms"],
+                "bound_ms": nll_shape["bound_ms"],
+                "bound_by": nll_shape["bound_by"],
+                "sfu_ms": nll_shape["sfu_ms"],  # the exponentials on the special-function units, beside the bound
+                "library_ms": nll_shape["library_ms"],  # F.cross_entropy(reduction="sum", ignore_index=-100)
+                "peak_extra_bytes": nll_shape["peak_extra_bytes"],
+                "shape": [nll_shape["b"], nll_shape["s"], nll_shape["v"]],
+                "timed_shapes": nll_kern["timed"],
+                "cases": nll_kern["cases"],
+                "grad_err": nll_kern["grad_err"],
+                "card": smi,
+            },
         ],
         "fused_update": fused_report,
+        "phase_s": phase_s,
         "ece_err": ECE_ERR,
         "fairness_count_ms": {"per_group_count": paths["fairness"]["count_ms"], "histogram": paths["fairness"]["hist_ms"]},
         "regression": {
@@ -6926,7 +7475,19 @@ def main() -> None:
         "detection": {k: detection[k] for k in (
             "values", "pq", "iou_worst", "iou_s", "pq_s", "update_ms_median", "pack_s", "modes", "compute_ms",
             "oracle_s", "launches", "main_s", "wait_s", "pq_wait_s", "phase_s", "reduced")},
+        "text": {
+            "perplexity": {
+                **{k: lm[k] for k in ("value", "oracle", "rel", "mean_nll", "tokens", "update_ms", "launches",
+                                      "peak_extra_bytes", "phase_s", "reduced")},
+                "fused": {k: lm["fused"][k] for k in ("modes", "plain_ms", "fused_ms", "profile", "capture_s",
+                                                      "kernel_launches", "eager_leaders")},
+            },
+            "strings": strings,
+            "kernel_phase_s": nll_kern["phase_s"],
+            "phase_s": text_s,
+        },
     }
+    print(f"phase times (s, host clock): {({k: round(v, 1) for k, v in phase_s.items()})}", flush=True)
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -32,7 +32,13 @@ host sync; and the backbone slice: the Inception and LPIPS forwards on the
 card against the CPU path within a tolerance that TF32 would not hold, a
 captured FID update replayed bit for bit the unfused one, the eager latch
 with an extractor that reads the host, the engine's graphs per bucket and
-its eager bucket after a failed capture, and the bfloat16 gates.
+its eager bucket after a failed capture, and the bfloat16 gates; and the
+text slice: the ``token_nll`` kernel against its plain version and a
+float64 reference (GPT-2's misaligned rows, strided rows, one class,
+out-of-range, wrapped and ignored targets, non-finite logits), two calls and
+graph replays bit for bit, its backward against the plain version's
+autograd gradient, and ``Perplexity`` replayed in a fused collection with no
+host sync against the CPU.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -1904,3 +1910,162 @@ def test_packed_detection_update_replays_with_no_host_sync(cuda):
     assert counts["eager"] == 2 and counts["captured"] == 1 and counts["replayed"] >= 9  # the ragged last batch eager
     got, want = m.compute(), ref.compute()
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# ------------------------------------------------------------------ the text slice: token_nll
+
+
+def _nll_case(b, s, v, dtype, seed=0, spread=3.0, ignore=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = (spread * torch.randn(b, s, v, device="cuda", generator=gen)).to(dtype)
+    target = torch.randint(0, v, (b, s), device="cuda", generator=gen)
+    if ignore is not None:
+        target[:, ::3] = ignore
+    return logits, target
+
+
+def _hold_nll_contract(tn, logits, target, ignore_index):
+    """The kernel's rows against the float64 reference beside the plain
+    version's: ``row_error(kernel) <= 2 row_error(plain) + 1e-6`` row by row,
+    NaN where the plain version has NaN; the total within 1e-6 of float64."""
+    got, lse = tn.token_nll_rows(logits, target, ignore_index)
+    torch.cuda.synchronize()
+    plain, plain_lse = tn.token_nll_rows_plain(logits, target, ignore_index)
+    ref = tn.token_nll_reference(logits, target, ignore_index)
+    err, err_plain = tn.row_error(got, ref), tn.row_error(plain, ref)
+    assert torch.equal(got.isnan(), plain.isnan())
+    assert bool((err <= tn.REL_SLACK * err_plain + tn.REL_FLOOR).all()), float((err - tn.REL_SLACK * err_plain).max())
+    assert bool((tn.row_error(lse, plain_lse.double()) <= 1e-6).all())
+    total, count = tn.token_nll(logits, target, ignore_index)
+    want = ref.sum()
+    if torch.isnan(want):
+        assert torch.isnan(total)
+    else:
+        assert abs(float(total) - float(want)) <= 1e-6 * max(abs(float(want)), 1.0)
+    assert float(count) == float(tn.token_nll_plain(logits, target, ignore_index)[1])
+
+
+@pytest.mark.parametrize(
+    ("b", "s", "v", "dtype", "ignore"),
+    [
+        (2, 16, 50257, torch.bfloat16, None),  # GPT-2: a bf16 row of 100,514 bytes, rows not 16-byte aligned
+        (2, 8, 32000, torch.float16, -100),  # Llama 2
+        (1, 4, 128256, torch.float32, None),  # Llama 3
+        (3, 5, 1, torch.float16, None),  # one class: every NLL 0
+        (3, 7, 37, torch.float32, 5),  # ragged B x S, a class ignored
+        (2, 3, 4103, torch.bfloat16, None),  # odd V: a scalar head and tail around the body
+    ],
+)
+def test_token_nll_kernel_holds_its_contract(cuda, b, s, v, dtype, ignore):
+    from tpumetrics_torch.ops import token_nll as tn
+
+    logits, target = _nll_case(b, s, v, dtype, seed=v, ignore=ignore)
+    n0 = tn.launches
+    _hold_nll_contract(tn, logits, target, ignore)
+    assert tn.launches > n0
+
+
+def test_token_nll_reads_strided_rows_and_copies_other_layouts(cuda):
+    from tpumetrics_torch.ops import token_nll as tn
+
+    logits, target = _nll_case(2, 9, 50257, torch.bfloat16, seed=1)
+    shifted, shifted_target = logits[:, :-1], target[:, 1:]
+    assert not shifted.is_contiguous() and shifted.stride(2) == 1
+    _hold_nll_contract(tn, shifted, shifted_target, None)
+    transposed = logits.transpose(1, 2).contiguous().transpose(1, 2)  # the V axis strided
+    with pytest.warns(UserWarning, match="contiguous"):
+        got, _ = tn.token_nll_rows(transposed, target)
+    assert torch.equal(got, tn.token_nll_rows(logits, target)[0])
+
+
+@pytest.mark.parametrize(("targets", "ignore_index"), [([5, -1, -5, 0], None), ([-100, 1, -6, 2], None),
+                                                       ([-100, -100, -100, -100], -100)])
+def test_token_nll_out_of_range_wrapped_and_ignored_targets(cuda, targets, ignore_index):
+    from tpumetrics_torch.ops import token_nll as tn
+
+    logits, _ = _nll_case(1, 4, 5, torch.float32, seed=2)
+    target = torch.tensor([targets], device="cuda")
+    _hold_nll_contract(tn, logits, target, ignore_index)
+    got, _ = tn.token_nll_rows(logits, target, ignore_index)
+    plain, _ = tn.token_nll_rows_plain(logits, target, ignore_index)
+    assert torch.equal(got.isnan(), plain.isnan())
+    if ignore_index is not None:
+        assert float(tn.token_nll(logits, target, ignore_index)[1]) == 0.0 and float(got.abs().sum()) == 0.0
+
+
+def test_token_nll_non_finite_logits_as_the_plain_version(cuda):
+    from tpumetrics_torch.ops import token_nll as tn
+
+    logits, target = _nll_case(1, 4, 4103, torch.float32, seed=4)
+    logits[0, 0, 7] = float("nan")
+    logits[0, 1, 9] = float("inf")
+    logits[0, 2] = float("-inf")
+    got, _ = tn.token_nll_rows(logits, target)
+    plain, _ = tn.token_nll_rows_plain(logits, target)
+    assert torch.equal(got.isnan(), plain.isnan()) and bool(got[:3].isnan().all())
+    assert torch.isfinite(got[3])
+
+
+def test_token_nll_is_deterministic_and_replays_bit_for_bit(cuda):
+    from tpumetrics_torch.ops import token_nll as tn
+
+    logits, target = _nll_case(4, 64, 50257, torch.bfloat16, seed=5, ignore=-100)
+    first = tn.token_nll(logits, target, -100)
+    second = tn.token_nll(logits, target, -100)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    graph = torch.cuda.CUDAGraph()
+    captured0 = tn.captured
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tn.token_nll(logits, target, -100)  # warm on the side stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            out = tn.token_nll(logits, target, -100)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert tn.captured == captured0 + 1
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_nll_backward_matches_the_plain_autograd_gradient(cuda, dtype):
+    from tpumetrics_torch.ops import token_nll as tn
+
+    logits, target = _nll_case(2, 8, 4103, dtype, seed=6, ignore=-100)
+    x = logits.clone().requires_grad_(True)
+    y = logits.clone().requires_grad_(True)
+    (3.0 * tn.token_nll(x, target, -100)[0]).backward()
+    (3.0 * tn.token_nll_plain(y, target, -100)[0]).backward()
+    assert x.grad.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 8e-3  # the gradient rounded to bf16 on both sides
+    torch.testing.assert_close(x.grad.float(), y.grad.float(), atol=tol, rtol=0)
+
+
+def test_perplexity_on_the_card_and_replayed_matches_the_cpu(cuda):
+    from tpumetrics_torch.ops import token_nll as tn
+    from tpumetrics_torch.text import Perplexity
+
+    col = MetricCollection({"ppl": Perplexity(ignore_index=-100, device="cuda")}, fused_update=True, device="cuda")
+    ref = Perplexity(ignore_index=-100, device="cpu")
+    calls = tn.launches
+    for seed in range(5):
+        logits, target = _nll_case(2, 32, 32000, torch.bfloat16, seed=10 + seed, ignore=-100)
+        if seed == 4:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                col.update(logits, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            col.update(logits, target)
+        ref.update(logits.cpu(), target.cpu())
+    step = col._fused_oo_step
+    assert step.counts["replayed"] >= 2
+    assert step.kernel_launches()["token_nll"] == step.counts["captured"] + step.counts["replayed"]
+    assert tn.launches - calls == 1 + step.counts["eager"]  # the first update, which forms the groups, is eager
+    got, want = col["ppl"], ref
+    assert float(got.count) == float(want.count)
+    assert abs(float(got.total_log_probs) - float(want.total_log_probs)) <= 1e-6 * float(want.total_log_probs)

@@ -2,7 +2,9 @@
 
 Every ported package's ``__all__`` equals the JAX one (the top level and
 ``functional`` restricted to the ported domains; ``image`` and
-``functional.image`` whole, the backbone metrics included; ``backbones``
+``functional.image`` whole, the backbone metrics included; ``text`` and
+``functional.text`` less BERTScore and InfoLM, which wait for the port's
+encoder modules; ``backbones``
 less ``backbone_partition_rules``, which waits for the port of
 ``parallel/sharding.py``; ``telemetry`` and its ported modules less the names
 of the parts still to port: lockstep, spans, SLOs, the admin server,
@@ -28,13 +30,16 @@ import tpumetrics_torch.utils
 
 DOMAINS = [
     "audio", "classification", "clustering", "detection", "image", "monitoring", "nominal", "regression", "retrieval",
-    "wrappers",
+    "text", "wrappers",
 ]
 FUNCTIONAL_DOMAINS = [
-    "audio", "classification", "clustering", "detection", "image", "nominal", "pairwise", "regression", "retrieval"
+    "audio", "classification", "clustering", "detection", "image", "nominal", "pairwise", "regression", "retrieval",
+    "text",
 ]
 # the image metrics that run a backbone network (Inception, LPIPS's nets, a generator): all ported
 WAITING_FOR_BACKBONES = set()
+# the text metrics that run a transformer encoder: they wait for the port's own encoder modules
+WAITING_FOR_ENCODERS = {"BERTScore", "InfoLM", "bert_score", "infolm"}
 # the JAX backbone names the port lacks: the sharded weight placement waits for parallel/sharding.py
 WAITING_FOR_SHARDING = {"backbone_partition_rules"}
 # the JAX telemetry names whose modules are not ported yet: lockstep, spans, SLOs, the admin server,
@@ -57,7 +62,7 @@ def _pair(name):
 
 
 def _ported(names):
-    return set(names) - WAITING_FOR_BACKBONES
+    return set(names) - WAITING_FOR_BACKBONES - WAITING_FOR_ENCODERS
 
 
 @pytest.mark.parametrize("name", PACKAGES)
@@ -88,6 +93,16 @@ def test_the_names_waiting_for_the_backbones_are_the_jax_image_ones():
     port_image = set(_pair("image")[0].__all__) | set(_pair("functional.image")[0].__all__)
     assert WAITING_FOR_BACKBONES == jax_image - port_image
     assert not WAITING_FOR_BACKBONES & set(tpumetrics_torch.__all__)
+
+
+def test_the_names_waiting_for_encoders_are_the_jax_text_ones_the_port_lacks():
+    """BERTScore, InfoLM and their functions are the JAX text exports the
+    port lacks, and no package of the port exports them."""
+    jax_text = set(_pair("text")[1].__all__) | set(_pair("functional.text")[1].__all__)
+    port_text = set(_pair("text")[0].__all__) | set(_pair("functional.text")[0].__all__)
+    assert WAITING_FOR_ENCODERS == jax_text - port_text
+    functional = importlib.import_module("tpumetrics_torch.functional")
+    assert not WAITING_FOR_ENCODERS & (set(tpumetrics_torch.__all__) | set(functional.__all__))
 
 
 def test_backbones_all_is_the_jax_one_less_the_sharded_placement():

@@ -62,6 +62,24 @@ def _images(seed, shape=(3, 3, 48, 48)):
     return rng.uniform(-1, 1, shape).astype(np.float32), rng.uniform(-1, 1, shape).astype(np.float32)
 
 
+@pytest.fixture(scope="module")
+def jax_per_image(params):
+    """The JAX functional's per-image distances under one ``jax.jit`` a net, its backbone built directly, shared by
+    the module's tests: fed ``_images``' default shape, each net compiles once."""
+    from tpumetrics.image._backbones import lpips_backbone as jax_backbone
+
+    jitted = {}
+
+    def get(net):
+        if net not in jitted:
+            jnet = jax_backbone(net, [(jnp.asarray(w), jnp.asarray(bias)) for w, bias in params[net]])
+            heads = lpips_head_weights(net)
+            jitted[net] = jax.jit(lambda x, y: jax_lpips(x, y, jnet, heads, reduction="none"))
+        return jitted[net]
+
+    return get
+
+
 def test_param_spec_fits_the_stacks_and_the_heads():
     for net in NETS:
         spec = _backbones.lpips_param_spec(net)
@@ -76,15 +94,12 @@ def test_param_spec_fits_the_stacks_and_the_heads():
 
 
 @pytest.mark.parametrize("net", NETS)
-def test_functional_every_reduction_matches_jax(params, net):
+def test_functional_every_reduction_matches_jax(params, jax_per_image, net):
     """Each reduction of the port's functional against the JAX functional's per-image values (run under one
     ``jax.jit``, its backbone built directly: one compile a net) and the port's float64 path."""
-    from tpumetrics.image._backbones import lpips_backbone as jax_backbone
-
     a, b = _images(1)
-    jnet = jax_backbone(net, [(jnp.asarray(w), jnp.asarray(bias)) for w, bias in params[net]])
     heads = lpips_head_weights(net)
-    per_image = np.asarray(jax.jit(lambda x, y: jax_lpips(x, y, jnet, heads, reduction="none"))(a, b))
+    per_image = np.asarray(jax_per_image(net)(a, b))
     net64 = _backbones.lpips_backbone(net, _backbones.lpips_conv_params(params[net], "cpu", torch.float64))
     exact = learned_perceptual_image_patch_similarity(torch.from_numpy(a).double(), torch.from_numpy(b).double(),
                                                       net64, [torch.from_numpy(w).double() for w in heads],
@@ -193,16 +208,15 @@ def test_chip_smoke_resize_weights_are_jax_image_resize(n_in, n_out):
     np.testing.assert_allclose(np.einsum("oh,nchw,pw->ncop", w, x.astype(np.float64), w), want, rtol=0, atol=RESIZE_ATOL)
 
 
-def test_chip_smoke_written_out_lpips_vgg_matches_jax(params):
+def test_chip_smoke_written_out_lpips_vgg_matches_jax(params, jax_per_image):
     """The PPL oracle's LPIPS-VGG in ``chip_smoke.py`` (written out in float64, none of the port's functions)
-    against the JAX functional under ``jax.jit`` on the same weights and heads, within ``JIT_RTOL``."""
+    against the JAX functional under ``jax.jit`` on the same weights and heads, within ``JIT_RTOL``; at
+    ``_images``' shape, so that the jitted JAX VGG is the one the functional test compiled."""
     import chip_smoke
-    from tpumetrics.image._backbones import lpips_backbone as jax_backbone
 
-    a, b = (2 * x - 1 for x in _images(3, (2, 3, 32, 32)))
+    a, b = (2 * x - 1 for x in _images(3))
     heads = lpips_head_weights("vgg")
-    jnet = jax_backbone("vgg", [(jnp.asarray(w), jnp.asarray(bias)) for w, bias in params["vgg"]])
-    want = np.asarray(jax.jit(lambda x, y: jax_lpips(x, y, jnet, heads, reduction="none"))(a, b))
+    want = np.asarray(jax_per_image("vgg")(a, b))
     convs = [tuple(torch.from_numpy(np.asarray(x)).double() for x in wb) for wb in params["vgg"]]
     got = chip_smoke.vgg_lpips64(torch, torch.from_numpy(a).double(), torch.from_numpy(b).double(), convs,
                                  [torch.from_numpy(w).double() for w in heads])

@@ -296,6 +296,29 @@ def test_gloo_regression_collection_matches_jax_on_the_whole_data(gloo, world, p
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_gloo_text_states_sync_to_those_of_one_rank_fed_the_union(gloo, world):
+    """BLEU's four float32 sums and EED's gathered sentence scores (one rank
+    empty at world 3) equal bit for bit those of one metric fed every
+    sentence, and so do the values; both values that of the JAX metrics."""
+    import tpumetrics.text as jax_text
+
+    preds, target = w.text_corpus()
+    refs = [[t] for t in target]
+    want = {"bleu": jax_text.BLEUScore(), "eed": jax_text.ExtendedEditDistance()}
+    for m in want.values():
+        m.update(preds, refs)
+    for res in gloo[world]:
+        for name, got in res["text"].items():
+            assert sorted(got["synced"]) == sorted(got["union"])
+            for k, v in got["union"].items():
+                assert got["synced"][k].dtype == v.dtype
+                np.testing.assert_array_equal(got["synced"][k], v, err_msg=f"{name} {k}")
+            assert got["value"] == got["union_value"]
+            np.testing.assert_allclose(got["value"], np.asarray(want[name].compute()), rtol=RTOL, atol=ATOL)
+    assert gloo[world][0]["text"]["eed"]["synced"]["sentence_eed"].shape == (w.TEXT_PAIRS,)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_gloo_minmax_extrema_merge_with_min_and_max_as_jax(gloo, world):
     """Each rank's extrema, observed on its own batches, merge to the least
     minimum and the largest maximum over the ranks (an empty rank's +-inf

@@ -598,6 +598,44 @@ def scenario_detection(rank: int, world: int) -> Dict[str, Any]:
     return {"values": _np(values), "packed_refused": refused}
 
 
+TEXT_WORDS = "the cat sat on mat a dog ran fast over lazy fox brown quick it is was and naïve café".split()
+TEXT_PAIRS = 8
+
+
+def text_corpus(seed: int = 31) -> tuple:
+    """``(preds, target)``: hypotheses and one reference each, from the seed."""
+    rng = np.random.default_rng(seed)
+    target = [" ".join(rng.choice(TEXT_WORDS, int(rng.integers(3, 12)))) for _ in range(TEXT_PAIRS)]
+    preds = [" ".join(w if rng.random() > 0.3 else str(rng.choice(TEXT_WORDS)) for w in t.split()) for t in target]
+    return preds, target
+
+
+def scenario_text(rank: int, world: int) -> Dict[str, Any]:
+    """BLEU's sum states and EED's list state synced across the ranks, each
+    rank fed its shard, beside a metric fed the union of the shards
+    (``sync_on_compute=False``): the states while synced, and both values."""
+    from tpumetrics_torch.text import BLEUScore, ExtendedEditDistance
+    from tpumetrics_torch.utils.data import dim_zero_cat
+
+    preds, target = text_corpus()
+    mine = shards(TEXT_PAIRS, world)[rank]
+    out = {}
+    for name, make in (("bleu", BLEUScore), ("eed", ExtendedEditDistance)):
+        metric, union = make(device="cpu"), make(device="cpu", sync_on_compute=False)
+        metric.update(preds[mine], [[t] for t in target[mine]])
+        union.update(preds, [[t] for t in target])
+
+        def states(m):
+            return {k: _np(dim_zero_cat(v) if isinstance(v, list) else v) for k, v in m.metric_state().items()}
+
+        metric.sync()
+        synced = states(metric)
+        metric.unsync()
+        out[name] = {"synced": synced, "union": states(union), "value": _np(metric.compute()),
+                     "union_value": _np(union.compute())}
+    return out
+
+
 SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "collection": scenario_collection,
     "binary_exact_auroc": scenario_binary_exact_auroc,
@@ -608,6 +646,7 @@ SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "running_collection": scenario_running_collection,
     "regression_collection": scenario_regression_collection,
     "backend": scenario_backend,
+    "text": scenario_text,
 }
 
 

@@ -1,7 +1,7 @@
 """Functional metrics of the port (counterpart of ``tpumetrics/functional``):
 the classification functions and their task-string dispatchers, and the
-audio, clustering, detection, image, nominal, pairwise, regression and retrieval
-functions."""
+audio, clustering, detection, image, nominal, pairwise, regression, retrieval
+and text functions."""
 
 from tpumetrics_torch.functional.audio import *  # noqa: F401,F403
 from tpumetrics_torch.functional.audio import __all__ as _audio_all
@@ -21,6 +21,8 @@ from tpumetrics_torch.functional.regression import *  # noqa: F401,F403
 from tpumetrics_torch.functional.regression import __all__ as _regression_all
 from tpumetrics_torch.functional.retrieval import *  # noqa: F401,F403
 from tpumetrics_torch.functional.retrieval import __all__ as _retrieval_all
+from tpumetrics_torch.functional.text import *  # noqa: F401,F403
+from tpumetrics_torch.functional.text import __all__ as _text_all
 
 __all__ = sorted(
     [
@@ -33,5 +35,6 @@ __all__ = sorted(
         *_pairwise_all,
         *_regression_all,
         *_retrieval_all,
+        *_text_all,
     ]
 )

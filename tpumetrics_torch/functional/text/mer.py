@@ -1,0 +1,50 @@
+"""Match error rate (port of ``tpumetrics/functional/text/mer.py``)."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import torch
+
+from tpumetrics_torch.functional.text.helper import _edit_distance, _normalize_inputs
+from tpumetrics_torch.metric import _resolve_device
+
+Tensor = torch.Tensor
+
+
+def _mer_update(
+    preds: Union[str, List[str]], target: Union[str, List[str]], device: Optional[torch.device] = None
+) -> Tuple[Tensor, Tensor]:
+    """Word-level edit distances and the longer side's word counts, summed (float32)."""
+    preds, target = _normalize_inputs(preds, target)
+    errors = 0
+    total = 0
+    for pred, tgt in zip(preds, target):
+        pred_tokens = pred.split()
+        tgt_tokens = tgt.split()
+        errors += _edit_distance(pred_tokens, tgt_tokens)
+        total += max(len(tgt_tokens), len(pred_tokens))
+    return (
+        torch.tensor(errors, dtype=torch.float32, device=device),
+        torch.tensor(total, dtype=torch.float32, device=device),
+    )
+
+
+def _mer_compute(errors: Tensor, total: Tensor) -> Tensor:
+    return errors / total
+
+
+def match_error_rate(
+    preds: Union[str, List[str]], target: Union[str, List[str]], device: Optional[Union[str, torch.device]] = None
+) -> Tensor:
+    """Match error rate of transcriptions.
+
+    Example:
+        >>> from tpumetrics_torch.functional.text import match_error_rate
+        >>> preds = ["this is the prediction", "there is an other sample"]
+        >>> target = ["this is the reference", "there is another one"]
+        >>> round(float(match_error_rate(preds, target, device="cpu")), 4)
+        0.4444
+    """
+    errors, total = _mer_update(preds, target, _resolve_device(device))
+    return _mer_compute(errors, total)
