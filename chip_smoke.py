@@ -134,10 +134,12 @@ Phases, each of which passes or exits non-zero:
    1000, 4095, 4096, 4097, 12293), at edge cases (T=1, one lane, silence,
    lanes driven into the clip, NaN and inf inputs), a graph replay bit for
    bit the eager call, and at the SRMR stream's full shapes (184 and 1,472
-   lanes x 128,000 samples, the shapes its main path gives the kernel),
-   with its time at those shapes (events, L2 flushed), a one-lane launch's
-   at the full T (the carry chain's latency), the plain version's at the
-   full shapes and at T=2048, and the bytes bound; then a separation
+   lanes x 128,000 samples, the shapes its main path gives the kernel:
+   every lane against float64, the plain loop on one lane of each filter
+   at the full T in worker processes started with the script), with its
+   time at those shapes (events, L2 flushed), a one-lane launch's at the
+   full T (the carry chain's latency), the plain version's at T=2048, and
+   the bytes bound; the phase runs after the separation phase; then a separation
    stream at WSJ0-2mix test geometry (3,000 two-speaker mixtures of 4 s at
    8 kHz, made from the seed as speech-like modulated noise with estimates
    at 15 dB and the speakers swapped in about half; batches of 50; made
@@ -242,6 +244,21 @@ Phases, each of which passes or exits non-zero:
    (WER, CER, MER, WIL, WIP, EditDistance), SQuAD v1.1 dev, and CNN/DailyMail test (ROUGE-1/2/L/Lsum); each
    collection's states on the card bit for bit the port's CPU path's (two niced spawn workers started with the
    script), its values in their seeded ranges;
+5m. encoder phases, after the text phases, on random weights at the published widths made on the card from the
+   seed (no checkpoint is in the repository; words hashed into each model's vocabulary): ``bert_greedy_match``
+   (BERTScore's greedy cosine matching, the similarity matrix kept on the chip) held beside its plain version to a
+   float64 reference, cell by cell: |kernel - ref| <= 2 |plain - ref| + 1e-6, two calls bit for bit; at the MT
+   stream's call (3,003 pairs, L = 1, D = 1,024), at ``all_layers`` (64 x 25 x 512 x 512 x 1,024) and at edge
+   cases (every real similarity negative, Sp != St, one token, rows of zero weight, D = 100, tile edges, maxima past
+   48 KB of shared memory); timed (events, L2 flushed) beside its bound, the plain version, the composite torch ops
+   and each one's peak memory. Then BERTScore over WMT14 newstest2014 En-De's 3,003 pairs on RoBERTa-large (batch
+   64; compute-time with idf off and on, stream-time through a ``backbone=`` handle), the matcher's launches counted;
+   stream-time against compute-time, the first 64 pairs against a float64 run of the encoder (and a planted fault,
+   one target's words reversed, that the check catches), the stream's scoring against float64 scoring of its own
+   embeddings. InfoLM (KL with idf at temperature 0.25, twice bit for bit; an alpha-divergence) on BERT-base-uncased's
+   masked LM over the first 96 pairs, the first 8 against float64. CLIPScore over 1,000 MS-COCO val2017-shaped
+   images and captions on CLIP ViT-L/14, then CLIP-IQA (quality, sharpness, a custom pair) on the same images, the
+   first 8 against float64;
 6. sync phase: the ImageNet-size stream again, through the collection of
    the slice phase with a ``MeanMetric`` and a ``CatMetric`` of per-batch
    values added, its ``compute()`` synced over a real NCCL process group of
@@ -279,7 +296,7 @@ Run alone, a phase is a function of this module, called from a script that
 guards its own entry point (``if __name__ == "__main__":``; the separation
 phase starts worker processes with ``spawn``) after ``_build.build()``:
 ``chip_smoke.separation_phase(torch, bc)``, ``chip_smoke.srmr_phase(torch,
-bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq)``,
+bc)``, ``chip_smoke.biquad_kernel_phase(torch, bq, chip_smoke.biquad_plain_start())``,
 ``chip_smoke.restoration_phase(torch, bc)``,
 ``chip_smoke.pansharpening_phase(torch, bc)``, ``chip_smoke.criteo_phase(torch, bc)``,
 ``chip_smoke.generative_phase(torch, bc)`` and ``chip_smoke.perceptual_phase(torch, bc)`` (no build needed; they
@@ -287,7 +304,9 @@ start worker processes with ``spawn``; run alone, the perceptual phase makes its
 ``chip_smoke.detection_phase(torch, chip_smoke.detection_oracle_start())`` (after the build);
 ``chip_smoke.text_kernel_phase(torch, tn)``, ``chip_smoke.perplexity_phase(torch, tn)`` (with ``from
 tpumetrics_torch.ops import token_nll as tn``, after the build) and ``chip_smoke.text_phase(torch,
-chip_smoke.text_cpu_start())`` (spawn workers).
+chip_smoke.text_cpu_start())`` (spawn workers); ``chip_smoke.bert_kernel_phase(torch, bm)`` and
+``chip_smoke.bertscore_phase(torch, bm)`` (with ``from tpumetrics_torch.ops import bert_match as bm``, after the
+build), ``chip_smoke.infolm_phase(torch)`` and ``chip_smoke.clip_phase(torch)``.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -307,6 +326,7 @@ import sys
 import threading
 import time
 import warnings
+import zlib
 
 import numpy as np
 
@@ -3012,26 +3032,51 @@ def biquad_bound(lanes: int, t: int, stages: int, clamp: bool) -> dict:
     }
 
 
-def biquad_call_inputs(torch, kind: str, batch: int, t: int, seed: int):
-    """``(x, b, a, clamp)`` on the card as SRMR's two call sites give them at
+def biquad_call_inputs(torch, kind: str, batch: int, t: int, seed: int, device: str = "cuda"):
+    """``(x, b, a, clamp)`` on ``device`` as SRMR's two call sites give them at
     16 kHz: the gammatone bank (4 stages, clipped, ``batch x 23`` lanes of
     one waveform each) or the modulation bank (1 stage, ``batch x 23 x 8``
     lanes of envelopes)."""
     from tpumetrics_torch.functional.audio import srmr
 
     rng = np.random.default_rng(seed)
-    const = srmr._constants(SRMR_FS, GAMMATONE_CHANNELS, 125.0, 4.0, 128.0, torch.device("cuda"))
+    const = srmr._constants(SRMR_FS, GAMMATONE_CHANNELS, 125.0, 4.0, 128.0, torch.device(device))
     if kind == "gammatone":
         wave = rng.uniform(-1, 1, (batch, t)).astype(np.float32)
-        x = torch.from_numpy(wave).cuda()[:, None, :].expand(batch, GAMMATONE_CHANNELS, t).reshape(-1, t)
+        x = torch.from_numpy(wave).to(device)[:, None, :].expand(batch, GAMMATONE_CHANNELS, t).reshape(-1, t)
         return x.contiguous(), const["as_"].repeat(1, batch, 1), const["bs"].repeat(1, batch, 1), True
     env = np.abs(rng.standard_normal((batch * GAMMATONE_CHANNELS, t))).astype(np.float32) * 1e-3
-    x = torch.from_numpy(env).cuda()[:, None, :].expand(-1, MOD_BANDS, t).reshape(-1, t)
+    x = torch.from_numpy(env).to(device)[:, None, :].expand(-1, MOD_BANDS, t).reshape(-1, t)
     lanes = batch * GAMMATONE_CHANNELS
     return x.contiguous(), const["mb"].repeat(lanes, 1)[None], const["ma"].repeat(lanes, 1)[None], False
 
 
 BIQUAD_CHUNK, BIQUAD_TILE = 16, 4096  # samples a thread and a block of the kernel run (csrc/biquad_cascade.cu)
+# the lanes of the main-path shapes the plain loop runs on at the full T (one of each filter: the first utterance's
+# 23 gammatone channels; its first three channels' 8 modulation bands), on the host in a worker: on the card the loop
+# is a launch per op and time step whatever the lanes, 74.3 s and 16.2 s at the full shapes on a slow host
+BIQUAD_PLAIN_LANES = {"gammatone": list(range(GAMMATONE_CHANNELS)), "modulation": list(range(3 * MOD_BANDS))}
+
+
+def biquad_plain_worker(kind: str) -> tuple:
+    """The plain loop on ``BIQUAD_PLAIN_LANES[kind]`` of the main-path shape's inputs, on the CPU (the same float32
+    ops as on the card, so the same values): ``(output, seconds)``."""
+    import torch
+
+    from tpumetrics_torch.ops import biquad as bq
+
+    torch.set_num_threads(1)
+    x, b, a, clamp = biquad_call_inputs(torch, kind, SRMR_BATCH, SRMR_T, SEED + 3, device="cpu")
+    lanes = BIQUAD_PLAIN_LANES[kind]
+    t0 = time.perf_counter()
+    out = bq.biquad_cascade_plain(x[lanes].contiguous(), b[:, lanes].contiguous(), a[:, lanes].contiguous(), clamp)
+    return out.numpy(), time.perf_counter() - t0
+
+
+def biquad_plain_start():
+    """The plain loops of ``biquad_plain_worker`` in two niced spawn workers, started with the script."""
+    pool = multiprocessing.get_context("spawn").Pool(2, initializer=os.nice, initargs=(19,))
+    return pool, {kind: pool.apply_async(biquad_plain_worker, (kind,)) for kind in ("gammatone", "modulation")}
 
 
 def biquad_check(torch, bq, label: str, x, b, a, clamp: bool, want=None) -> dict:
@@ -3067,15 +3112,17 @@ def same_bits(torch, u, v) -> bool:
     return bool(torch.equal(u.view(torch.int32), v.view(torch.int32)))
 
 
-def biquad_kernel_phase(torch, bq) -> dict:
+def biquad_kernel_phase(torch, bq, plain_cpu) -> dict:
     """``biquad_cascade`` on the card held to its contract (``biquad_check``)
     beside its plain version on the same inputs: both call sites' shapes at
     short T, the chunk and tile edges, edge cases (T=1, one lane, silence,
     lanes driven into the clip, NaN and inf), a graph replay against the eager
     call bit for bit, and the SRMR stream's full shapes (the shapes its main
-    path gives the kernel, on the inputs that are timed); its time at the full
+    path gives the kernel, on the inputs that are timed): there every lane
+    against the float64 reference, the plain loop on ``BIQUAD_PLAIN_LANES``
+    (``plain_cpu``: ``biquad_plain_start``'s workers); its time at the full
     shapes, a one-lane launch's at the full T (the carry chain's latency), and
-    the plain version's at the full T (one call) and at T=2048."""
+    the plain version's at T=2048 on the card."""
     cases = []
     for kind in ("gammatone", "modulation"):
         for t in (2048, 4096):
@@ -3141,41 +3188,54 @@ def biquad_kernel_phase(torch, bq) -> dict:
     del cases, x, b, a, loud, nan, xm, bm, am, eager, replayed, graph
     flush = l2_flush(torch)
     timed = {}
-    for kind, lanes in (("gammatone", SRMR_BATCH * GAMMATONE_CHANNELS), ("modulation", SRMR_BATCH * GAMMATONE_CHANNELS * MOD_BANDS)):
+    for kind, n_lanes in (("gammatone", SRMR_BATCH * GAMMATONE_CHANNELS), ("modulation", SRMR_BATCH * GAMMATONE_CHANNELS * MOD_BANDS)):
         x, b, a, clamp = biquad_call_inputs(torch, kind, SRMR_BATCH, SRMR_T, SEED + 3)
         ms, host_ms = cuda_ms(torch, lambda: bq.biquad_cascade(x, b, a, clamp), reps=5, ahead=flush)
         one_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade(x[:1], b[:, :1], a[:, :1], clamp), reps=3, ahead=flush)
-        # the main path's shape: the plain loop's full call on the timed inputs, then the contract against both
-        flush()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        # the main path's shape: the kernel on every lane against float64, the plain loop (its worker's output) on
+        # one lane of each filter, rel(kernel) <= 2 rel(plain) + 1e-6 over those lanes and over every lane
+        got = bq.biquad_cascade(x, b, a, clamp)
+        again = bq.biquad_cascade(x, b, a, clamp)
+        torch.cuda.synchronize()
+        check(same_bits(torch, got, again), f"biquad_cascade at the {kind} main-path shape: two calls differ")
+        lanes = BIQUAD_PLAIN_LANES[kind]
         t0 = time.perf_counter()
-        start.record()
-        want = bq.biquad_cascade_plain(x, b, a, clamp)
-        end.record()
-        end.synchronize()
-        plain_full_ms, plain_full_wall_s = start.elapsed_time(end), time.perf_counter() - t0
-        res = biquad_check(torch, bq, f"the {kind} main-path shape", x, b, a, clamp, want=want)
+        plain_out, plain_cpu_s = plain_cpu[1][kind].get(timeout=900)
+        waited = time.perf_counter() - t0
+        want = torch.from_numpy(plain_out).cuda()
+        check(torch.equal(~torch.isfinite(got[lanes]), ~torch.isfinite(want)),
+              f"biquad_cascade at the {kind} main-path shape: non-finite outputs apart from the plain loop's")
+        ref = bq.biquad_cascade_reference(x, b, a, clamp)
+        rel, rel_lanes = bq.relative_error(got, ref), bq.relative_error(got[lanes], ref[lanes])
+        rel_plain = bq.relative_error(want, ref[lanes])
+        check(max(rel, rel_lanes) <= bq.REL_SLACK * rel_plain + bq.REL_FLOOR,
+              f"biquad_cascade at the {kind} main-path shape: rel {rel:.3e} (its lanes {rel_lanes:.3e}) against the"
+              f" float64 reference, the plain loop's {rel_plain:.3e} on {len(lanes)} lanes")
+        fin = torch.isfinite(got[lanes]) & torch.isfinite(want)
+        res = {"rel": rel, "rel_lanes": rel_lanes, "rel_plain": rel_plain,
+               "max_abs_err": float((got[lanes] - want)[fin].abs().max()) if bool(fin.any()) else 0.0}
         max_err = max(max_err, res["max_abs_err"])
-        worst[kind] = max(worst[kind], res["rel"] / (bq.REL_SLACK * res["rel_plain"] + bq.REL_FLOOR))
+        worst[kind] = max(worst[kind], rel / (bq.REL_SLACK * rel_plain + bq.REL_FLOOR))
         print(f"kernel phase: biquad_cascade {kind} at the main path's shape ({tuple(x.shape)}, {b.shape[0]} stages,"
-              f" clamp {clamp}): rel {res['rel']:.3e} against the float64 reference, the plain loop's"
-              f" {res['rel_plain']:.3e} (tolerance {bq.REL_SLACK:g} x plain + {bq.REL_FLOOR:g}); max abs difference"
-              f" from the plain loop {res['max_abs_err']:.3e}; two calls bit for bit; plain loop {plain_full_ms:.1f} ms"
-              f" of device time, {plain_full_wall_s:.1f} s on the host clock", flush=True)
-        del want
+              f" clamp {clamp}): rel {rel:.3e} over every lane against the float64 reference ({rel_lanes:.3e} on the"
+              f" plain loop's {len(lanes)}), the plain loop's {rel_plain:.3e} (tolerance {bq.REL_SLACK:g} x plain +"
+              f" {bq.REL_FLOOR:g}); max abs difference from the plain loop {res['max_abs_err']:.3e}; two calls bit for"
+              f" bit; the plain loop on {len(lanes)} lanes at the full T {plain_cpu_s:.1f} s on the host (a worker;"
+              f" waited {waited:.1f} s)", flush=True)
+        del got, again, want, ref
         xs, bs, as_ = x[:, :2048].contiguous(), b, a
         plain_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade_plain(xs, bs, as_, clamp), reps=1, ahead=flush)
         kern_short_ms, _ = cuda_ms(torch, lambda: bq.biquad_cascade(xs, bs, as_, clamp), reps=5, ahead=flush)
-        bound = biquad_bound(lanes, SRMR_T, b.shape[0], clamp)
-        timed[kind] = {"lanes": lanes, "t": SRMR_T, "stages": b.shape[0], "ms": ms, "host_ms": host_ms,
-                       "one_lane_ms": one_ms, "plain_ms": plain_full_ms, "plain_ms_t2048": plain_ms,
-                       "ms_t2048": kern_short_ms, "rel": res["rel"], "rel_plain": res["rel_plain"],
-                       "max_abs_err": res["max_abs_err"], **bound}
+        bound = biquad_bound(n_lanes, SRMR_T, b.shape[0], clamp)
+        timed[kind] = {"lanes": n_lanes, "t": SRMR_T, "stages": b.shape[0], "ms": ms, "host_ms": host_ms,
+                       "one_lane_ms": one_ms, "plain_ms_t2048": plain_ms, "plain_cpu_s": plain_cpu_s,
+                       "plain_cpu_lanes": len(lanes), "ms_t2048": kern_short_ms, "rel": res["rel"],
+                       "rel_plain": res["rel_plain"], "max_abs_err": res["max_abs_err"], **bound}
         print(
-            f"kernel phase: biquad_cascade {kind} {lanes} lanes x {SRMR_T} samples, {b.shape[0]} stages:"
+            f"kernel phase: biquad_cascade {kind} {n_lanes} lanes x {SRMR_T} samples, {b.shape[0]} stages:"
             f" kernel {ms:.4f} ms on the device ({ms / bound['bound_ms']:.2f}x its bound; {host_ms:.4f} ms of host"
             f" time to make the call; 4 device launches: the wrapper's two divisions by a0, the scratch's zero fill"
-            f" and the scan); plain {plain_full_ms:.1f} ms; one lane at the full T {one_ms:.4f} ms (the carry chain's"
+            f" and the scan); one lane at the full T {one_ms:.4f} ms (the carry chain's"
             f" latency); at T=2048 kernel {kern_short_ms:.4f} ms, plain {plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms by"
             f" {bound['bound_by']} (bytes {bound['bytes']} -> {bound['bytes_ms']:.4f} ms at 3.35 TB/s;"
             f" ops {bound['ops']} -> {bound['ops_ms']:.4f} ms at 67 TFLOP/s fp32); library call: none",
@@ -7215,6 +7275,541 @@ def text_phase(torch, cpu, device: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------------ the encoder metrics: BERTScore, InfoLM, CLIP
+# Random weights at the published widths, made on the card from the seed (no checkpoint is in the repository):
+# RoBERTa-large (BERTScore's default), BERT-base-uncased with its MLM head (InfoLM's) and CLIP ViT-L/14.
+
+BERT_BATCH = 64  # bert_score's default batch_size
+BERT_ALL_LAYERS = (64, 25, 512, 512, 1024)  # all_layers: RoBERTa-large's 25 hidden states, 64 sentences of 512 tokens
+BERT_F64_PAIRS = 64  # the MT pairs held against a float64 run of the encoder
+BERT_F64_ATOL = 5e-6  # P, R, F1 against float64: 3.9e-7 measured, 2.2e-5 with the encoder in TF32 (tf32_encoders)
+BERT_STREAM_ATOL = 1e-5  # stream-time against compute-time: the same encoder at other padded lengths
+INFOLM_PAIRS = 96  # of newstest2014's 3,003: every token of a sentence masked in its own copy
+INFOLM_F64_PAIRS = 8
+INFOLM_F64_RTOL = 5e-5  # a sentence's KL / alpha-divergence against float64: 1.6e-6 / 5.0e-6 measured, 4.5e-4 / 4.2e-4 in TF32
+CLIP_IMAGES = 1_000  # of COCO val2017's 5,000
+CLIP_BATCH = 50
+CLIP_CONTROL_IMAGES = 100  # the TF32 control's prefix (CLIPScore and CLIP-IQA), and CLIP-IQA's float64 prefix
+CLIP_FAULT_IMAGES = 50  # the planted fault's prefix: its captions shifted by one image
+CLIP_SHARED = 0.5  # the towers' shared direction, of a LayerNorm output's norm (clip_shared_direction)
+CLIP_F64_ATOL = 3e-4  # CLIPScore (100 x a cosine) against float64, each image: 2.0e-5 measured, 6.9e-3 in TF32
+IQA_F64_ATOL = 1e-5  # CLIP-IQA's probabilities against float64: 2.0e-6 measured, 1.5e-3 in TF32
+CLIP_CAPTION_WORDS = (10.5, 2.4)  # COCO captions: about 10.5 words (mean, sd)
+CLIP_MEAN, CLIP_STD = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)  # CLIPProcessor's
+
+
+class HashTokenizer:
+    """A tokenizer of the surface the metrics call (``tokenizer(sentences, padding=, truncation=, max_length=)`` to
+    ``input_ids`` and ``attention_mask``): each lowercased word hashed (CRC-32) into ``[first, stop)`` of a model's
+    vocabulary, between its begin and end tokens, the rows padded with ``pad``. It stands in for the models' BPE and
+    WordPiece vocabularies, which are not in the repository: one id a word, at the vocabulary's width."""
+
+    def __init__(self, first: int, stop: int, bos: int, eos: int, pad: int, mask: int = None, max_length: int = 512):
+        self.first, self.stop, self.bos, self.eos, self.pad, self.max_length = first, stop, bos, eos, pad, max_length
+        self.cls_token_id, self.sep_token_id, self.pad_token_id, self.mask_token_id = bos, eos, pad, mask
+
+    def __call__(self, sentences, padding=True, truncation=True, max_length=None, **_):
+        limit = min(max_length or self.max_length, self.max_length)
+        rows = [[self.bos] + [self.first + zlib.crc32(w.lower().encode()) % (self.stop - self.first)
+                              for w in s.split()][: limit - 2] + [self.eos] for s in sentences]
+        width = max(len(r) for r in rows)
+        ids = np.full((len(rows), width), self.pad, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            mask[i, : len(r)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def roberta_tokenizer() -> HashTokenizer:
+    """RoBERTa's specials: <s> 0, <pad> 1, </s> 2; words in 4..50,263 (50,264 is <mask>)."""
+    return HashTokenizer(4, 50_264, 0, 2, 1, 50_264)
+
+
+def bert_tokenizer() -> HashTokenizer:
+    """BERT-base-uncased's specials: [PAD] 0, [CLS] 101, [SEP] 102, [MASK] 103; words in 1,000..30,521."""
+    return HashTokenizer(1_000, 30_522, 101, 102, 0, 103)
+
+
+class ClipHashProcessor(HashTokenizer):
+    """CLIP's processor protocol (``processor(text=, images=, return_tensors="np", padding=True)``): captions hashed
+    into 1..49,405 between <|startoftext|> 49,406 and <|endoftext|> 49,407 (also the pad, as CLIP's tokenizer pads),
+    at most 77 positions; images (host copies, C x 224 x 224 in [0, 1]) normalized with CLIP's mean and std."""
+
+    def __init__(self):
+        super().__init__(1, 49_406, 49_406, 49_407, 49_407, max_length=77)
+
+    def __call__(self, text=None, images=None, return_tensors="np", padding=True, **_):
+        out = super().__call__(text) if text is not None else {}
+        if images is not None:
+            pix = np.stack([np.asarray(i, np.float32) for i in images])
+            mean, std = np.asarray(CLIP_MEAN, np.float32)[:, None, None], np.asarray(CLIP_STD, np.float32)[:, None, None]
+            out["pixel_values"] = (pix - mean) / std
+        return out
+
+
+def mt_pairs(n: int = None) -> tuple:
+    """``(hypotheses, references)`` of the WMT14 newstest2014 En-De stream (``text_stream("mt")``)."""
+    items = text_stream("mt", n)
+    return [p for p, _ in items], [t[0] for _, t in items]
+
+
+def tf32_encoders(torch):
+    """The control of the encoder phases' float64 checks: a context inside which the port's BERT, RoBERTa and CLIP
+    run their products in TF32, as an encoder would that lost its full-float32 guard (``_ieee_float32_matmul`` and
+    ``_ieee_float32`` in ``text._bert_encoder`` and ``multimodal._clip``, swapped for guards that set TF32). Each
+    phase holds a run under it to fail its float64 tolerance, so that the tolerance is shown to tell full float32
+    from TF32."""
+    import contextlib
+
+    import tpumetrics_torch.multimodal._clip as clip_module
+    import tpumetrics_torch.text._bert_encoder as bert_module
+
+    @contextlib.contextmanager
+    def tf32(*backends):
+        saved = [b.fp32_precision for b in backends]
+        for b in backends:
+            b.fp32_precision = "tf32"
+        try:
+            yield
+        finally:
+            for b, value in zip(backends, saved):
+                b.fp32_precision = value
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = (bert_module._ieee_float32_matmul, clip_module._ieee_float32_matmul, clip_module._ieee_float32)
+        bert_module._ieee_float32_matmul = clip_module._ieee_float32_matmul = lambda: tf32(torch.backends.cuda.matmul)
+        clip_module._ieee_float32 = lambda *backends: tf32(torch.backends.cudnn.conv)
+        try:
+            yield
+        finally:
+            bert_module._ieee_float32_matmul, clip_module._ieee_float32_matmul, clip_module._ieee_float32 = saved
+
+    return swapped()
+
+
+def bert_match_inputs(torch, n: int, layers: int, sp: int, st: int, dim: int, seed: int, case: str = "random",
+                      device: str = "cuda") -> tuple:
+    """``(pe, te, ps, ts)`` as ``bert_score`` gives them to the matcher: unit rows, zero at position 0 (the begin
+    token, when a side has more than one position) and past each row's length (a quarter to all of its positions),
+    positive scales on the real rows summing to 1. ``case``: ``"negative"`` makes every real pair's cosine negative
+    (the maxima then come from the zero rows); ``"zero rows"`` zeroes the last third of the sentences, embeddings and
+    scales (rows past a corpus's end)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    pe = torch.randn(n, layers, sp, dim, generator=g, device=device)
+    te = torch.randn(n, layers, st, dim, generator=g, device=device)
+    if case == "negative":
+        base = torch.rand(n, layers, 1, dim, generator=g, device=device) + 0.5
+        pe, te = base + 0.3 * pe.abs(), -(base + 0.3 * te.abs())
+    pe, te = pe / pe.norm(dim=-1, keepdim=True), te / te.norm(dim=-1, keepdim=True)
+    scales = []
+    for emb, s in ((pe, sp), (te, st)):
+        length = torch.randint(max(1, s // 4), s + 1, (n,), generator=g, device=device)
+        real = torch.arange(s, device=device)[None] < length[:, None]
+        if s > 1:
+            real[:, 0] = False
+        w = torch.rand(n, s, generator=g, device=device) * real
+        emb.mul_(real[:, None, :, None])
+        scales.append(w / w.sum(dim=1, keepdim=True).clamp(min=1e-30))
+    ps, ts = scales
+    if case == "zero rows":
+        for t in (pe, te, ps, ts):
+            t[2 * n // 3 :] = 0.0
+    return pe, te, ps, ts
+
+
+def bert_match_check(torch, bm, label: str, args) -> dict:
+    """The kernel's contract at one case: two calls bit for bit, no NaN, and ``|kernel - ref| <= 2 |plain - ref| +
+    1e-6`` for each cell and output against the float64 reference; the largest errors beside the plain version's."""
+    got = bm.bert_greedy_match(*args)
+    again = bm.bert_greedy_match(*args)
+    torch.cuda.synchronize()
+    check(all(same_bits(torch, a, b) for a, b in zip(got, again)), f"bert_greedy_match {label}: two calls differ")
+    check(not any(bool(torch.isnan(x).any()) for x in got), f"bert_greedy_match {label}: NaN in the outputs")
+    plain = bm.bert_greedy_match_plain(*args)
+    ref = bm.bert_greedy_match_reference(*args)
+    excess = float(bm.cell_excess(got, plain, ref))
+    check(excess <= 0.0, f"bert_greedy_match {label}: a cell's error exceeds 2 x the plain version's + 1e-6 by {excess:.3e}")
+    return {"excess": excess, "err": max(float((g.double() - r).abs().max()) for g, r in zip(got, ref)),
+            "err_plain": max(float((p.double() - r).abs().max()) for p, r in zip(plain, ref)),
+            "max_abs_err": max(float((g - p).abs().max()) for g, p in zip(got, plain))}
+
+
+def bert_match_bound(n: int, layers: int, sp: int, st: int, dim: int) -> dict:
+    """Least time for ``bert_greedy_match`` on an H100 SXM: ``pe`` and ``te`` read once, the scales read and the three
+    outputs written (bytes), against the products' ``2 n L Sp St D`` float32 operations at 67 TFLOP/s on the CUDA
+    cores (JAX's einsum is Precision.HIGHEST: no TF32 or bf16 tensor cores)."""
+    nbytes = 4 * (n * layers * (sp + st) * dim + n * (sp + st) + 3 * n * layers)
+    ops = 2 * n * layers * sp * st * dim
+    bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms}
+
+
+def bert_kernel_phase(torch, bm) -> dict:
+    """``bert_greedy_match`` held to its contract beside its plain version on the same inputs, at the MT stream's
+    call (3,003 pairs, RoBERTa-large's D = 1,024, L = 1, the stream's token counts), at ``all_layers`` (64 x 25 x
+    512 x 512 x 1,024) and at edge cases (every real similarity negative in a 64 and a 128 tile, Sp != St past a
+    tile, one token, rows of zero weight, D not a multiple of 4, two tiles' edges, token counts whose maxima spill
+    past 48 KB of shared memory, a 128 tile over two layers: each of the kernel's three tiles); timed (events, L2 flushed) at the first two beside its bound, the plain version, the
+    composite (the same torch ops in one pass: einsum, two amax, two weighted sums, TF32 off) and each one's peak
+    memory."""
+    t0 = time.perf_counter()
+    preds, target = mt_pairs()
+    tok = roberta_tokenizer()
+    sp, st = tok(preds)["input_ids"].shape[1], tok(target)["input_ids"].shape[1]
+    shapes = {"mt": (len(preds), 1, sp, st, 1024), "all_layers": BERT_ALL_LAYERS}
+    edges = [("every real similarity negative", (8, 1, 9, 11, 1024), "negative"),
+             ("Sp != St, 3 layers", (5, 3, 70, 130, 1024), "random"), ("one token", (4, 2, 1, 1, 64), "random"),
+             ("rows of zero weight", (9, 1, 40, 33, 1024), "zero rows"), ("D = 100", (6, 2, 17, 29, 100), "random"),
+             ("tile edges 64 / 65 / 128 tokens", (3, 1, 65, 128, 256), "random"),
+             ("6,000 x 6,000 tokens (maxima past 48 KB)", (1, 1, 6000, 6000, 64), "random"),
+             ("a 128 tile, every real similarity negative", (4, 1, 100, 96, 256), "negative"),
+             ("a 128 tile, 256 x 250 tokens, 2 layers", (2, 2, 256, 250, 1024), "random"),
+             ("D = 101 (4-byte loads)", (5, 1, 33, 47, 101), "random")]
+    cases, timed = {}, {}
+    for i, (label, shape, case) in enumerate([(k, v, "random") for k, v in shapes.items()] + edges):
+        args = bert_match_inputs(torch, *shape, seed=SEED + 40 + i, case=case)
+        cases[label] = {"shape": list(shape), **bert_match_check(torch, bm, label, args)}
+        cases[label]["tile"] = bm.tile(shape[2], shape[3])
+        if case == "negative":
+            check(all(float(x.abs().max()) == 0.0 for x in bm.bert_greedy_match(*args)),
+                  f"bert_greedy_match {label}: yet a maximum is not the zero rows' 0")
+        if label in shapes:
+            flush = l2_flush(torch)
+            ms, host_ms = cuda_ms(torch, lambda: bm.bert_greedy_match(*args), 10, flush)
+            plain_ms, _ = cuda_ms(torch, lambda: bm.bert_greedy_match_plain(*args), 3, flush)
+            composite_ms, _ = cuda_ms(torch, lambda: bm._match(*args, shape[0]), 3, flush)
+            timed[label] = {"shape": list(shape), "tile": cases[label]["tile"], "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                            "composite_ms": composite_ms, **bert_match_bound(*shape),
+                            "peak_extra_bytes": {
+                                "kernel": peak_extra_bytes(torch, lambda: bm.bert_greedy_match(*args)),
+                                "plain": peak_extra_bytes(torch, lambda: bm.bert_greedy_match_plain(*args)),
+                                "composite": peak_extra_bytes(torch, lambda: bm._match(*args, shape[0]))},
+                            **{k: cases[label][k] for k in ("err", "err_plain")}}
+            del flush
+        del args
+        torch.cuda.empty_cache()
+    tiles = {c["tile"] for c in cases.values()}
+    check(tiles == {64, 96, 128}, f"bert_greedy_match: the cases took the tiles {sorted(tiles)}, not all three")
+    for label, r in timed.items():
+        print(f"bert_greedy_match {label} {r['shape']} (tile {r['tile']}): kernel {r['ms']:.4f} ms (host {r['host_ms']:.4f} ms), bound"
+              f" {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bytes_ms']:.4f} ms, operations {r['ops_ms']:.4f} ms),"
+              f" {r['ms'] / r['bound_ms']:.2f}x; plain {r['plain_ms']:.4f} ms, composite {r['composite_ms']:.4f} ms; peak"
+              f" extra bytes {r['peak_extra_bytes']}; worst error {r['err']:.3e} (plain {r['err_plain']:.3e})", flush=True)
+    out = {"cases": cases, "timed": timed, "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+           "worst_excess": max(c["excess"] for c in cases.values()), "phase_s": time.perf_counter() - t0}
+    print(f"bert kernel phase: {len(cases)} cases held to |kernel - ref| <= 2 |plain - ref| + 1e-6 (worst excess"
+          f" {out['worst_excess']:.3e}), two calls bit for bit each; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def bertscore_float64(torch, bm, model64, tok, preds: list, target: list) -> tuple:
+    """``(P, R, F1)`` of a float64 run of the encoder, idf off: its last hidden state normalized and masked in
+    float64, scored by the float64 reference."""
+    from tpumetrics_torch.functional.text.bert import _tokenize_padded, _weight_mask
+
+    sides = []
+    for sentences in (preds, target):
+        batch = _tokenize_padded(tok, sentences, 512)
+        ids, mask = (torch.as_tensor(batch[k], device="cuda") for k in ("input_ids", "attention_mask"))
+        with torch.no_grad():
+            h = model64(input_ids=ids, attention_mask=mask).last_hidden_state
+        w = torch.as_tensor(_weight_mask(batch["attention_mask"]), device="cuda", dtype=torch.float64)
+        h = h / h.norm(dim=-1, keepdim=True).clamp(min=1e-12) * w[..., None]
+        sides.append((h[:, None], w / w.sum(dim=1, keepdim=True).clamp(min=1.0)))
+    return bm.bert_greedy_match_reference(sides[0][0], sides[1][0], sides[0][1], sides[1][1])
+
+
+def bertscore_phase(torch, bm) -> dict:
+    """BERTScore over WMT14 newstest2014 En-De's 3,003 pairs on RoBERTa-large (random weights at its widths, from
+    the seed), ``batch_size=64``: compute-time with idf off and on, and stream-time through a ``backbone=`` handle
+    (the engine's bucket graphs), idf off; the matcher's launches counted on that main path. Held: the stream-time
+    scores against the compute-time ones, the first 64 pairs against a float64 run of the encoder (and a planted
+    fault, one target's words reversed, caught by the same check), and the stream-time call's scores against float64
+    scoring of its own float32 embeddings (the kernel's contract over the whole stream)."""
+    from tpumetrics_torch.backbones import get_backbone
+    from tpumetrics_torch.functional.text import bert_score
+    from tpumetrics_torch.text import BERTScore
+    from tpumetrics_torch.text._bert_encoder import ROBERTA_LARGE, BertEncoder, build, random_bert_params
+
+    t0 = time.perf_counter()
+    preds, target = mt_pairs()
+    tok = roberta_tokenizer()
+    params = random_bert_params(ROBERTA_LARGE, SEED, device="cuda")
+    encoder = build(ROBERTA_LARGE, params, device="cuda")
+    batches = [(preds[i : i + BERT_BATCH], target[i : i + BERT_BATCH]) for i in range(0, len(preds), BERT_BATCH)]
+    with torch.device("meta"):
+        template = BertEncoder(ROBERTA_LARGE)
+
+    def forward(p, ids, mask):
+        return torch.func.functional_call(template, p, (ids, mask)).last_hidden_state
+
+    handle = get_backbone("roberta-large", params, forward=forward, pad_axes=(0, 1), key=f"random-seed{SEED}", device="cuda")
+    runs, seconds = {}, {}
+    bm.launches = 0  # the main path: the three runs' compute()
+    for name in ("compute-time", "compute-time idf", "stream-time"):
+        if name == "stream-time":
+            metric = BERTScore(backbone=handle, user_tokenizer=tok, batch_size=BERT_BATCH, device="cuda")
+        else:
+            metric = BERTScore(model=encoder, user_tokenizer=tok, idf=name.endswith("idf"), batch_size=BERT_BATCH,
+                               device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for p, t in batches:
+            metric.update(p, t)
+        t2 = time.perf_counter()
+        runs[name] = metric.compute()
+        torch.cuda.synchronize()
+        seconds[name] = {"update_s": t2 - t1, "compute_s": time.perf_counter() - t2}
+        if name == "stream-time":
+            stream_emb = [metric._cat_streamed([p[i] for p in metric._streamed]) for i in (0, 1)]
+            modes = {"graphs": handle.engine.compile_count, "dispatches": handle.engine.dispatch_count}
+            metric.release_backbones()
+    launches = bm.launches
+    check(launches == 3, f"bertscore: {launches} bert_greedy_match launches on the main path, expected 3")
+    values = {name: {k: v.cpu().numpy() for k, v in r.items()} for name, r in runs.items()}
+    for name, v in values.items():
+        for k, x in v.items():
+            check(x.shape == (len(preds),) and bool(np.isfinite(x).all()) and 0.0 < x.min() and x.max() <= 1.0 + 1e-6,
+                  f"bertscore {name} {k}: shape {x.shape}, range [{x.min()}, {x.max()}]")
+    stream_diff = max(float(np.abs(values["stream-time"][k] - values["compute-time"][k]).max()) for k in ("precision", "recall", "f1"))
+    check(stream_diff <= BERT_STREAM_ATOL, f"bertscore: stream-time differs from compute-time by {stream_diff:.3e}")
+    idf_moved = float(np.abs(values["compute-time idf"]["f1"] - values["compute-time"]["f1"]).max())
+    check(idf_moved > 1e-4, f"bertscore: idf moved no score ({idf_moved:.2e})")
+    # the whole stream's scoring against float64 scoring of the same float32 embeddings
+    (pe, ps), (te, ts) = stream_emb
+    got = bm.bert_greedy_match(pe, te, ps, ts)
+    check(all(np.array_equal(g[:, 0].cpu().numpy(), values["stream-time"][k]) for g, k in zip(got, ("precision", "recall", "f1"))),
+          "bertscore: the stream-time scores are not the kernel's on its own embeddings")
+    plain, ref = bm.bert_greedy_match_plain(pe, te, ps, ts), bm.bert_greedy_match_reference(pe, te, ps, ts)
+    stream_excess = float(bm.cell_excess(got, plain, ref))
+    check(stream_excess <= 0.0, f"bertscore: the stream's scoring exceeds its contract against float64 by {stream_excess:.3e}")
+    del pe, te, ps, ts, got, plain, ref, stream_emb
+    # the first pairs against a float64 run of the same encoder, and a planted fault the same check catches
+    n64 = BERT_F64_PAIRS
+    encoder64 = build(ROBERTA_LARGE, params, device="cuda", dtype=torch.float64)
+    ref = [r[:, 0].cpu().numpy() for r in bertscore_float64(torch, bm, encoder64, tok, preds[:n64], target[:n64])]
+    f64_err = max(float(np.abs(values["compute-time"][k][:n64] - r).max()) for k, r in zip(("precision", "recall", "f1"), ref))
+    check(f64_err <= BERT_F64_ATOL, f"bertscore: the first {n64} pairs differ from float64 by {f64_err:.3e}")
+    faulty = list(target[:n64])
+    faulty[3] = " ".join(reversed(faulty[3].split()))
+    fault = bert_score(preds[:n64], faulty, model=encoder, user_tokenizer=tok, device="cuda")
+    fault_err = max(float(np.abs(fault[k].cpu().numpy() - r).max()) for k, r in zip(("precision", "recall", "f1"), ref))
+    check(fault_err > BERT_F64_ATOL, f"bertscore: the planted fault (a reversed target) moved no score past the tolerance"
+          f" ({fault_err:.3e})")
+    with tf32_encoders(torch):
+        control = bert_score(preds[:n64], target[:n64], model=encoder, user_tokenizer=tok, device="cuda")
+    control_err = max(float(np.abs(control[k].cpu().numpy() - r).max()) for k, r in zip(("precision", "recall", "f1"), ref))
+    check(control_err > BERT_F64_ATOL, f"bertscore: the encoder in TF32 ({control_err:.3e} from float64) passes the"
+          f" float64 tolerance {BERT_F64_ATOL:g}")
+    del encoder64, encoder, template
+    handle.close()
+    torch.cuda.empty_cache()
+    out = {"pairs": len(preds), "launches": {"bertscore": launches}, "seconds": seconds, "stream_diff": stream_diff,
+           "idf_moved": idf_moved, "stream_excess": stream_excess, "f64_err": f64_err, "f64_pairs": n64,
+           "fault_err": fault_err, "tf32_control_err": control_err, "f64_atol": BERT_F64_ATOL, "engine": modes,
+           "means": {name: {k: float(x.mean()) for k, x in v.items()} for name, v in values.items()},
+           "reduced": "none (3,003 pairs; random RoBERTa-large weights at its widths, hashed word ids: the times are"
+                      " RoBERTa-large's, the values not BERTScore's)", "phase_s": time.perf_counter() - t0}
+    print(f"bertscore phase: {len(preds)} WMT14 newstest2014 pairs on RoBERTa-large (random weights), batch 64: seconds"
+          f" {seconds}; F1 means {({n: round(m['f1'], 4) for n, m in out['means'].items()})}; stream-time vs compute-time"
+          f" {stream_diff:.2e}; idf moved F1 by up to {idf_moved:.3f}; the stream's scoring against float64 of its"
+          f" embeddings: worst excess {stream_excess:.3e}; first {n64} pairs against a float64 encoder {f64_err:.2e}"
+          f" (tolerance {BERT_F64_ATOL:g}; the planted fault {fault_err:.3f}; the encoder in TF32 {control_err:.3e});"
+          f" engine {modes}; bert_greedy_match"
+          f" launches {launches}; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def infolm_phase(torch) -> dict:
+    """InfoLM on BERT-base-uncased's masked LM (random weights at its widths, from the seed) over the first
+    ``INFOLM_PAIRS`` newstest2014 pairs: KL with idf at temperature 0.25, run twice with the same bits, and the
+    alpha-divergence (alpha 0.5); the first ``INFOLM_F64_PAIRS`` held against a float64 run of the same model."""
+    from tpumetrics_torch.functional.text import infolm
+    from tpumetrics_torch.text import InfoLM
+    from tpumetrics_torch.text._bert_encoder import BERT_BASE_UNCASED, build, random_bert_params
+
+    t0 = time.perf_counter()
+    preds, target = mt_pairs(INFOLM_PAIRS)
+    tok = bert_tokenizer()
+    params = random_bert_params(BERT_BASE_UNCASED, SEED + 1, mlm=True, device="cuda")
+    mlm = build(BERT_BASE_UNCASED, params, mlm=True, device="cuda")
+    runs, seconds = {}, {}
+    for name, kw in (("kl", {}), ("kl again", {}), ("alpha", {"information_measure": "alpha_divergence", "alpha": 0.5})):
+        metric = InfoLM(model=mlm, user_tokenizer=tok, idf=True, temperature=0.25, return_sentence_level_score=True,
+                        device="cuda", **kw)
+        for i in range(0, len(preds), 32):
+            metric.update(preds[i : i + 32], target[i : i + 32])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs[name] = metric.compute()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t1
+    check(all(same_bits(torch, a, b) for a, b in zip(runs["kl"], runs["kl again"])), "infolm: two runs differ")
+    for name, (mean, scores) in runs.items():
+        check(scores.shape == (len(preds),) and bool(torch.isfinite(scores).all()), f"infolm {name}: {scores}")
+    n64 = INFOLM_F64_PAIRS
+    mlm64 = build(BERT_BASE_UNCASED, params, mlm=True, device="cuda", dtype=torch.float64)
+    worst, controls = {}, {}
+    for name, kw in (("kl", {}), ("alpha", {"information_measure": "alpha_divergence", "alpha": 0.5})):
+        args = dict(user_tokenizer=tok, idf=True, temperature=0.25, return_sentence_level_score=True, device="cuda", **kw)
+        got = infolm(preds[:n64], target[:n64], model=mlm, **args)[1].double()
+        want = infolm(preds[:n64], target[:n64], model=mlm64, **args)[1]
+        check(want.dtype == torch.float64, "infolm: the float64 run is not float64")
+        worst[name] = float(((got - want).abs() / want.abs().clamp(min=1e-3)).max())
+        check(worst[name] <= INFOLM_F64_RTOL, f"infolm {name}: {worst[name]:.3e} from float64")
+        with tf32_encoders(torch):
+            control = infolm(preds[:n64], target[:n64], model=mlm, **args)[1].double()
+        controls[name] = float(((control - want).abs() / want.abs().clamp(min=1e-3)).max())
+        check(controls[name] > INFOLM_F64_RTOL, f"infolm {name}: the MLM in TF32 ({controls[name]:.3e} from float64)"
+              f" passes the float64 tolerance {INFOLM_F64_RTOL:g}")
+    del mlm, mlm64
+    torch.cuda.empty_cache()
+    out = {"pairs": len(preds), "means": {name: float(r[0]) for name, r in runs.items()}, "seconds": seconds,
+           "f64_rel": worst, "tf32_control_rel": controls, "f64_rtol": INFOLM_F64_RTOL, "f64_pairs": n64,
+           "phase_s": time.perf_counter() - t0,
+           "reduced": f"the first {len(preds)} of newstest2014's 3,003 pairs (each sentence's tokens masked one a copy:"
+                      f" some 21 BERT-base forwards a sentence); random weights, hashed word ids"}
+    print(f"infolm phase: {len(preds)} newstest2014 pairs on BERT-base-uncased's MLM (random weights): KL {out['means']['kl']:.4f}"
+          f" (twice, bit for bit), alpha-divergence {out['means']['alpha']:.4f}; compute seconds {seconds}; the first {n64}"
+          f" pairs against float64: {worst} (tolerance {INFOLM_F64_RTOL:g}; the MLM in TF32 {controls}); {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def coco_caption_stream(torch, n: int, seed: int = SEED) -> tuple:
+    """``(images, captions)``: ``n`` 224 x 224 RGB images in [0, 1] made on the card from the seed (smooth fields:
+    16 x 16 noise upsampled bicubically, plus fine noise) and one caption each of about 10.5 words (COCO's), drawn
+    from the string streams' Zipf vocabulary."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    coarse = torch.rand(n, 3, 16, 16, generator=g, device="cuda")
+    images = torch.nn.functional.interpolate(coarse, size=(224, 224), mode="bicubic", align_corners=False)
+    images = (images + 0.05 * torch.randn(images.shape, generator=g, device="cuda")).clamp(0.0, 1.0)
+    rng = np.random.default_rng([seed, 2017])
+    vocab = text_vocab(rng)
+    lengths = np.clip(np.rint(rng.normal(*CLIP_CAPTION_WORDS, n)), 5, 25).astype(int)
+    return images, [punctuate(rng, draw_words(rng, vocab, int(k))) for k in lengths]
+
+
+def clip_shared_direction(torch, params: dict, seed: int) -> dict:
+    """Random CLIP weights whose towers share a direction: the last LayerNorms' biases (the vision tower's
+    ``post_norm``, the text tower's ``final_norm``) set so that both projections map them onto one random unit
+    vector of the joint space, with a norm of ``CLIP_SHARED`` x a LayerNorm output's (the square root of the width).
+    With N(0, 0.02) weights alone an image's and a caption's features are near orthogonal (CLIPScore's mean over this
+    stream is then -2.5, which its floor at 0 reads as 0 whatever the scores); with the shared part each pair's
+    cosine is positive, and the towers' own parts still set each pair's score apart."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    joint = params["text_projection.weight"].shape[0]
+    u = torch.randn(joint, generator=g, device="cuda")
+    u = u / u.norm()
+    out = dict(params)
+    for norm, proj in (("vision.post_norm.bias", "visual_projection.weight"), ("text.final_norm.bias", "text_projection.weight")):
+        bias = params[proj].T @ u
+        out[norm] = bias * (CLIP_SHARED * math.sqrt(bias.numel()) / bias.norm())
+    return out
+
+
+def clip_phase(torch) -> dict:
+    """CLIPScore over an MS-COCO val2017-shaped caption stream (``CLIP_IMAGES`` images with a caption each, in
+    batches of 50) on CLIP ViT-L/14 (random weights at its widths, from the seed, the towers sharing a direction:
+    ``clip_shared_direction``), then CLIP-IQA on the same images with ("quality", "sharpness") and one custom pair.
+    Held against a float64 run of the same model: every image's score of the stream (recorded from the metric's
+    own updates; their float32 sum is the metric's state bit for bit) and the first ``CLIP_CONTROL_IMAGES`` images'
+    probabilities. A planted fault (the first ``CLIP_FAULT_IMAGES`` captions shifted by one image) and the TF32
+    control (``tf32_encoders``) on the first ``CLIP_CONTROL_IMAGES`` must fail the same checks."""
+    import tpumetrics_torch.multimodal.clip_score as clip_score_module
+    from tpumetrics_torch.functional.multimodal.clip_iqa import clip_image_quality_assessment
+    from tpumetrics_torch.functional.multimodal.clip_score import _clip_score_update
+    from tpumetrics_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
+    from tpumetrics_torch.multimodal._clip import CLIP_VIT_L_14, build_clip, random_clip_params
+
+    t0 = time.perf_counter()
+    images, captions = coco_caption_stream(torch, CLIP_IMAGES)
+    proc = ClipHashProcessor()
+    params = clip_shared_direction(torch, random_clip_params(CLIP_VIT_L_14, SEED + 2, device="cuda"), SEED + 3)
+    model = build_clip(CLIP_VIT_L_14, params, device="cuda")
+    prompts = ("quality", "sharpness", ("Crisp photo.", "Smudged photo."))
+    score = CLIPScore((model, proc), device="cuda")
+    iqa = CLIPImageQualityAssessment((model, proc), prompts=prompts, device="cuda")
+    recorded = []  # each update's per-image scores, as the metric made them
+
+    def recording(*args):
+        out = _clip_score_update(*args)
+        recorded.append(out[0])
+        return out
+
+    seconds = {}
+    clip_score_module._clip_score_update = recording
+    try:
+        for name, metric, update in (("clip_score", score, lambda m, i: m.update(images[i : i + CLIP_BATCH], captions[i : i + CLIP_BATCH])),
+                                     ("clip_iqa", iqa, lambda m, i: m.update(images[i : i + CLIP_BATCH]))):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(0, CLIP_IMAGES, CLIP_BATCH):
+                update(metric, i)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t1
+    finally:
+        clip_score_module._clip_score_update = _clip_score_update
+    value, probs = float(score.compute()), {k: float(v) for k, v in iqa.compute().items()}
+    per_image = torch.cat(recorded)
+    state = torch.zeros((), device="cuda")
+    for batch in recorded:
+        state = state + batch.sum()
+    check(same_bits(torch, state, score.score), "clip_score: the recorded scores do not sum to the metric's state")
+    raw_mean = float(score.score / score.n_samples)
+    check(math.isfinite(value) and raw_mean > 0.0 and value == raw_mean and float(score.n_samples) == CLIP_IMAGES,
+          f"clip_score {value} (mean before the floor at 0: {raw_mean})")
+    check(all(0.0 <= p <= 1.0 for p in probs.values()) and len(probs) == 3, f"clip_iqa {probs}")
+    model64 = build_clip(CLIP_VIT_L_14, params, device="cuda", dtype=torch.float64)
+    t1 = time.perf_counter()
+    s64 = torch.cat([_clip_score_update(images[i : i + CLIP_BATCH], captions[i : i + CLIP_BATCH], model64, proc)[0]
+                     for i in range(0, CLIP_IMAGES, CLIP_BATCH)])
+    seconds["clip_score float64"] = time.perf_counter() - t1
+    check(s64.dtype == torch.float64 and per_image.shape == s64.shape, "clip: the float64 run is not float64, or short")
+    score_err = float((per_image.double() - s64).abs().max())
+    check(score_err <= CLIP_F64_ATOL, f"clip_score: {score_err:.3e} from float64 over the stream's {CLIP_IMAGES} images")
+    nf = CLIP_FAULT_IMAGES
+    shifted = captions[1:nf] + captions[:1]
+    fault = _clip_score_update(images[:nf], shifted, model, proc)[0]
+    fault_err = float((fault.double() - s64[:nf]).abs().max())
+    check(fault_err > CLIP_F64_ATOL, f"clip_score: the planted fault (captions shifted by one image) moved no score past"
+          f" the tolerance ({fault_err:.3e})")
+    nc = CLIP_CONTROL_IMAGES
+    with tf32_encoders(torch):
+        control = torch.cat([_clip_score_update(images[i : i + CLIP_BATCH], captions[i : i + CLIP_BATCH], model, proc)[0]
+                             for i in range(0, nc, CLIP_BATCH)])
+        p_control = clip_image_quality_assessment(images[:nc], (model, proc), prompts=prompts)
+    control_err = float((control.double() - s64[:nc]).abs().max())
+    check(control_err > CLIP_F64_ATOL, f"clip_score: the model in TF32 ({control_err:.3e} from float64) passes the float64"
+          f" tolerance {CLIP_F64_ATOL:g}")
+    p32 = clip_image_quality_assessment(images[:nc], (model, proc), prompts=prompts)
+    p64 = clip_image_quality_assessment(images[:nc], (model64, proc), prompts=prompts)
+    iqa_err = max(float((p32[k].double() - p64[k]).abs().max()) for k in p32)
+    check(iqa_err <= IQA_F64_ATOL, f"clip_iqa: {iqa_err:.3e} from float64 over the first {nc} images")
+    iqa_control_err = max(float((p_control[k].double() - p64[k]).abs().max()) for k in p32)
+    check(iqa_control_err > IQA_F64_ATOL, f"clip_iqa: the model in TF32 ({iqa_control_err:.3e} from float64) passes the"
+          f" float64 tolerance {IQA_F64_ATOL:g}")
+    spread = {"min": float(per_image.min()), "max": float(per_image.max()), "std": float(per_image.std())}
+    del model, model64, images
+    torch.cuda.empty_cache()
+    out = {"images": CLIP_IMAGES, "clip_score": value, "clip_score_spread": spread, "clip_iqa": probs, "seconds": seconds,
+           "score_f64_err": score_err, "score_f64_atol": CLIP_F64_ATOL, "fault_err": fault_err,
+           "tf32_control_err": control_err, "iqa_f64_err": iqa_err, "iqa_f64_atol": IQA_F64_ATOL,
+           "iqa_tf32_control_err": iqa_control_err, "iqa_f64_images": nc, "phase_s": time.perf_counter() - t0,
+           "reduced": f"{CLIP_IMAGES} of COCO val2017's 5,000 images (the processor's host round trip sets the time);"
+                      " random CLIP ViT-L/14 weights sharing a direction between the towers, hashed caption ids,"
+                      " images made from the seed"}
+    print(f"clip phase: {CLIP_IMAGES} COCO-shaped images and captions on CLIP ViT-L/14 (random weights, a shared"
+          f" direction): CLIPScore {value:.4f} (per image {spread}), CLIP-IQA {probs}; seconds {seconds}; every image's"
+          f" score against float64 {score_err:.2e} (tolerance {CLIP_F64_ATOL:g}; the planted fault {fault_err:.3f}; the model"
+          f" in TF32 {control_err:.2e}), the first {nc} images' probabilities {iqa_err:.2e} ({IQA_F64_ATOL:g}; in TF32"
+          f" {iqa_control_err:.2e}); {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -7226,6 +7821,7 @@ def main() -> None:
         from tpumetrics_torch.ops import _build
         from tpumetrics_torch.ops import binned_confusion as bc
         from tpumetrics_torch.ops import biquad as bq
+        from tpumetrics_torch.ops import bert_match as bm
         from tpumetrics_torch.ops import token_nll as tn
     except ImportError as err:
         fail(f"the port's package is not beside this script: {err}")
@@ -7260,8 +7856,8 @@ def main() -> None:
 
     panoptic_cpu = panoptic_cpu_start()  # the detection phase's panoptic CPU path, beside the kernel phase
     text_cpu = text_cpu_start()  # the string streams' CPU path, beside the kernel phases too
+    biquad_plain = biquad_plain_start()  # the IIR plain loop on a few lanes at the full T, done by the biquad phase
     kern = timed("kernel", kernel_phase, torch, bc)
-    iir = timed("biquad kernel", biquad_kernel_phase, torch, bq)
     paths = {
         "imagenet": timed(
             "imagenet", slice_phase, torch, bc, "ImageNet-1k val 50000x1000 T=200, classification report", 50000, 1000, 200, 8192, extra=True
@@ -7277,6 +7873,11 @@ def main() -> None:
         "nominal": timed("nominal", nominal_phase, torch, bc),
         "retrieval": timed("retrieval", retrieval_phase, torch, bc),
         "separation": timed("separation", separation_phase, torch, bc),
+    }
+    iir = timed("biquad kernel", biquad_kernel_phase, torch, bq, biquad_plain)
+    biquad_plain[0].close()
+    biquad_plain[0].join()
+    paths |= {
         "srmr": timed("srmr", srmr_phase, torch, bc),
         "restoration": timed("restoration", restoration_phase, torch, bc),
         "pansharpening": timed("pansharpening", pansharpening_phase, torch, bc),
@@ -7300,6 +7901,13 @@ def main() -> None:
     text_s = sum(phase_s[k] for k in ("token_nll kernel", "perplexity", "text strings"))
     print(f"text phases (kernel checks, perplexity stream, string streams): {text_s:.1f} s", flush=True)
     check(lm["fused"]["modes"]["replayed"] >= 1 and lm["fused"]["guarded_replay"], "perplexity: no checked graph replay")
+    torch.cuda.empty_cache()
+    bert_kern = timed("bert_greedy_match kernel", bert_kernel_phase, torch, bm)
+    bertscore = timed("bertscore", bertscore_phase, torch, bm)
+    infolm_out = timed("infolm", infolm_phase, torch)
+    clip = timed("clip", clip_phase, torch)
+    encoder_s = sum(phase_s[k] for k in ("bert_greedy_match kernel", "bertscore", "infolm", "clip"))
+    print(f"encoder phases (kernel checks, BERTScore, InfoLM, CLIP): {encoder_s:.1f} s", flush=True)
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -7364,7 +7972,10 @@ def main() -> None:
                 "rel_plain": iir_shape["rel_plain"],
                 "rel_worst_share": iir["worst_share"],  # rel over its tolerance, the worst case of each bank
                 "ms": iir_shape["ms"],
-                "plain_ms": iir_shape["plain_ms"],  # the plain loop at the same shape, one call: a launch per op and step
+                "plain_ms": iir_shape["plain_ms_t2048"],  # the plain loop on the card at T = 2,048 (a launch per op and step;
+                # at the full T it runs on a few lanes on the host: plain_cpu_s)
+                "plain_shape": [iir_shape["lanes"], 2048, iir_shape["stages"]],
+                "plain_cpu_s": iir_shape["plain_cpu_s"],
                 "bound_ms": iir_shape["bound_ms"],
                 "bound_by": iir_shape["bound_by"],
                 "one_lane_ms": iir_shape["one_lane_ms"],  # one lane at the full T: the carry chain's latency
@@ -7417,6 +8028,27 @@ def main() -> None:
                 "timed_shapes": nll_kern["timed"],
                 "cases": nll_kern["cases"],
                 "grad_err": nll_kern["grad_err"],
+                "card": smi,
+            },
+            {
+                "name": "bert_greedy_match",
+                "route": "cuda",
+                "source": "tpumetrics_torch/csrc/bert_greedy_match.cu",
+                "replaces": "tpumetrics/functional/text/bert.py:98",  # XLA's fusion of _get_precision_recall_f1; not Pallas
+                "launches": sum(bertscore["launches"].values()),
+                "launches_by_path": bertscore["launches"],
+                "max_abs_err": bert_kern["max_abs_err"],  # against the plain version, over every case
+                "worst_excess": bert_kern["worst_excess"],  # over |kernel - ref| <= 2 |plain - ref| + 1e-6, float64 ref
+                "ms": bert_kern["timed"]["mt"]["ms"],  # the MT stream's call: 3,003 pairs, L = 1, D = 1,024
+                "plain_ms": bert_kern["timed"]["mt"]["plain_ms"],
+                "composite_ms": bert_kern["timed"]["mt"]["composite_ms"],  # the torch ops in one pass, no port
+                "bound_ms": bert_kern["timed"]["mt"]["bound_ms"],
+                "bound_by": bert_kern["timed"]["mt"]["bound_by"],
+                "library_ms": None,  # no single PyTorch call computes greedy matching
+                "peak_extra_bytes": bert_kern["timed"]["mt"]["peak_extra_bytes"],
+                "shape": bert_kern["timed"]["mt"]["shape"],
+                "timed_shapes": bert_kern["timed"],
+                "cases": bert_kern["cases"],
                 "card": smi,
             },
         ],
@@ -7486,6 +8118,8 @@ def main() -> None:
             "kernel_phase_s": nll_kern["phase_s"],
             "phase_s": text_s,
         },
+        "encoders": {"bertscore": bertscore, "infolm": infolm_out, "clip": clip, "kernel_phase_s": bert_kern["phase_s"],
+                     "phase_s": encoder_s},
     }
     print(f"phase times (s, host clock): {({k: round(v, 1) for k, v in phase_s.items()})}", flush=True)
     print(f"script wall time: {time.perf_counter() - t_start:.1f} s", flush=True)

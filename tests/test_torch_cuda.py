@@ -38,7 +38,12 @@ float64 reference (GPT-2's misaligned rows, strided rows, one class,
 out-of-range, wrapped and ignored targets, non-finite logits), two calls and
 graph replays bit for bit, its backward against the plain version's
 autograd gradient, and ``Perplexity`` replayed in a fused collection with no
-host sync against the CPU.
+host sync against the CPU; and the encoder slice: ``bert_greedy_match``
+against its plain version and a float64 reference at its edge cases (every
+real similarity negative, Sp != St, one token, rows of zero weight, D = 100,
+tile edges, maxima past 48 KB of shared memory), two calls, strided inputs
+and graph replays bit for bit, and BERTScore (compute-time and on the
+backbone engine), InfoLM and the CLIP metrics on the card against the CPU.
 
 Every test here needs a card and skips without one. The machine with the
 card has no JAX, and ``tests/conftest.py`` imports JAX, so this file imports
@@ -2069,3 +2074,205 @@ def test_perplexity_on_the_card_and_replayed_matches_the_cpu(cuda):
     got, want = col["ppl"], ref
     assert float(got.count) == float(want.count)
     assert abs(float(got.total_log_probs) - float(want.total_log_probs)) <= 1e-6 * float(want.total_log_probs)
+
+
+# ------------------------------------------------------------------ the encoder slice: bert_greedy_match
+
+_BERT_MATCH_CASES = [  # (n, layers, sp, st, dim, case): the inputs of chip_smoke.bert_match_inputs
+    (8, 1, 9, 11, 1024, "negative"), (5, 3, 70, 130, 1024, "random"), (4, 2, 1, 1, 64, "random"),
+    (9, 1, 40, 33, 1024, "zero rows"), (6, 2, 17, 29, 100, "random"), (3, 1, 65, 128, 256, "random"),
+    (1, 1, 6000, 6000, 64, "random"), (64, 1, 72, 70, 1024, "random"), (6, 1, 90, 93, 1024, "random"),
+    (4, 1, 100, 96, 256, "negative"), (2, 2, 256, 250, 1024, "random"), (5, 1, 33, 47, 101, "random"),
+]
+
+
+@pytest.mark.parametrize(("n", "layers", "sp", "st", "dim", "case"), _BERT_MATCH_CASES)
+def test_bert_greedy_match_kernel_holds_its_contract(cuda, n, layers, sp, st, dim, case):
+    """|kernel - ref| <= 2 |plain - ref| + 1e-6 for each cell and output
+    against the float64 reference; every real similarity negative gives the
+    zero rows' maxima (0); rows of zero weight give F1 0, not NaN; one launch.
+    The cases take each of the kernel's tiles (64, 96 and 128 tokens a side)
+    and both of its loads (16 bytes where D is a multiple of 4, else 4)."""
+    import chip_smoke
+    from tpumetrics_torch.ops import bert_match as bm
+
+    args = chip_smoke.bert_match_inputs(torch, n, layers, sp, st, dim, seed=n + sp, case=case)
+    before = bm.launches
+    got = bm.bert_greedy_match(*args)
+    torch.cuda.synchronize()
+    assert bm.launches == before + 1
+    assert all(x.shape == (n, layers) and x.dtype == torch.float32 and not x.isnan().any() for x in got)
+    plain, ref = bm.bert_greedy_match_plain(*args), bm.bert_greedy_match_reference(*args)
+    assert float(bm.cell_excess(got, plain, ref)) <= 0.0
+    if case == "negative":
+        assert all(float(x.abs().max()) == 0.0 for x in got)
+    if case == "zero rows":
+        assert float(got[2][2 * n // 3 :].abs().max()) == 0.0
+
+
+def test_bert_greedy_match_cases_take_every_tile(cuda):
+    from tpumetrics_torch.ops import bert_match as bm
+
+    assert {bm.tile(sp, st) for _, _, sp, st, _, _ in _BERT_MATCH_CASES} == {64, 96, 128}
+    assert (bm.tile(90, 93), bm.tile(512, 512), bm.tile(40, 33)) == (96, 128, 64)
+
+
+def test_bert_greedy_match_is_deterministic_reads_strided_inputs_and_replays(cuda):
+    import chip_smoke
+    from tpumetrics_torch.ops import bert_match as bm
+
+    pe, te, ps, ts = chip_smoke.bert_match_inputs(torch, 16, 2, 48, 40, 768, seed=3)
+    first = bm.bert_greedy_match(pe, te, ps, ts)
+    second = bm.bert_greedy_match(pe, te, ps, ts)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(first, second))
+    strided = bm.bert_greedy_match(pe.transpose(0, 1).contiguous().transpose(0, 1), te, ps, ts)
+    assert all(torch.equal(a, b) for a, b in zip(first, strided))
+    captured = bm.captured
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bm.bert_greedy_match(pe, te, ps, ts)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            out = bm.bert_greedy_match(pe, te, ps, ts)
+    torch.cuda.current_stream().wait_stream(side)
+    assert bm.captured == captured + 1
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
+
+
+def _tiny_roberta():
+    from tpumetrics_torch.text._bert_encoder import ROBERTA_LARGE, BertConfig, random_bert_params
+
+    config = BertConfig(**{**ROBERTA_LARGE.__dict__, "vocab_size": 1000, "hidden_size": 64, "num_hidden_layers": 2,
+                           "num_attention_heads": 4, "intermediate_size": 128})
+    return config, random_bert_params(config, seed=5)
+
+
+def _word_ids(sentences, **_):
+    import zlib
+
+    ids = [[0] + [4 + zlib.crc32(w.encode()) % 990 for w in s.split()] + [2] for s in sentences]
+    width = max(map(len, ids))
+    return {"input_ids": np.array([r + [1] * (width - len(r)) for r in ids]),
+            "attention_mask": np.array([[1] * len(r) + [0] * (width - len(r)) for r in ids])}
+
+
+_PAIRS = (["the cat sat on the mat", "a dog ran", "one two three four five six", "hello"] * 5,
+          ["the cat sat on a mat", "the dog ran fast", "six five four three two one", "hello there"] * 5)
+
+
+@pytest.mark.parametrize("kw", [{}, {"idf": True, "all_layers": True}])
+def test_bert_score_on_the_card_matches_the_cpu(cuda, kw):
+    """The port's encoder and the matcher on the card against the CPU path
+    (full float32 on both: a TF32 product would move the scores by ~1e-3)."""
+    from tpumetrics_torch.functional.text import bert_score
+    from tpumetrics_torch.ops import bert_match as bm
+    from tpumetrics_torch.text._bert_encoder import build
+
+    config, params = _tiny_roberta()
+    before = bm.launches
+    got = bert_score(*_PAIRS, model=build(config, params, device="cuda"), user_tokenizer=_word_ids, batch_size=8,
+                     device="cuda", **kw)
+    assert bm.launches == before + 1
+    want = bert_score(*_PAIRS, model=build(config, params), user_tokenizer=_word_ids, batch_size=8, device="cpu", **kw)
+    for key in ("precision", "recall", "f1"):
+        assert got[key].device.type == "cuda"
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-5, rtol=0)
+
+
+def test_bertscore_stream_time_on_the_card_replays_the_engine_and_matches_compute_time(cuda):
+    from tpumetrics_torch.backbones import get_backbone
+    from tpumetrics_torch.text import BERTScore
+    from tpumetrics_torch.text._bert_encoder import BertEncoder, build
+
+    config, params = _tiny_roberta()
+    with torch.device("meta"):
+        template = BertEncoder(config)
+    handle = get_backbone("test:roberta", params, device="cuda", pad_axes=(0, 1),
+                          forward=lambda p, ids, mask: torch.func.functional_call(template, p, (ids, mask)).last_hidden_state)
+    streamed = BERTScore(backbone=handle, user_tokenizer=_word_ids, batch_size=4, device="cuda")
+    whole = BERTScore(model=build(config, params, device="cuda"), user_tokenizer=_word_ids, batch_size=4, device="cuda")
+    for i in range(0, 20, 4):
+        for m in (streamed, whole):
+            m.update(_PAIRS[0][i : i + 4], _PAIRS[1][i : i + 4])
+    assert handle.engine.compile_count >= 1  # a bucket seen twice is captured, later ones replay
+    got, want = streamed.compute(), whole.compute()
+    for key in ("precision", "recall", "f1"):
+        torch.testing.assert_close(got[key], want[key], atol=1e-5, rtol=0)
+    streamed.release_backbones()
+    handle.close()
+
+
+def test_infolm_on_the_card_is_bit_for_bit_and_matches_the_cpu(cuda):
+    from tpumetrics_torch.functional.text import infolm
+    from tpumetrics_torch.text._bert_encoder import BERT_BASE_UNCASED, BertConfig, build, random_bert_params
+
+    config = BertConfig(**{**BERT_BASE_UNCASED.__dict__, "vocab_size": 1000, "hidden_size": 64, "num_hidden_layers": 2,
+                           "num_attention_heads": 4, "intermediate_size": 128})
+    params = random_bert_params(config, seed=6, mlm=True)
+
+    class Tok:
+        mask_token_id, pad_token_id, cls_token_id, sep_token_id = 3, 1, 0, 2
+
+        def __call__(self, sentences, **kw):
+            return _word_ids(sentences)
+
+    kw = dict(user_tokenizer=Tok(), idf=True, temperature=0.25, return_sentence_level_score=True, batch_size=16)
+    model = build(config, params, mlm=True, device="cuda")
+    first = infolm(*_PAIRS, model=model, device="cuda", **kw)
+    second = infolm(*_PAIRS, model=model, device="cuda", **kw)
+    assert torch.equal(first[1], second[1])
+    want = infolm(*_PAIRS, model=build(config, params, mlm=True), device="cpu", **kw)
+    torch.testing.assert_close(first[1].cpu(), want[1], atol=1e-5, rtol=1e-5)
+
+
+def test_clip_metrics_on_the_card_match_the_cpu(cuda):
+    import chip_smoke
+    from tpumetrics_torch.functional.multimodal import clip_image_quality_assessment, clip_score
+    from tpumetrics_torch.multimodal import CLIPScore
+    from tpumetrics_torch.multimodal._clip import CLIPConfig, CLIPTextConfig, CLIPVisionConfig, build_clip, random_clip_params
+
+    config = CLIPConfig(CLIPTextConfig(49408, 64, 128, 4, 2, 77), CLIPVisionConfig(64, 128, 4, 2, 224, 14), 32)
+    params = random_clip_params(config, seed=7)
+    proc = chip_smoke.ClipHashProcessor()
+    images, captions = chip_smoke.coco_caption_stream(torch, 6, seed=8)
+    card, host = build_clip(config, params, device="cuda"), build_clip(config, params)
+    torch.testing.assert_close(clip_score(images, captions, (card, proc)).cpu(),
+                               clip_score(images.cpu(), captions, (host, proc)), atol=1e-4, rtol=0)
+    prompts = ("quality", ("Crisp photo.", "Smudged photo."))
+    got = clip_image_quality_assessment(images, (card, proc), prompts=prompts)
+    want = clip_image_quality_assessment(images.cpu(), (host, proc), prompts=prompts)
+    for key in want:  # the softmax of 100 x a cosine: float32 features apart by ~1e-8 move it by ~1e-6
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-5, rtol=0)
+    metric = CLIPScore((card, proc), device="cuda")
+    metric.update(images, captions)
+    assert metric.score.device.type == "cuda" and float(metric.n_samples) == 6.0
+
+
+def test_the_shared_graph_pool_takes_captures_after_its_graphs_are_gone(cuda):
+    """A block of the card's graph pool alive after every graph that used the
+    pool was released (here a graph's output, kept): the next capture must
+    still take the pool. Without the pool's keeper graph the allocator has it
+    at zero users and the capture fails an internal assert, so the wrapper
+    latched eager (seen in a BERTScore engine after the generative phase)."""
+    import gc
+
+    from tpumetrics_torch.utils import jit_fallback as jf
+
+    x = torch.arange(1024.0, device="cuda")
+    first = jf.JitWithEagerFallback(lambda t: t * 2, "first", pure=True)
+    first(x)
+    first(x)
+    assert first.counts["captured"] == 1
+    kept = next(iter(first._graphs.values())).out
+    del first
+    gc.collect()
+    torch.cuda.synchronize()
+    second = jf.JitWithEagerFallback(lambda t: t + 1, "second", pure=True)
+    for _ in range(3):
+        out = second(x)
+    assert second.counts == {"eager": 1, "captured": 1, "replayed": 1} and not second.eager_mode
+    assert torch.equal(out, x + 1) and torch.equal(kept, x * 2)

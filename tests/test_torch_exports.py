@@ -3,8 +3,8 @@
 Every ported package's ``__all__`` equals the JAX one (the top level and
 ``functional`` restricted to the ported domains; ``image`` and
 ``functional.image`` whole, the backbone metrics included; ``text`` and
-``functional.text`` less BERTScore and InfoLM, which wait for the port's
-encoder modules; ``backbones``
+``functional.text`` whole, BERTScore and InfoLM included; ``multimodal`` and
+``functional.multimodal`` whole; ``backbones``
 less ``backbone_partition_rules``, which waits for the port of
 ``parallel/sharding.py``; ``telemetry`` and its ported modules less the names
 of the parts still to port: lockstep, spans, SLOs, the admin server,
@@ -29,17 +29,17 @@ import tpumetrics_torch.functional.classification as fc
 import tpumetrics_torch.utils
 
 DOMAINS = [
-    "audio", "classification", "clustering", "detection", "image", "monitoring", "nominal", "regression", "retrieval",
-    "text", "wrappers",
+    "audio", "classification", "clustering", "detection", "image", "monitoring", "multimodal", "nominal", "regression",
+    "retrieval", "text", "wrappers",
 ]
 FUNCTIONAL_DOMAINS = [
-    "audio", "classification", "clustering", "detection", "image", "nominal", "pairwise", "regression", "retrieval",
-    "text",
+    "audio", "classification", "clustering", "detection", "image", "multimodal", "nominal", "pairwise", "regression",
+    "retrieval", "text",
 ]
 # the image metrics that run a backbone network (Inception, LPIPS's nets, a generator): all ported
 WAITING_FOR_BACKBONES = set()
-# the text metrics that run a transformer encoder: they wait for the port's own encoder modules
-WAITING_FOR_ENCODERS = {"BERTScore", "InfoLM", "bert_score", "infolm"}
+# the text metrics that run a transformer encoder: all ported, on the port's own encoder modules
+WAITING_FOR_ENCODERS = set()
 # the JAX backbone names the port lacks: the sharded weight placement waits for parallel/sharding.py
 WAITING_FOR_SHARDING = {"backbone_partition_rules"}
 # the JAX telemetry names whose modules are not ported yet: lockstep, spans, SLOs, the admin server,
@@ -96,8 +96,9 @@ def test_the_names_waiting_for_the_backbones_are_the_jax_image_ones():
 
 
 def test_the_names_waiting_for_encoders_are_the_jax_text_ones_the_port_lacks():
-    """BERTScore, InfoLM and their functions are the JAX text exports the
-    port lacks, and no package of the port exports them."""
+    """Each waiting name is a JAX text export that the port lacks, and the
+    text packages lack nothing else: BERTScore, InfoLM and their functions
+    are ported, so none waits now."""
     jax_text = set(_pair("text")[1].__all__) | set(_pair("functional.text")[1].__all__)
     port_text = set(_pair("text")[0].__all__) | set(_pair("functional.text")[0].__all__)
     assert WAITING_FOR_ENCODERS == jax_text - port_text

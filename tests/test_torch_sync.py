@@ -319,6 +319,38 @@ def test_gloo_text_states_sync_to_those_of_one_rank_fed_the_union(gloo, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_gloo_bertscore_syncs_its_sentences_and_refuses_what_cannot_move_them(gloo, world):
+    """BERTScore's sentence lists gathered over the object channel score as
+    one rank fed the union does, bit for bit, and as the JAX package's
+    ``bert_score`` on the whole corpus (the same table in JAX, within 1e-5);
+    the local lists come back after compute; a custom ``dist_sync_fn``,
+    ``dist_sync_on_step`` and a backend with no object channel raise the JAX
+    package's refusals and leave the lists as they were."""
+    import jax.numpy as jnp
+
+    import tpumetrics.functional.text as jax_text_fn
+
+    preds, target = w.text_corpus()
+    table = jnp.asarray(w.bertscore_table().numpy())
+    want = jax_text_fn.bert_score(preds, target, model=table, user_tokenizer=w.bertscore_tokenizer,
+                                  user_forward_fn=lambda m, b: m[jnp.asarray(b["input_ids"])], idf=True)
+    messages = {"dist_sync_fn": "custom dist_sync_fn cannot move them",
+                "dist_sync_on_step": "does not support dist_sync_on_step=True",
+                "no_object_channel": "has no host-object channel"}
+    for rank, res in enumerate(gloo[world]):
+        got = res["bertscore"]
+        for key in ("precision", "recall", "f1"):
+            assert got["value"][key].shape == (w.TEXT_PAIRS,)
+            np.testing.assert_array_equal(got["value"][key], got["union"][key], err_msg=key)
+            np.testing.assert_allclose(got["value"][key], np.asarray(want[key]), rtol=0, atol=1e-5, err_msg=key)
+        mine = w.shards(w.TEXT_PAIRS, world)[rank]
+        assert got["local"] == (preds[mine], target[mine])
+        for name, text in messages.items():
+            assert got["refusals"][name] is not None and text in got["refusals"][name], name
+            assert got["refusals"][name + " kept"], name
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_gloo_minmax_extrema_merge_with_min_and_max_as_jax(gloo, world):
     """Each rank's extrema, observed on its own batches, merge to the least
     minimum and the largest maximum over the ranks (an empty rank's +-inf

@@ -636,6 +636,60 @@ def scenario_text(rank: int, world: int) -> Dict[str, Any]:
     return out
 
 
+def bertscore_tokenizer(sentences, **_):
+    """Words hashed into 60 ids after [CLS] = 1, closed by [SEP] = 2 (ragged lists: BERTScore pads them)."""
+    import zlib
+
+    ids = [[1] + [4 + zlib.crc32(w.encode()) % 60 for w in s.split()] + [2] for s in sentences]
+    return {"input_ids": ids, "attention_mask": [[1] * len(r) for r in ids]}
+
+
+def bertscore_table() -> Any:
+    """The token embeddings of the BERTScore scenario: 64 x 16 from the seed."""
+    return torch.from_numpy(np.random.default_rng(37).standard_normal((64, 16)).astype(np.float32))
+
+
+def scenario_bertscore(rank: int, world: int) -> Dict[str, Any]:
+    """BERTScore (idf on) with each rank fed its shard: ``compute()`` gathers
+    the sentence lists over the object channel and scores the union, beside a
+    metric fed the union (``sync_on_compute=False``); and the host-sentence
+    mixin's three refusals in a real world: a custom ``dist_sync_fn``,
+    ``dist_sync_on_step`` and a backend with no object channel."""
+    from tpumetrics_torch.parallel.backend import DistributedBackend
+    from tpumetrics_torch.text import BERTScore
+    from tpumetrics_torch.utils.exceptions import TPUMetricsUserError
+
+    class NoObjects(DistributedBackend):
+        def available(self) -> bool:
+            return True
+
+    preds, target = text_corpus()
+    mine = shards(TEXT_PAIRS, world)[rank]
+    table = bertscore_table()
+
+    def make(**kw):
+        return BERTScore(model=table, user_tokenizer=bertscore_tokenizer, user_forward_fn=lambda m, b: m[b["input_ids"]],
+                         idf=True, device="cpu", **kw)
+
+    metric, union = make(), make(sync_on_compute=False)
+    metric.update(preds[mine], target[mine])
+    union.update(preds, target)
+    out = {"value": {k: _np(v) for k, v in metric.compute().items()},
+           "union": {k: _np(v) for k, v in union.compute().items()},
+           "local": metric.sentence_state, "refusals": {}}
+    for name, kw in (("dist_sync_fn", {}), ("dist_sync_on_step", {"dist_sync_on_step": True}),
+                     ("no_object_channel", {"sync_backend": NoObjects()})):
+        m = make(**kw)
+        m.update(preds[mine], target[mine])
+        try:
+            m.sync(dist_sync_fn=(lambda x, group: [x]) if name == "dist_sync_fn" else None)
+            out["refusals"][name] = None
+        except TPUMetricsUserError as err:
+            out["refusals"][name] = str(err)
+        out["refusals"][name + " kept"] = m.sentence_state == (preds[mine], target[mine])
+    return out
+
+
 SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "collection": scenario_collection,
     "binary_exact_auroc": scenario_binary_exact_auroc,
@@ -647,6 +701,7 @@ SCENARIOS: Dict[str, Callable[[int, int], Dict[str, Any]]] = {
     "regression_collection": scenario_regression_collection,
     "backend": scenario_backend,
     "text": scenario_text,
+    "bertscore": scenario_bertscore,
 }
 
 

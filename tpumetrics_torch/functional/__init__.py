@@ -1,7 +1,7 @@
 """Functional metrics of the port (counterpart of ``tpumetrics/functional``):
 the classification functions and their task-string dispatchers, and the
-audio, clustering, detection, image, nominal, pairwise, regression, retrieval
-and text functions."""
+audio, clustering, detection, image, multimodal, nominal, pairwise, regression,
+retrieval and text functions."""
 
 from tpumetrics_torch.functional.audio import *  # noqa: F401,F403
 from tpumetrics_torch.functional.audio import __all__ as _audio_all
@@ -13,6 +13,8 @@ from tpumetrics_torch.functional.detection import *  # noqa: F401,F403
 from tpumetrics_torch.functional.detection import __all__ as _detection_all
 from tpumetrics_torch.functional.image import *  # noqa: F401,F403
 from tpumetrics_torch.functional.image import __all__ as _image_all
+from tpumetrics_torch.functional.multimodal import *  # noqa: F401,F403
+from tpumetrics_torch.functional.multimodal import __all__ as _multimodal_all
 from tpumetrics_torch.functional.nominal import *  # noqa: F401,F403
 from tpumetrics_torch.functional.nominal import __all__ as _nominal_all
 from tpumetrics_torch.functional.pairwise import *  # noqa: F401,F403
@@ -31,6 +33,7 @@ __all__ = sorted(
         *_clustering_all,
         *_detection_all,
         *_image_all,
+        *_multimodal_all,
         *_nominal_all,
         *_pairwise_all,
         *_regression_all,

@@ -1,12 +1,13 @@
 """Text functional metrics of the port (counterpart of
-``tpumetrics/functional/text``), less BERTScore and InfoLM, which wait for
-the port's own encoder modules."""
+``tpumetrics/functional/text``)."""
 
+from tpumetrics_torch.functional.text.bert import bert_score
 from tpumetrics_torch.functional.text.bleu import bleu_score
 from tpumetrics_torch.functional.text.cer import char_error_rate
 from tpumetrics_torch.functional.text.chrf import chrf_score
 from tpumetrics_torch.functional.text.edit import edit_distance
 from tpumetrics_torch.functional.text.eed import extended_edit_distance
+from tpumetrics_torch.functional.text.infolm import infolm
 from tpumetrics_torch.functional.text.mer import match_error_rate
 from tpumetrics_torch.functional.text.perplexity import perplexity
 from tpumetrics_torch.functional.text.rouge import rouge_score
@@ -18,11 +19,13 @@ from tpumetrics_torch.functional.text.wil import word_information_lost
 from tpumetrics_torch.functional.text.wip import word_information_preserved
 
 __all__ = [
+    "bert_score",
     "bleu_score",
     "char_error_rate",
     "chrf_score",
     "edit_distance",
     "extended_edit_distance",
+    "infolm",
     "match_error_rate",
     "perplexity",
     "rouge_score",

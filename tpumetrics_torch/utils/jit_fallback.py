@@ -48,6 +48,21 @@ Tensor = torch.Tensor
 # CUDNN_STATUS_BAD_PARAM_STREAM_MISMATCH).
 _POOLS: Dict[int, Any] = {}
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+# one graph a pool that lives as long as the pool is used. The caching allocator counts a pool's graphs and
+# marks it freeable when the count falls to 0; a block of it still alive then keeps it registered at count 0,
+# and the next capture into it fails an internal assert (`use_count > 0`, CUDACachingAllocator.cpp). That
+# happened when a BERTScore engine captured after the generative phase had released every graph of the pool.
+_KEEPERS: Dict[int, "torch.cuda.CUDAGraph"] = {}
+
+
+def _new_pool(index: int, stream: "torch.cuda.Stream") -> Any:
+    """A fresh pool for card ``index``, held by a one-kernel keeper graph captured into it."""
+    pool = torch.cuda.graph_pool_handle()
+    keeper = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(keeper, pool=pool, stream=stream):
+        torch.zeros(1, device=torch.device("cuda", index))
+    _KEEPERS[index] = keeper
+    return pool
 
 
 @contextmanager
@@ -59,10 +74,11 @@ def _capture_in_pool(
     host invalidates it) can leave its pool marked as recording, and no later capture could use it: the card then
     gets a new pool (the old one's blocks stay with it)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _POOLS:
-        _POOLS[index] = torch.cuda.graph_pool_handle()
+    if index not in _STREAMS:
         _STREAMS[index] = torch.cuda.Stream(device=index)
     stream, caller = _STREAMS[index], torch.cuda.current_stream(index)
+    if index not in _POOLS:
+        _POOLS[index] = _new_pool(index, stream)
     if warm_up is not None:
         stream.wait_stream(caller)
         with torch.cuda.stream(stream):
@@ -72,7 +88,7 @@ def _capture_in_pool(
         with _gc_paused(), torch.cuda.graph(graph, pool=_POOLS[index], stream=stream):
             yield
     except Exception:
-        _POOLS[index] = torch.cuda.graph_pool_handle()
+        del _POOLS[index]  # the next capture starts a new pool
         raise
 
 
